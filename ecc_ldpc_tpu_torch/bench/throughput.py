@@ -1,0 +1,185 @@
+"""Decoded-throughput benchmark on the card: decoded Mbit/s per GPU.
+
+Port of ecc_ldpc_tpu/bench/throughput.py. The chain is the user's: code ->
+graph -> structured encoder -> AWGN channel -> decoder, on the card, with
+random messages and noise from a seeded torch.Generator. Each try is timed
+with CUDA events around one decode of the whole batch, after a warm-up
+decode; the result is the median of the tries. The JSON line keeps the JAX
+package's BenchResult schema; `device` is the card's name.
+
+The bound (roofline_mbps) is the least time an H100 SXM could take for
+the same decode, from its published rates: the larger of the compulsory
+bytes (4 B of LLR in and 1 B of bits out per code bit per frame) over
+3.35 TB/s and the decoder's operations (12 per edge visit, for the
+iterations this batch actually ran) over 67 TFLOP/s of fp32 outside the
+tensor cores. `roofline_form` names the side that bounds it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from ..device import device_name, resolve_device
+
+NORTH_STAR_MBPS = 1000.0
+H100_HBM_BYTES_PER_S = 3.35e12
+H100_FP32_OPS_PER_S = 67e12
+OPS_PER_EDGE_VISIT = 12
+# The benchmark legs (bench.py:67-103 of the JAX package): the headline
+# rate-1/2 leg, rate 3/4 on the same decoder, and the production leg with
+# early termination and the learned schedule.
+LEGS = {
+    "headline": dict(code="dvbs2/64800/12",
+                     decoder="layered/norm:0.8125/25/noet",
+                     batch=4096, ebn0_db=1.5),
+    "r34": dict(code="dvbs2/64800/34", decoder="layered/norm:0.8125/25/noet",
+                batch=2048, ebn0_db=3.0),
+    "prod": dict(code="dvbs2/64800/12",
+                 decoder="layered/sched:dvbs2_64800_12_T25_op2",
+                 batch=2048, ebn0_db=2.5),
+}
+
+
+@dataclasses.dataclass
+class BenchResult:
+    throughput_mbps: float
+    code: str
+    decoder: str
+    batch: int
+    iters: int
+    k: int
+    n: int
+    num_edges: int
+    wall_s_per_batch: float
+    mean_iters: float
+    roofline_mbps: float
+    device: str
+    roofline_form: str
+    frame_errors: int            # frames with a wrong message bit
+    codeword_frame_errors: int   # frames with any wrong code bit
+    bound_ms: float
+    tries_s: list                # seconds of each timed decode
+
+    def json_line(self) -> str:
+        return json.dumps(
+            {
+                "metric": "decoded_throughput",
+                "value": self.throughput_mbps,
+                "unit": "Mbit/s/chip",
+                "vs_baseline": self.throughput_mbps / NORTH_STAR_MBPS,
+                "code": self.code,
+                "decoder": self.decoder,
+                "batch": self.batch,
+                "iters": self.iters,
+                "k_bits_per_frame": self.k,
+                "wall_s_per_batch": self.wall_s_per_batch,
+                "roofline_mbps": self.roofline_mbps,
+                "roofline_form": self.roofline_form,
+                "device": self.device,
+                "mean_iters": self.mean_iters,
+                "frame_errors": self.frame_errors,
+                "fer": self.frame_errors / self.batch,
+                "codeword_frame_errors": self.codeword_frame_errors,
+            }
+        )
+
+
+def decode_bound(n: int, num_edges: int, batch: int, iteration_sum: int):
+    """(seconds, "bytes" | "operations"): the least time an H100 could
+    take to decode `batch` frames that ran `iteration_sum` iterations in
+    all (batch * max_iters in fixed-iteration mode)."""
+    t_bytes = batch * n * (4 + 1) / H100_HBM_BYTES_PER_S
+    t_ops = (OPS_PER_EDGE_VISIT * num_edges * iteration_sum
+             / H100_FP32_OPS_PER_S)
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@dataclasses.dataclass
+class BenchInputs:
+    spec: object
+    graph: object
+    decode: object
+    kw: dict
+    cw: torch.Tensor   # uint8 [B, n] transmitted codewords
+    llr: torch.Tensor  # f32 [B, n] channel LLRs
+
+    def frame_errors(self, bits: torch.Tensor):
+        """(frames with a wrong message bit — the sweep runner's FER in
+        the JAX package, against which the golden curves were measured —
+        and frames with any wrong code bit)."""
+        wrong = bits != self.cw
+        k = self.spec.k  # the structured encoders are systematic
+        return (int(wrong[:, :k].any(1).sum().item()),
+                int(wrong.any(1).sum().item()))
+
+
+def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
+                device="cuda", seed: int = 0) -> BenchInputs:
+    """Code, graph, decoder, codewords and LLRs for one benchmark leg."""
+    from ..chan.awgn import make_channel
+    from ..codes.registry import get_code
+    from ..decode.api import choose_graph, get_decoder, parse_decoder_spec
+    from ..encode.structured import build_encoder
+
+    dev = resolve_device(device)
+    spec = get_code(code)
+    kw = parse_decoder_spec(decoder)
+    graph = choose_graph(spec, decoder)
+    dec = get_decoder(graph, decoder, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    msg = torch.randint(0, 2, (batch, spec.k), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    cw = build_encoder(spec)(msg)
+    llr = make_channel(spec)(gen, cw, ebn0_db)
+    return BenchInputs(spec=spec, graph=graph, decode=dec, kw=kw, cw=cw,
+                       llr=llr)
+
+
+def run_benchmark(code: str = "dvbs2/64800/12",
+                  decoder: str = "layered/norm:0.8125/25/noet",
+                  batch: int = 4096, ebn0_db: float = 1.5, device="cuda",
+                  tries: int = 5, seed: int = 0) -> BenchResult:
+    """Decoded Mbit/s on the card for one (code, decoder, batch, Eb/N0)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("run_benchmark times the card; it has no CPU mode")
+    x = make_inputs(code, decoder, batch, ebn0_db, dev, seed)
+    res = x.decode(x.llr)  # warm-up (and the build, on first use)
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x.decode(x.llr)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    wall = float(np.median(times))
+    iteration_sum = int(res.iterations.sum().item())
+    frame_errors, cw_errors = x.frame_errors(res.bits)
+    bound_s, form = decode_bound(x.spec.n, x.spec.num_edges, batch,
+                                 iteration_sum)
+    return BenchResult(
+        throughput_mbps=batch * x.spec.k / wall / 1e6,
+        code=code,
+        decoder=decoder,
+        batch=batch,
+        iters=x.kw.get("max_iters", 25),
+        k=x.spec.k,
+        n=x.spec.n,
+        num_edges=x.spec.num_edges,
+        wall_s_per_batch=wall,
+        mean_iters=iteration_sum / batch,
+        roofline_mbps=batch * x.spec.k / bound_s / 1e6,
+        device=device_name(dev),
+        roofline_form=form,
+        frame_errors=frame_errors,
+        codeword_frame_errors=cw_errors,
+        bound_ms=bound_s * 1e3,
+        tries_s=times,
+    )

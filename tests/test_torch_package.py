@@ -1,0 +1,141 @@
+"""Package rules of the port: no JAX, no silent CPU fallback, no kernel
+fallback; plus the CPU-reachable parts of the build and the benchmark."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ecc_ldpc_tpu_torch
+from ecc_ldpc_tpu_torch import _build
+from ecc_ldpc_tpu_torch.bench.throughput import (
+    LEGS,
+    BenchResult,
+    decode_bound,
+    make_inputs,
+    run_benchmark,
+)
+from ecc_ldpc_tpu_torch.codes.registry import get_code
+from ecc_ldpc_tpu_torch.decode.api import get_decoder, parse_decoder_spec
+from ecc_ldpc_tpu_torch.decode.layered_qc import (
+    layered_decode_cuda,
+    layered_decode_plain,
+    make_layered_decoder,
+)
+from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = pathlib.Path(ecc_ldpc_tpu_torch.__file__).parent
+
+
+def test_port_imports_no_jax():
+    """Importing every module of the port, and chip_smoke.py, leaves jax
+    and ecc_ldpc_tpu out of sys.modules."""
+    mods = sorted(
+        "ecc_ldpc_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ecc_ldpc_tpu')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(mods) >= 15
+
+
+@pytest.fixture(scope="module")
+def small():
+    spec = get_code("dvbs2/16200/12")
+    return spec, compile_qc_graph(spec)
+
+
+def test_entry_points_need_cuda_unless_cpu(small):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    spec, graph = small
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_layered_decoder(graph)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_decoder(graph, "layered/norm:0.8125/25/noet")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_benchmark("dvbs2/16200/12", batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_inputs("dvbs2/16200/12", "layered/norm:0.8125/2/noet", 2, 1.0)
+    with pytest.raises(ValueError, match="no CPU mode"):
+        run_benchmark("dvbs2/16200/12", batch=2, device="cpu")
+
+
+def test_cuda_wrapper_raises_on_cpu_tensor(small):
+    spec, graph = small
+    llr = torch.zeros((2, spec.n), dtype=torch.float32)
+    before = layered_decode_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        layered_decode_cuda(graph, llr, alpha=0.8125, max_iters=2)
+    assert layered_decode_cuda.launches == before
+
+
+def test_build_paths():
+    lib = _build.library_path("layered_qc")
+    assert lib.parent == ROOT / "build" / "kernels"
+    assert lib.name.startswith("liblayered_qc-") and lib.suffix == ".so"
+    assert lib == _build.library_path("layered_qc")
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    for name in _build.KERNEL_SOURCES:
+        assert (_build.CSRC / f"{name}.cu").exists()
+
+
+def test_spec_parsing_limits():
+    kw = parse_decoder_spec("layered/sched:dvbs2_64800_12_T25_op2")
+    assert kw["max_iters"] == 25 and kw["alpha"].dtype == np.float32
+    assert parse_decoder_spec("layered/norm:0.8125/25/noet") == dict(
+        kind="layered", alpha=0.8125, max_iters=25, early_term=False)
+    for bad in ("layered/norm:0.8/25;retry=spa/50", "layered/q:5:0.5/25",
+                "layered/spa/25", "layered/norm:0.8/25/cleanup"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            parse_decoder_spec(bad)
+    with pytest.raises(ValueError):
+        parse_decoder_spec("layered/norm:0.8/sched:dvbs2_64800_12_T25")
+
+
+def test_bench_inputs_on_cpu_and_bound(small):
+    spec, _ = small
+    x = make_inputs("dvbs2/16200/12", "layered/norm:0.8125/2/noet", 3, 2.0,
+                    device="cpu", seed=1)
+    assert x.cw.shape == (3, spec.n) and x.llr.dtype == torch.float32
+    assert spec.check_syndrome(x.cw.numpy())
+    res = x.decode(x.llr)
+    ref = layered_decode_plain(x.graph, x.llr, alpha=0.8125, max_iters=2,
+                               early_term=False)
+    assert torch.equal(res.bits, ref.bits)
+    # headline: 4096 frames x 25 iterations of 227,160 edges is ops-bound
+    s, form = decode_bound(64800, 227160, 4096, 4096 * 25)
+    assert form == "operations" and 4.0e-3 < s < 4.3e-3
+    s, form = decode_bound(64800, 227160, 4096, 0)
+    assert form == "bytes" and abs(s - 4096 * 64800 * 5 / 3.35e12) < 1e-12
+    assert x.frame_errors(x.cw) == (0, 0)
+    bad = x.cw.clone()
+    bad[0, -1] ^= 1
+    bad[1, 0] ^= 1
+    assert x.frame_errors(bad) == (1, 2)
+    line = BenchResult(1.0, "c", "d", 2, 25, 10, 20, 30, 0.5, 3.0, 9.0,
+                       "card", "operations", 1, 2, 0.1, [0.5]).json_line()
+    assert '"fer": 0.5' in line and '"device": "card"' in line
+    assert '"tries_s"' not in line  # the JAX package's schema, unchanged
+    assert LEGS["headline"] == dict(code="dvbs2/64800/12",
+                                    decoder="layered/norm:0.8125/25/noet",
+                                    batch=4096, ebn0_db=1.5)
+    assert sorted(LEGS) == ["headline", "prod", "r34"]
