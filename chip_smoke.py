@@ -20,6 +20,31 @@ Phases (one JSON line each; any failure raises and exits non-zero):
   5. waterfall — frame error rates at 0.95 and 1.2 dB inside bands set
      from curves/dvbs2_64800_12_tpu_golden.json (same surrogate code; a
      frame error is a wrong message bit, as the golden sweep counted).
+  6. exact kernel vs plain — the layered exact-BP kernel (spa and
+     minstar) against its plain version on the same LLRs on the card:
+     rate 1/2 fixed at 1.0 dB and track at 1.2 dB (32 frames, and 13
+     for a ragged last tile), rate 3/4 fixed at 3.0 dB, rate 9/10 fixed
+     at 4.0 dB and track at 3.8 dB (its 8-, 16- and 32-wide builds), the
+     stored trap batch with layered/spa/50, and each rule at the timed
+     shape (4096 frames). Bits, ok and iterations must be identical, and the
+     posteriors after one sweep within EXACT_MAX_ULPS.
+  7. exact kernel timed — run_benchmark on dvbs2/64800/12 with
+     layered/spa/25/noet and layered/minstar/25/noet at 4096 frames,
+     1.5 dB: ms, launches, bound, plain ms, FER <= 0.01.
+  8. sweep vs golden — run_sweep of layered/norm:0.8125/25 at 1.0, 1.05
+     and 1.1 dB (batch 2048, 100 frame errors or 32768 frames) must
+     overlap the golden FER curve (report.curves_overlap).
+  9. production inputs — the production sweep's first batch of 4096
+     frames at 1.5 dB, drawn as run_sweep draws it, through the min-sum
+     kernel and its plain version with the primary layered/norm:0.8125/50
+     (track mode); the rows it failed through the exact kernel and its
+     plain version with the fallback layered/spa/50; criteria as in 3
+     and 6.
+  10. production path — the CLI's sweep with the production retry decoder
+     layered/norm:0.8125/50;retry=layered/spa/50 at 1.5 dB, 65536 frames
+     in batches of 4096: FER <= 1.5e-4, the fallback fired, the exact
+     kernel launched; then the 8 trap frames through the same decoder:
+     the primary fails all 8 and the retry recovers each codeword.
 Then the kernels line, nvidia-smi's line, and the result line last.
 """
 from __future__ import annotations
@@ -28,19 +53,42 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from ecc_ldpc_tpu_torch import _build
-from ecc_ldpc_tpu_torch.bench.throughput import LEGS, make_inputs, run_benchmark
+from ecc_ldpc_tpu_torch.bench.throughput import (
+    EXACT_LEGS,
+    LEGS,
+    PRODUCTION_SWEEP,
+    make_inputs,
+    run_benchmark,
+)
+from ecc_ldpc_tpu_torch.cli.main import main as cli_main
 from ecc_ldpc_tpu_torch.codes.registry import get_code
-from ecc_ldpc_tpu_torch.decode.api import choose_graph, parse_decoder_spec
+from ecc_ldpc_tpu_torch.decode.api import (
+    choose_graph,
+    get_decoder,
+    parse_decoder_spec,
+)
 from ecc_ldpc_tpu_torch.decode.layered_qc import (
+    exact_with_posteriors_cuda,
     layered_decode_cuda,
     layered_decode_plain,
+    layered_exact_cuda,
+    plain_with_posteriors,
 )
+from ecc_ldpc_tpu_torch.sim import (
+    PointResult,
+    StoppingRule,
+    SweepSpec,
+    curves_overlap,
+    run_sweep,
+)
+from ecc_ldpc_tpu_torch.sim.runner import Pipeline, step_seed
 
 ROOT = pathlib.Path(__file__).resolve().parent
 # FER limits: the headline and production legs decode at operating points
@@ -67,10 +115,42 @@ WATERFALL = [(0.95, ">=", 0.5), (1.2, "<=", 0.02)]
 WATERFALL_DECODER = "layered/norm:0.8125/25"
 WATERFALL_FRAMES = 2048
 TRAP_FILE = ROOT / "tests" / "data" / "trap_batch_dvbs2_64800_12.npz"
+GOLDEN = ROOT / "curves" / "dvbs2_64800_12_tpu_golden.json"
+# exact kernel vs plain on the card: (name, code, spec with {cn}, Eb/N0, B)
+EXACT_CASES = [
+    ("r12_fixed_1.0dB", "dvbs2/64800/12", "layered/{cn}/25/noet", 1.0, 32),
+    ("r12_track_1.2dB", "dvbs2/64800/12", "layered/{cn}/25", 1.2, 32),
+    # a ragged last tile, as the retry fallback's batches have
+    ("r12_track_1.2dB_13frames", "dvbs2/64800/12", "layered/{cn}/25", 1.2, 13),
+    ("r34_fixed_3.0dB", "dvbs2/64800/34", "layered/{cn}/25/noet", 3.0, 32),
+    ("r910_fixed_4.0dB", "dvbs2/64800/910", "layered/{cn}/25/noet", 4.0, 32),
+    ("r910_track_3.8dB", "dvbs2/64800/910", "layered/{cn}/25", 3.8, 32),
+]
+# Posteriors after one fixed sweep may differ from the plain version's by
+# at most this many f32 ulps; bits, ok and iterations must be identical.
+EXACT_MAX_ULPS = 0
+EXACT_FER_MAX = 0.01
+SWEEP_DECODER = "layered/norm:0.8125/25"
+SWEEP_EBN0 = (1.0, 1.05, 1.1)
+# the production point: the reference saw 0 frame errors in 1.0M frames
+# with retry and FER 3.9e-5 without at 1.5 dB (README.md); 65536 frames
+PRODUCTION_FRAMES = 65536
+PRODUCTION_FER_MAX = 1.5e-4
 
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def smi_sample() -> str:
+    """The card's SM and memory clocks, power draw, temperature and active
+    clock-limit reasons, as nvidia-smi prints them (its error text if the
+    query fails), to read beside a timing."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu,clocks_throttle_reasons.active",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return (out.stdout or out.stderr).strip()
 
 
 def timed(fn, *args, **kw):
@@ -82,8 +162,9 @@ def timed(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def compare(graph, llr, kw) -> dict:
-    """Kernel and plain version on the same LLRs; raises unless identical."""
+def compare(graph, llr, kw):
+    """Kernel and plain version on the same LLRs; raises unless identical.
+    Returns (the numbers to print, the kernel's DecodeResult)."""
     dkw = {k: kw[k] for k in ("alpha", "beta", "max_iters", "early_term")
            if k in kw}
     kern, kern_ms = timed(layered_decode_cuda, graph, llr, **dkw)
@@ -99,7 +180,47 @@ def compare(graph, llr, kw) -> dict:
         raise AssertionError(f"kernel and plain version differ (max abs err {err})")
     return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=float(err),
                 frames=llr.shape[0], ok_frames=int(kern.ok.sum().item()),
+                mean_iters=kern.iterations.float().mean().item()), kern
+
+
+def _ordered(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int64 on a line where adjacent floats differ by 1 (+0 = -0)."""
+    i = x.contiguous().view(torch.int32).long()
+    return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+def compare_exact(graph, llr, kw) -> dict:
+    """Exact kernel and plain version on the same LLRs: raises unless bits,
+    ok and iterations are identical and, after one fixed sweep, the
+    posteriors are within EXACT_MAX_ULPS."""
+    dkw = dict(max_iters=kw.get("max_iters", 25),
+               early_term=kw.get("early_term", True), cn=kw["cn"])
+    (kern, ktot), kern_ms = timed(exact_with_posteriors_cuda, graph, llr, **dkw)
+    (plain, ptot), plain_ms = timed(plain_with_posteriors, graph, llr, **dkw)
+    same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
+            and torch.equal(kern.iterations, plain.iterations))
+    max_abs = (ktot - ptot).abs().max().item()
+    one = dict(dkw, max_iters=1, early_term=False)
+    _, k1 = exact_with_posteriors_cuda(graph, llr, **one)
+    _, p1 = plain_with_posteriors(graph, llr, **one)
+    ulps1 = int((_ordered(k1) - _ordered(p1)).abs().max().item())
+    if not same:
+        raise AssertionError(
+            f"exact kernel and plain version decide differently (posterior "
+            f"max abs err {max_abs}, one-sweep ulps {ulps1})")
+    if ulps1 > EXACT_MAX_ULPS:
+        raise AssertionError(f"one-sweep posteriors {ulps1} ulps apart")
+    return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                one_sweep_max_ulps=ulps1, frames=llr.shape[0],
+                ok_frames=int(kern.ok.sum().item()),
                 mean_iters=kern.iterations.float().mean().item())
+
+
+def point_line(pr: PointResult) -> dict:
+    return dict(ebn0_db=pr.ebn0_db, frames=pr.frames,
+                frame_errors=pr.frame_errors, fer=pr.fer, fer_ci=pr.fer_ci,
+                bit_errors=pr.bit_errors, ber=pr.ber,
+                mean_iters=pr.mean_iters, wall_s=pr.wall_s)
 
 
 def main() -> int:
@@ -124,13 +245,13 @@ def main() -> int:
     max_err = 0.0
     for name, code, spec_str, ebn0 in PARITY_CASES:
         x = make_inputs(code, spec_str, 32, ebn0, dev, seed=1)
-        r = compare(x.graph, x.llr, x.kw)
+        r, _ = compare(x.graph, x.llr, x.kw)
         max_err = max(max_err, r["max_abs_err"])
         emit("kernel_vs_plain", case=name, **r)
     trap = np.load(TRAP_FILE)
     spec12 = get_code("dvbs2/64800/12")
     trap_spec = "layered/sched:dvbs2_64800_12_T25_op2"
-    r = compare(choose_graph(spec12, trap_spec),
+    r, _ = compare(choose_graph(spec12, trap_spec),
                 torch.as_tensor(trap["llr"], device=dev),
                 parse_decoder_spec(trap_spec))
     max_err = max(max_err, r["max_abs_err"])
@@ -139,7 +260,8 @@ def main() -> int:
     leg_parity = {}
     for leg, cfg in LEGS.items():
         x = make_inputs(**cfg, device=dev, seed=0)
-        leg_parity[leg] = r = compare(x.graph, x.llr, x.kw)
+        r, _ = compare(x.graph, x.llr, x.kw)
+        leg_parity[leg] = r
         max_err = max(max_err, r["max_abs_err"])
         emit("kernel_vs_plain", case=f"{leg}_shape", **r)
         del x
@@ -149,9 +271,11 @@ def main() -> int:
     results = {}
     for leg, cfg in LEGS.items():
         before = layered_decode_cuda.launches
+        smi_before = smi_sample()
         res = run_benchmark(**cfg, device=dev)
         fer = res.frame_errors / res.batch
-        emit("main_path", leg=leg, mbps=res.throughput_mbps,
+        emit("main_path", leg=leg, smi_before=smi_before,
+             smi_after=smi_sample(), mbps=res.throughput_mbps,
              s_per_batch=res.wall_s_per_batch, mean_iters=res.mean_iters,
              tries_ms=[t * 1e3 for t in res.tries_s],
              frame_errors=res.frame_errors, frames=res.batch, fer=fer,
@@ -180,8 +304,148 @@ def main() -> int:
         if not (fer >= lim if op == ">=" else fer <= lim):
             raise AssertionError(f"FER {fer} at {ebn0} dB outside {op} {lim}")
 
+    # 6. the exact-BP kernel against its plain version
+    exact_err = {"spa": 0.0, "minstar": 0.0}
+    for cn in ("spa", "minstar"):
+        for name, code, spec_str, ebn0, B in EXACT_CASES:
+            spec_str = spec_str.format(cn=cn)
+            x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+            r = compare_exact(x.graph, x.llr, x.kw)
+            exact_err[cn] = max(exact_err[cn], r["max_abs_err"])
+            emit("exact_vs_plain", case=f"{cn}_{name}", decoder=spec_str, **r)
+    trap_spa = "layered/spa/50"
+    r = compare_exact(choose_graph(spec12, trap_spa),
+                      torch.as_tensor(trap["llr"], device=dev),
+                      parse_decoder_spec(trap_spa))
+    exact_err["spa"] = max(exact_err["spa"], r["max_abs_err"])
+    emit("exact_vs_plain", case="spa_trap_batch_track_50", decoder=trap_spa, **r)
+    exact_parity = {}
+    for cn in ("spa", "minstar"):
+        x = make_inputs(**EXACT_LEGS[cn], device=dev, seed=0)
+        exact_parity[cn] = r = compare_exact(x.graph, x.llr, x.kw)
+        exact_err[cn] = max(exact_err[cn], r["max_abs_err"])
+        emit("exact_vs_plain", case=f"{cn}_bench_shape", **r)
+        del x
+
+    # 7. the exact kernel timed at full width; each rule's count is read
+    # around its own run
+    exact_bench, exact_bench_launches = {}, {}
+    for cn in ("spa", "minstar"):
+        layered_exact_cuda.launches = 0
+        smi_before = smi_sample()
+        res = run_benchmark(**EXACT_LEGS[cn], device=dev)
+        exact_bench_launches[cn] = layered_exact_cuda.launches
+        fer = res.frame_errors / res.batch
+        emit("exact_bench", cn=cn, smi_before=smi_before,
+             smi_after=smi_sample(), ms=res.wall_s_per_batch * 1e3,
+             mbps=res.throughput_mbps,
+             tries_ms=[t * 1e3 for t in res.tries_s],
+             launches=exact_bench_launches[cn], bound_ms=res.bound_ms,
+             bound_by=res.roofline_form,
+             plain_ms=exact_parity[cn]["plain_ms"], frame_errors=res.frame_errors,
+             frames=res.batch, fer=fer,
+             codeword_frame_errors=res.codeword_frame_errors)
+        if not fer <= EXACT_FER_MAX:
+            raise AssertionError(f"{cn}: FER {fer} above {EXACT_FER_MAX}")
+        if exact_bench_launches[cn] <= 0:
+            raise AssertionError(f"{cn}: the exact kernel never launched")
+        exact_bench[cn] = res
+
+    # 8. the sweep against the golden curve
+    with open(GOLDEN) as f:
+        golden = [PointResult.from_json(d) for d in json.load(f)]
+    t0 = time.perf_counter()
+    swept = run_sweep(SweepSpec(
+        code="dvbs2/64800/12", decoder=SWEEP_DECODER, ebn0_db=SWEEP_EBN0,
+        batch=2048, stopping=StoppingRule(min_frame_errors=100,
+                                          max_frames=32768)), device=dev)
+    overlap = curves_overlap(swept, golden, "fer")
+    for pr in swept:
+        g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+        emit("sweep_vs_golden", decoder=SWEEP_DECODER, **point_line(pr),
+             golden_fer=g.fer, golden_fer_ci=g.fer_ci)
+    emit("sweep_vs_golden", overlap=overlap,
+         seconds=time.perf_counter() - t0)
+    if not overlap:
+        raise AssertionError("the sweep's FER curve misses the golden curve")
+
+    # 9. the production sweep's own inputs: its first batch, as run_sweep
+    # draws it, through the primary's kernel and plain version; then the
+    # rows the primary failed, as with_retry gathers them, through the
+    # fallback's
+    prod_spec = SweepSpec(code=PRODUCTION_SWEEP["code"],
+                          decoder=PRODUCTION_SWEEP["decoder"],
+                          ebn0_db=(PRODUCTION_SWEEP["ebn0_db"],),
+                          batch=PRODUCTION_SWEEP["batch"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(step_seed(prod_spec.seed, 0, 0, 0))
+    _, llr = Pipeline.build(prod_spec, dev).frames(gen, prod_spec.ebn0_db[0])
+    primary_spec, fallback_spec = prod_spec.decoder.split(";retry=")
+    graph = choose_graph(spec12, prod_spec.decoder)
+    r, kern = compare(graph, llr, parse_decoder_spec(primary_spec))
+    max_err = max(max_err, r["max_abs_err"])
+    emit("kernel_vs_plain", case="production_first_batch",
+         decoder=primary_spec, **r)
+    failed = torch.nonzero(~kern.ok).squeeze(1)
+    if len(failed) == 0:
+        raise AssertionError("the production batch sent no frame to retry")
+    r = compare_exact(graph, llr.index_select(0, failed),
+                      parse_decoder_spec(fallback_spec))
+    exact_err["spa"] = max(exact_err["spa"], r["max_abs_err"])
+    emit("exact_vs_plain", case="spa_production_fallback_rows",
+         decoder=fallback_spec, **r)
+    del llr, kern
+
+    # 10. the production path through the CLI: counts from this run only
+    layered_decode_cuda.launches = 0
+    layered_exact_cuda.launches = 0
+    layered_exact_cuda.frames = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "production.json"
+        t0 = time.perf_counter()
+        rc = cli_main([
+            "sweep", "--code", PRODUCTION_SWEEP["code"],
+            "--decoder", PRODUCTION_SWEEP["decoder"],
+            "--ebn0", str(PRODUCTION_SWEEP["ebn0_db"]),
+            "--batch", str(PRODUCTION_SWEEP["batch"]),
+            "--min-frame-errors", "1000000",
+            "--max-frames", str(PRODUCTION_FRAMES), "--out", str(out)])
+        wall = time.perf_counter() - t0
+        (prod,) = [PointResult.from_json(d)
+                   for d in json.loads(out.read_text())]
+    sweep_launches = {"layered_qc": layered_decode_cuda.launches,
+                      "layered_exact": layered_exact_cuda.launches}
+    emit("production", decoder=prod.decoder, rc=rc, **point_line(prod),
+         seconds=wall, launches=sweep_launches,
+         frames_to_fallback=layered_exact_cuda.frames)
+    if rc != 0 or prod.frames != PRODUCTION_FRAMES:
+        raise AssertionError(f"production sweep: rc {rc}, {prod.frames} frames")
+    if not prod.fer <= PRODUCTION_FER_MAX:
+        raise AssertionError(f"production FER {prod.fer} above "
+                             f"{PRODUCTION_FER_MAX}")
+    if sweep_launches["layered_exact"] <= 0 or layered_exact_cuda.frames <= 0:
+        raise AssertionError("the retry fallback never ran: no exact launch")
+    if sweep_launches["layered_qc"] <= 0:
+        raise AssertionError("the production primary never launched")
+    # the stored trap frames through the same decoder on the card
+    production = PRODUCTION_SWEEP["decoder"]
+    graph = choose_graph(spec12, production)
+    llr = torch.as_tensor(trap["llr"], device=dev)
+    cw = torch.as_tensor(trap["cw"], device=dev)
+    primary = get_decoder(graph, production.split(";retry=")[0], device=dev)(llr)
+    retried = get_decoder(graph, production, device=dev)(llr)
+    emit("production_trap", frames=len(cw),
+         primary_ok=int(primary.ok.sum().item()),
+         retry_ok=int(retried.ok.sum().item()),
+         retry_exact=bool(torch.equal(retried.bits, cw)),
+         iterations=retried.iterations.tolist())
+    if bool(primary.ok.any()):
+        raise AssertionError("the primary decodes a stored trap frame")
+    if not (bool(retried.ok.all()) and torch.equal(retried.bits, cw)):
+        raise AssertionError("the retry decoder misses a trap codeword")
+
     hl = results["headline"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "layered_qc",
         "route": "cuda",
         "source": "ecc_ldpc_tpu_torch/csrc/layered_qc.cu",
@@ -193,7 +457,26 @@ def main() -> int:
         "bound_ms": hl.bound_ms,
         "bound_by": hl.roofline_form,
         "library_ms": None,
-    }]}), flush=True)
+    }]
+    for cn in ("spa", "minstar"):
+        res = exact_bench[cn]
+        kernels.append({
+            "name": f"layered_exact:{cn}",
+            "route": "cuda",
+            "source": "ecc_ldpc_tpu_torch/csrc/layered_exact.cu",
+            "replaces": "ecc_ldpc_tpu/decode/pallas/layered_qc.py:501",
+            # spa: the production sweep (the retry fallback); minstar: its
+            # own timed run, the only path that decodes with it
+            "launches": (sweep_launches["layered_exact"] if cn == "spa"
+                         else exact_bench_launches[cn]),
+            "max_abs_err": exact_err[cn],
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": exact_parity[cn]["plain_ms"],
+            "bound_ms": res.bound_ms,
+            "bound_by": res.roofline_form,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

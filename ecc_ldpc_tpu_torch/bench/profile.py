@@ -1,15 +1,18 @@
-"""Where the card's time goes in each benchmark leg: torch.profiler over a
-few decodes, device time summed by kernel name, and the device's idle
-share of the window. Needs one CUDA card:
+"""Where the card's time goes in each benchmark leg and in one step of
+the production sweep: torch.profiler over a few calls, device time summed
+by kernel name, and the device's idle share of the window. Needs one CUDA
+card:
 
     python -m ecc_ldpc_tpu_torch.bench.profile
 
-Prints one JSON line per leg. The window is the host time of `steps`
-back-to-back decode calls ending in a synchronize, after a warm-up
-decode; busy time is the sum of the device activities (kernels, copies,
-fills) the profiler recorded in it, so idle = 1 - busy / window. Run with
-tracing off, the same decodes are timed by bench/throughput.py; the
-difference is the profiler's cost.
+Prints one JSON line per leg (the three min-sum legs, the two exact-BP
+legs) and one for the sweep step (random message, encode, channel, the
+production retry decoder, tally). The window is the host time of `steps`
+back-to-back calls ending in a synchronize, after a warm-up call; busy
+time is the sum of the device activities (kernels, copies, fills) the
+profiler recorded in it, so idle = 1 - busy / window. Run with tracing
+off, the same decodes are timed by bench/throughput.py; the difference is
+the profiler's cost.
 """
 from __future__ import annotations
 
@@ -20,19 +23,17 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .throughput import LEGS, make_inputs
+from .throughput import EXACT_LEGS, LEGS, PRODUCTION_SWEEP, make_inputs
 
 
-def profile_leg(code: str, decoder: str, batch: int, ebn0_db: float,
-                steps: int = 3) -> dict:
-    dev = torch.device("cuda", 0)
-    x = make_inputs(code, decoder, batch, ebn0_db, dev, seed=0)
-    x.decode(x.llr)
+def _profiled(fn, steps: int, dev: torch.device, top: int = 8) -> dict:
+    """Breakdown of `steps` calls of fn() after one warm-up call."""
+    fn()
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            x.decode(x.llr)
+            fn()
         torch.cuda.synchronize(dev)
         window_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.defaultdict(float)
@@ -40,23 +41,58 @@ def profile_leg(code: str, decoder: str, batch: int, ebn0_db: float,
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "window_ms": window_ms, "steps": steps,
         "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / window_ms if by_name else None,
-        "device_ms_by_name": {k[:80]: v for k, v in top},
+        "device_ms_by_name": {k[:80]: v for k, v in ranked},
     }
+
+
+def profile_leg(code: str, decoder: str, batch: int, ebn0_db: float,
+                steps: int = 3) -> dict:
+    dev = torch.device("cuda", 0)
+    x = make_inputs(code, decoder, batch, ebn0_db, dev, seed=0)
+    return _profiled(lambda: x.decode(x.llr), steps, dev)
+
+
+def profile_sweep_step(code: str, decoder: str, batch: int, ebn0_db: float,
+                       steps: int = 4) -> dict:
+    """`steps` steps of run_sweep's pipeline, each with the noise stream of
+    the next step of grid point 0 (seed 0), as the sweep draws them."""
+    from ..decode.layered_qc import layered_exact_cuda
+    from ..sim.runner import Pipeline, SweepSpec, step_seed
+
+    dev = torch.device("cuda", 0)
+    pipe = Pipeline.build(SweepSpec(code=code, decoder=decoder,
+                                    ebn0_db=(ebn0_db,), batch=batch), dev)
+    counters, step = [], iter(range(steps + 1))
+
+    def one():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(step_seed(0, 0, 0, next(step)))
+        counters.append(pipe.step(gen, ebn0_db))
+
+    before = layered_exact_cuda.frames
+    out = _profiled(one, steps, dev, top=12)
+    out["frame_errors"] = sum(c[1] for c in counters)
+    out["frames"] = batch * len(counters)
+    # frames the exact kernel decoded: the retry fallback's load, if any
+    out["exact_kernel_frames"] = layered_exact_cuda.frames - before
+    return out
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench.profile needs a CUDA card")
-    for leg, cfg in LEGS.items():
+    name = torch.cuda.get_device_name(0)
+    for leg, cfg in {**LEGS, **EXACT_LEGS}.items():
         out = profile_leg(**cfg)
-        print(json.dumps({"leg": leg, **out,
-                          "device": torch.cuda.get_device_name(0)}),
-              flush=True)
+        print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
+    out = profile_sweep_step(**PRODUCTION_SWEEP)
+    print(json.dumps({"leg": "production_sweep_step", **out,
+                      "device": name}), flush=True)
     return 0
 
 

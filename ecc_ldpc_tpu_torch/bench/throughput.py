@@ -10,9 +10,12 @@ package's BenchResult schema; `device` is the card's name.
 The bound (roofline_mbps) is the least time an H100 SXM could take for
 the same decode, from its published rates: the larger of the compulsory
 bytes (4 B of LLR in and 1 B of bits out per code bit per frame) over
-3.35 TB/s and the decoder's operations (12 per edge visit, for the
-iterations this batch actually ran) over 67 TFLOP/s of fp32 outside the
-tensor cores. `roofline_form` names the side that bounds it.
+3.35 TB/s and the decoder's operations, for the iterations this batch
+actually ran, of the check-node rule it decoded (decode_ops): the larger
+of the arithmetic over 67 TFLOP/s of fp32 outside the tensor cores and
+the transcendentals (exp, log, tanh, log1p of the exact rules) over the
+special-function units' 4.18e12 results/s, since the two units issue in
+parallel. `roofline_form` names the side that bounds it.
 """
 from __future__ import annotations
 
@@ -27,6 +30,9 @@ from ..device import device_name, resolve_device
 NORTH_STAR_MBPS = 1000.0
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_FP32_OPS_PER_S = 67e12
+# special-function results per second: 16 per clock per SM (Hopper's
+# SFU rate), 132 SMs, 1.98 GHz boost clock
+H100_SFU_PER_S = 16 * 132 * 1.98e9
 OPS_PER_EDGE_VISIT = 12
 # The benchmark legs (bench.py:67-103 of the JAX package): the headline
 # rate-1/2 leg, rate 3/4 on the same decoder, and the production leg with
@@ -41,6 +47,18 @@ LEGS = {
                  decoder="layered/sched:dvbs2_64800_12_T25_op2",
                  batch=2048, ebn0_db=2.5),
 }
+# The exact-BP kernel's legs: the headline's code, batch and Eb/N0 with
+# each exact rule, fixed 25 iterations.
+EXACT_LEGS = {
+    cn: dict(code="dvbs2/64800/12", decoder=f"layered/{cn}/25/noet",
+             batch=4096, ebn0_db=1.5)
+    for cn in ("spa", "minstar")
+}
+# The production sweep point: the floor program's retry decoder at the
+# 1.5 dB operating point, in batches of 4096 frames.
+PRODUCTION_SWEEP = dict(code="dvbs2/64800/12",
+                        decoder="layered/norm:0.8125/50;retry=layered/spa/50",
+                        batch=4096, ebn0_db=1.5)
 
 
 @dataclasses.dataclass
@@ -87,13 +105,44 @@ class BenchResult:
         )
 
 
-def decode_bound(n: int, num_edges: int, batch: int, iteration_sum: int):
+def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum"):
+    """(transcendentals, arithmetic operations) of one iteration of one
+    frame under check-node rule `cn`, for E edges and m checks (every
+    check of degree >= 2):
+      minsum   0; 12 per edge visit (pass 1: subtract, abs, min, max, min,
+               sign xor; pass 2: abs-compare, select, xor, and, or, add).
+      spa      5 per edge visit (tanh and log in pass 1; exp and two log1p
+               in pass 2, log|tanh| kept from pass 1); 14 arithmetic
+               (pass 1: subtract, abs, max, min, halve, accumulate, sign
+               xor; pass 2: subtract, clip, subtract, xor, and, or, add).
+      minstar  3(d-2) box-plus per check of degree d (forward prefixes,
+               backward suffix and the middle slots' combinations), each
+               2 exp + 2 log1p and 16 arithmetic (two abs, min, two
+               compares, xor, select, add, abs, negate, subtract, abs,
+               negate, subtract, multiply, add); plus 4 per edge visit
+               (subtract, clip low and high, add): 12(E - 2m) and
+               48(E - 2m) + 4E."""
+    E, m = num_edges, num_checks
+    if cn == "minsum":
+        return 0, OPS_PER_EDGE_VISIT * E
+    if cn == "spa":
+        return 5 * E, 14 * E
+    if cn == "minstar":
+        return 12 * (E - 2 * m), 48 * (E - 2 * m) + 4 * E
+    raise KeyError(f"cn must be minsum/spa/minstar, got {cn!r}")
+
+
+def decode_bound(n: int, num_edges: int, batch: int, iteration_sum: int,
+                 cn: str = "minsum", num_checks: int = 0):
     """(seconds, "bytes" | "operations"): the least time an H100 could
     take to decode `batch` frames that ran `iteration_sum` iterations in
-    all (batch * max_iters in fixed-iteration mode)."""
+    all (batch * max_iters in fixed-iteration mode) with rule `cn`. The
+    special-function units and the fp32 pipes run side by side, so the
+    operations take the longer of the two, not their sum."""
     t_bytes = batch * n * (4 + 1) / H100_HBM_BYTES_PER_S
-    t_ops = (OPS_PER_EDGE_VISIT * num_edges * iteration_sum
-             / H100_FP32_OPS_PER_S)
+    trans, arith = decode_ops(num_edges, num_checks, cn)
+    t_ops = iteration_sum * max(trans / H100_SFU_PER_S,
+                                arith / H100_FP32_OPS_PER_S)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -163,7 +212,8 @@ def run_benchmark(code: str = "dvbs2/64800/12",
     iteration_sum = int(res.iterations.sum().item())
     frame_errors, cw_errors = x.frame_errors(res.bits)
     bound_s, form = decode_bound(x.spec.n, x.spec.num_edges, batch,
-                                 iteration_sum)
+                                 iteration_sum, x.kw.get("cn", "minsum"),
+                                 x.spec.m)
     return BenchResult(
         throughput_mbps=batch * x.spec.k / wall / 1e6,
         code=code,

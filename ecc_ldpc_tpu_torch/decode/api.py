@@ -5,21 +5,26 @@ ecc_ldpc_tpu/decode/api.py for the layered family).
   layered/norm:0.8125/25             early termination (exact stop rule)
   layered/offset:0.15/25             offset min-sum
   layered/sched:dvbs2_64800_12_T25_op2   learned per-iteration schedule
+  layered/spa/50, layered/minstar/25 layered exact BP (tanh rule, box-plus)
+  layered/norm:0.8125/50;retry=layered/spa/50
+                                     frames the primary fails are decoded
+                                     again by the fallback (with_retry)
 
 The port has one decoder per device and no backend choice: a CUDA tensor
-goes through the CUDA kernel, a CPU tensor through the plain version.
+goes through the CUDA kernels, a CPU tensor through the plain version.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from .layered_qc import make_layered_decoder
+from .types import DecodeResult
 
 # decoder-spec parts the JAX package has and the port does not yet
 _WAITING = {
-    "retry": "ROADMAP.md Queue 1 step 10 (post-processing: with_retry)",
     "cleanup": "ROADMAP.md Queue 1 step 10 (post-processing: cleanup)",
     "q:": "ROADMAP.md Queue 1 step 11 (quantization emulation)",
-    "spa": "ROADMAP.md Queue 2 K1c (layered exact BP)",
-    "minstar": "ROADMAP.md Queue 2 K1c (layered exact BP)",
     "kind": "ROADMAP.md Queue 1 step 8 (flooding decoders) and step 10 "
             "(bit flipping)",
 }
@@ -34,10 +39,11 @@ def parse_decoder_spec(spec: str) -> dict:
     """Parse a compact decoder-spec string into make_decoder kwargs.
 
     'sched:NAME' loads a shipped learned schedule as per-iteration
-    alpha/beta arrays; an explicit iteration count may truncate it."""
-    if ";retry=" in spec:
-        raise _waiting("retry", spec)
-    parts = spec.split("/")
+    alpha/beta arrays; an explicit iteration count may truncate it. A
+    ';retry=FALLBACK' suffix is handled by get_decoder; here it is
+    stripped, so callers that only inspect the spec see the PRIMARY's
+    kwargs."""
+    parts = spec.split(";retry=")[0].split("/")
     kind = parts[0]
     kw: dict = {"kind": kind}
     sched = None
@@ -50,10 +56,8 @@ def parse_decoder_spec(spec: str) -> dict:
             raise _waiting("q:", spec)
         elif p.startswith("sched:"):
             sched = p[6:]
-        elif p in ("spa", "minstar") and kind == "layered":
-            raise _waiting(p, spec)
-        elif p == "minsum" and kind == "layered":
-            pass  # the layered rule the port runs
+        elif p in ("spa", "minstar", "minsum") and kind == "layered":
+            kw["cn"] = p  # layered sweep with this check-node rule
         elif p == "noet":
             kw["early_term"] = False
         elif p == "cleanup":
@@ -85,26 +89,77 @@ def parse_decoder_spec(spec: str) -> dict:
 
 def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
                  max_iters: int = 25, early_term: bool = True,
-                 device="cuda"):
+                 cn: str = "minsum", device="cuda"):
     """Build `decode(llr[B, n]) -> DecodeResult` for one graph."""
     if kind != "layered":
         raise _waiting("kind", f"{kind}/...")
     return make_layered_decoder(
         graph, alpha=alpha, beta=beta, max_iters=max_iters,
-        early_term=early_term, device=device,
+        early_term=early_term, cn=cn, device=device,
     )
 
 
+def _split_retry(spec: str):
+    """(primary, fallback) of 'PRIMARY;retry=FALLBACK', both non-empty."""
+    primary, fallback = spec.split(";retry=", 1)
+    if not primary or not fallback:
+        raise ValueError(
+            f"{spec!r}: a retry spec is 'PRIMARY;retry=FALLBACK', both "
+            f"decoder specs")
+    return primary, fallback
+
+
 def get_decoder(graph, spec: str, device="cuda", **overrides):
-    """Build a decoder from a spec string (see the module docstring)."""
+    """Build a decoder from a spec string (see the module docstring).
+
+    'PRIMARY;retry=FALLBACK' wraps the primary in with_retry on the same
+    graph and device; the wrapper reads the per-frame ok flags on the
+    host, so it carries `host_level = True` as in the JAX package."""
+    if ";retry=" in spec:
+        primary_spec, fallback_spec = _split_retry(spec)
+        dec = with_retry(get_decoder(graph, primary_spec, device, **overrides),
+                         get_decoder(graph, fallback_spec, device, **overrides))
+        dec.host_level = True
+        return dec
     kw = parse_decoder_spec(spec)
     kw.update(overrides)
     return make_decoder(graph, device=device, **kw)
 
 
+def with_retry(primary, fallback):
+    """Production wrapper (ecc_ldpc_tpu/decode/api.py:377-425): decode
+    with `primary`; the frames it fails (ok=False) are decoded again by
+    `fallback`, and every retried row takes the fallback's bits and ok
+    (even where the fallback fails too, as the reference's _combine does)
+    and the sum of both decoders' iterations.
+
+    Only the per-frame ok flags go to the host; the failed rows are
+    gathered and the results scattered back on the device. The JAX
+    package pads the failed rows to buckets of 32 so the TPU compiles the
+    fallback once; nothing here compiles per shape, and no decoder mixes
+    frames, so the fallback gets exactly the failed rows."""
+
+    def decode(llr: torch.Tensor) -> DecodeResult:
+        res = primary(llr)
+        bad = np.flatnonzero(~res.ok.cpu().numpy())
+        if len(bad) == 0:
+            return res
+        idx = torch.as_tensor(bad, device=llr.device)
+        retry = fallback(llr.index_select(0, idx))
+        iters = res.iterations.index_select(0, idx) + retry.iterations
+        return DecodeResult(
+            bits=res.bits.index_copy(0, idx, retry.bits),
+            ok=res.ok.index_copy(0, idx, retry.ok),
+            iterations=res.iterations.index_copy(0, idx, iters),
+        )
+
+    return decode
+
+
 def choose_graph(code_spec, decoder_spec: str):
     """Compile the graph view a decoder spec needs: the QC block view for
-    the layered decoders (raises clearly on non-QC codes)."""
+    the layered decoders (raises clearly on non-QC codes). A ';retry='
+    suffix shares the primary's graph."""
     from ..graph.qc import compile_qc_graph
 
     kind = parse_decoder_spec(decoder_spec)["kind"]

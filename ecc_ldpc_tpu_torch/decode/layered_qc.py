@@ -1,18 +1,26 @@
-"""Layered normalized/offset min-sum on circulant QC graphs: the plain
-PyTorch version and the wrapper of its CUDA kernel (csrc/layered_qc.cu).
+"""Layered decoding on circulant QC graphs: the plain PyTorch version and
+the wrappers of its two CUDA kernels (csrc/layered_qc.cu, min-sum;
+csrc/layered_exact.cu, exact BP).
 
 `layered_decode_plain` ports ecc_ldpc_tpu/decode/xla/layered.py::
-decode_layered for the min-sum rule with signbit sign semantics on graphs
-with no duplicate column inside a layer (every DVB-S2, 802.11n, WiMAX and
-5G NR table): fixed-iteration mode (`early_term=False`, exactly max_iters
-sweeps) and track mode (per-frame freeze on the exact "every layer parity
-passed and no posterior changed sign" rule), with scalar or per-iteration
-alpha/beta. It is the CPU path and the card's yardstick.
+decode_layered with signbit sign semantics on graphs with no duplicate
+column inside a layer (every DVB-S2, 802.11n, WiMAX and 5G NR table):
+fixed-iteration mode (`early_term=False`, exactly max_iters sweeps) and
+track mode (per-frame freeze on the exact "every layer parity passed and
+no posterior changed sign" rule). The check-node rule `cn` is "minsum"
+(normalized/offset, scalar or per-iteration alpha/beta), or one of the
+exact-BP rules "spa" (tanh rule, running log|tanh| sum) and "minstar"
+(box-plus forward/backward scans), which ignore alpha/beta. It is the CPU
+path and the card's yardstick.
 
-`layered_decode_cuda` launches the kernel that replaces
-ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel. Both give bit-identical
-bits, ok and iterations in f32: the same operations in the same order, no
-fused multiply-add, no reduction across frames.
+`layered_decode_cuda` (min-sum) and `layered_exact_cuda` (spa, minstar)
+launch the kernels that replace
+ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel's `sweep_delta` and
+`sweep_exact`; `make_layered_decoder` picks one by rule. Min-sum is
+bit-identical with the plain version in f32 (same
+operations in the same order, no fused multiply-add, no reduction across
+frames); the exact rules are too wherever the card's expf, logf, tanhf
+and log1pf are the ones PyTorch's CUDA elementwise ops call.
 
 Both visit block-rows in QCGraph.layer_order and each row's edges in
 layer_edges order, as the JAX package does.
@@ -29,15 +37,27 @@ from ..graph.qc import QCGraph
 from .types import DecodeResult
 
 _MAG_CAP = 1e12
-MAX_DEG = 32    # the kernel's largest row degree (csrc/layered_qc.cu)
-_FT = 8         # frames per CUDA block, the kernel's FT
+_SPA_TANH_CLIP = 1.0 - 1e-7  # keeps 2*atanh finite (layered.py:86)
+_MINSTAR_IDENTITY = 1e9      # box-plus identity: a degree-1 row's message
+_SIGN = -(1 << 31)           # the f32 sign bit as an int32
+CN_RULES = ("minsum", "spa", "minstar")
+MAX_DEG = 32    # the kernels' largest row degree (csrc/*.cu)
+_FT = 8         # frames per CUDA block, the kernels' FT
 _THREADS = 512  # threads per CUDA block at most (__launch_bounds__)
 
 
-def _schedule(alpha, beta, max_iters: int):
+def _schedule(alpha, beta, max_iters: int, cn: str = "minsum"):
     """(alphas f32 [T], betas f32 [T], per_iter): alpha_t/beta_t of every
-    iteration, and whether either was given per iteration."""
+    iteration, and whether either was given per iteration. Raises on an
+    unknown rule, and on a schedule for an exact rule (nothing to
+    normalize), as the JAX package's Pallas wrapper does."""
+    if cn not in CN_RULES:
+        raise KeyError(f"layered cn must be minsum/spa/minstar, got {cn!r}")
     per_iter = np.ndim(alpha) != 0 or np.ndim(beta) != 0
+    if per_iter and cn != "minsum":
+        raise ValueError(
+            f"per-iteration alpha/beta schedules apply to minsum only "
+            f"(cn={cn!r} is exact BP — nothing to normalize)")
     alphas = np.broadcast_to(np.asarray(alpha, np.float32), (max_iters,))
     betas = np.broadcast_to(np.asarray(beta, np.float32), (max_iters,))
     return alphas, betas, per_iter
@@ -99,6 +119,66 @@ def _cn_minsum(V: torch.Tensor, a: float, b: float) -> torch.Tensor:
     return torch.where(neg_out, -mag, mag)
 
 
+def _cn_spa(V: torch.Tensor) -> torch.Tensor:
+    """Exact sum-product over axis 0 of V [d, Z, B] (layered.py:64-85,
+    signbit=True): leave-one-out through a log|tanh| sum accumulated in
+    slot order, magnitude 2*atanh(t) = log1p(t) - log1p(-t), and the XOR
+    of the other slots' sign bits OR-ed onto it (so a zero magnitude keeps
+    its sign bit, as the Pallas kernel's integer form does)."""
+    lt = torch.log(torch.tanh(torch.clamp(V.abs(), 1e-10, 40.0) * 0.5))
+    acc = lt[0]
+    for j in range(1, V.shape[0]):
+        acc = acc + lt[j]
+    t = torch.clamp_max(torch.exp(acc - lt), _SPA_TANH_CLIP)
+    mag = torch.log1p(t) - torch.log1p(-t)
+    sb = V.view(torch.int32)
+    sg = sb[0]
+    for j in range(1, V.shape[0]):
+        sg = sg ^ sb[j]
+    flip = (sg ^ sb) & _SIGN
+    return (mag.view(torch.int32) | flip).view(torch.float32)
+
+
+def _boxplus(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x ⊞ y = sign(x)sign(y)min(|x|,|y|) + log1p(e^-|x+y|) -
+    log1p(e^-|x-y|) (flooding_qc.py:58-64; signs by x < 0)."""
+    mag = torch.minimum(x.abs(), y.abs())
+    sgn = torch.where((x < 0) ^ (y < 0), -1.0, 1.0)
+    corr = (torch.log1p(torch.exp(-(x + y).abs()))
+            - torch.log1p(torch.exp(-(x - y).abs())))
+    return sgn * mag + corr
+
+
+def _cn_minstar(V: torch.Tensor) -> torch.Tensor:
+    """Exact sum-product over axis 0 of V [d, Z, B] by box-plus
+    (flooding_qc.py:67-86): slot j gets fwd[j-1] ⊞ bwd[j+1] from forward
+    prefixes and a running backward suffix; a degree-1 row sends 1e9; the
+    result is clipped to ±1e12."""
+    d = V.shape[0]
+    if d == 1:
+        return torch.full_like(V, _MINSTAR_IDENTITY)
+    fwd = [V[0]]
+    for j in range(1, d - 1):
+        fwd.append(_boxplus(fwd[-1], V[j]))
+    outs = [None] * d
+    outs[d - 1] = fwd[d - 2]
+    bwd = V[d - 1]
+    for j in range(d - 2, 0, -1):
+        outs[j] = _boxplus(fwd[j - 1], bwd)
+        bwd = _boxplus(bwd, V[j])
+    outs[0] = bwd
+    return torch.clamp(torch.stack(outs), -_MAG_CAP, _MAG_CAP)
+
+
+def _check_rule(cn: str, a: float, b: float):
+    """Cnew(V [d, Z, B]) for rule `cn` at this iteration's alpha/beta."""
+    if cn == "spa":
+        return _cn_spa
+    if cn == "minstar":
+        return _cn_minstar
+    return lambda V: _cn_minsum(V, a, b)
+
+
 def _syndrome_fail_plain(layers, total: torch.Tensor, Z: int) -> torch.Tensor:
     """bool [B]: some check of the hard decisions (x < 0) fails."""
     B = total.shape[1]
@@ -109,10 +189,11 @@ def _syndrome_fail_plain(layers, total: torch.Tensor, Z: int) -> torch.Tensor:
     return fail
 
 
-def _sweep_plain(layers, total, C, Z, a, b, frozen):
-    """One layered iteration, in place on total [n, B] and C [BE, Z, B].
-    With `frozen` (bool [B], track mode) frozen frames keep their state and
-    the on-the-fly fail flag (layer parity or a sign flip) is returned."""
+def _sweep_plain(layers, total, C, Z, rule, frozen):
+    """One layered iteration, in place on total [n, B] and C [BE, Z, B],
+    with check rule `rule` (V [d, Z, B] -> Cnew). With `frozen` (bool [B],
+    track mode) frozen frames keep their state and the on-the-fly fail
+    flag (layer parity or a sign flip) is returned."""
     B = total.shape[1]
     track = frozen is not None
     fail = torch.zeros(B, dtype=torch.bool, device=total.device)
@@ -125,7 +206,7 @@ def _sweep_plain(layers, total, C, Z, a, b, frozen):
             fail |= (par != 0).any(0)
         Cold = C[eids]
         V = rolled - Cold
-        Cnew = _cn_minsum(V, a, b)
+        Cnew = rule(V)
         if track:
             Cnew = torch.where(keep, Cold, Cnew)
             new = torch.where(keep, rolled, V + Cnew)
@@ -137,14 +218,15 @@ def _sweep_plain(layers, total, C, Z, a, b, frozen):
     return fail
 
 
-def layered_decode_plain(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
-                         beta=0.0, max_iters: int = 25,
-                         early_term: bool = True) -> DecodeResult:
-    """llr f32 [B, n] -> DecodeResult, in plain PyTorch on llr's device."""
+def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
+                          beta=0.0, max_iters: int = 25,
+                          early_term: bool = True, cn: str = "minsum"):
+    """(DecodeResult, posteriors f32 [B, n]) of the plain layered decode
+    of llr f32 [B, n], on llr's device."""
     check_graph(graph)
     B = llr.shape[0]
     Z = graph.Z
-    alphas, betas, _ = _schedule(alpha, beta, max_iters)
+    alphas, betas, _ = _schedule(alpha, beta, max_iters, cn)
     layers = _device_tables(graph, llr.device, "plain", _plain_layers)
     total = llr.to(torch.float32).t().contiguous()  # [n, B]
     C = torch.zeros((graph.num_block_edges, Z, B), dtype=torch.float32,
@@ -155,19 +237,29 @@ def layered_decode_plain(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
         for t in range(max_iters):
             if bool(done.all()):
                 break
-            fail = _sweep_plain(layers, total, C, Z, float(alphas[t]),
-                                float(betas[t]), done)
+            rule = _check_rule(cn, float(alphas[t]), float(betas[t]))
+            fail = _sweep_plain(layers, total, C, Z, rule, done)
             iters += (~done).to(torch.int32)
             done = done | ~fail
     else:
         for t in range(max_iters):
-            _sweep_plain(layers, total, C, Z, float(alphas[t]),
-                         float(betas[t]), None)
+            rule = _check_rule(cn, float(alphas[t]), float(betas[t]))
+            _sweep_plain(layers, total, C, Z, rule, None)
         iters = torch.full((B,), max_iters, dtype=torch.int32,
                            device=llr.device)
     bits = (total < 0).to(torch.uint8).t().contiguous()
     ok = ~_syndrome_fail_plain(layers, total, Z)
-    return DecodeResult(bits=bits, ok=ok, iterations=iters)
+    return DecodeResult(bits=bits, ok=ok, iterations=iters), total.t()
+
+
+def layered_decode_plain(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
+                         beta=0.0, max_iters: int = 25,
+                         early_term: bool = True,
+                         cn: str = "minsum") -> DecodeResult:
+    """llr f32 [B, n] -> DecodeResult, in plain PyTorch on llr's device."""
+    return plain_with_posteriors(graph, llr, alpha=alpha, beta=beta,
+                                 max_iters=max_iters, early_term=early_term,
+                                 cn=cn)[0]
 
 
 def _kernel_table(graph: QCGraph, device):
@@ -194,30 +286,32 @@ def threads_z(Z: int) -> int:
     return best if 2 * best > cap else cap
 
 
-def _lib():
+def _lib(name: str, entry: str, argtypes):
+    """The built library for csrc/<name>.cu with `entry`'s signature set."""
     from .. import _build
 
-    lib = _build.load("layered_qc")
-    fn = lib.layered_qc_decode
+    lib = _build.load(name)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.layered_qc_error_string.argtypes = [ctypes.c_int]
-        lib.layered_qc_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
 
 
-def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
-                        beta=0.0, max_iters: int = 25,
-                        early_term: bool = True) -> DecodeResult:
-    """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
-    the layered kernel on the current stream. Raises on anything the
-    kernel does not take; never falls back to the plain version."""
+_QC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_EXACT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
+                      who: str) -> None:
+    """Raise on anything the kernels do not take."""
     if llr.device.type != "cuda":
         raise ValueError(
-            f"layered_decode_cuda needs a CUDA tensor, got {llr.device}; "
+            f"{who} needs a CUDA tensor, got {llr.device}; "
             f"the plain version is layered_decode_plain")
     if llr.dtype != torch.float32:
         raise TypeError(f"llr must be float32, got {llr.dtype}")
@@ -228,27 +322,59 @@ def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     check_graph(graph)
     if max_iters < 1:
         raise ValueError("max_iters must be >= 1")
+
+
+def _to_tiles(llr: torch.Tensor) -> torch.Tensor:
+    """llr [B, n] -> f32 [tiles, n, FT], frames innermost, the last tile
+    padded with zero LLRs (its extra lanes are never written back)."""
+    B, n = llr.shape
+    tiles = -(-B // _FT)
+    x = llr if tiles * _FT == B else torch.cat(
+        [llr, llr.new_zeros((tiles * _FT - B, n))])
+    return x.view(tiles, _FT, n).transpose(1, 2).contiguous()
+
+
+def _from_tiles(x: torch.Tensor, B: int) -> torch.Tensor:
+    """[tiles, n, FT] -> [B, n], the inverse of _to_tiles."""
+    tiles, n, _ = x.shape
+    return x.transpose(1, 2).reshape(tiles * _FT, n)[:B].contiguous()
+
+
+def _raise_launch(lib, name: str, rc: int) -> None:
+    err = getattr(lib, f"{name}_error_string")(rc).decode()
+    raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} ({err})")
+
+
+def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
+                        beta=0.0, max_iters: int = 25,
+                        early_term: bool = True,
+                        cn: str = "minsum") -> DecodeResult:
+    """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
+    the layered min-sum kernel on the current stream (the exact rules are
+    layered_exact_cuda's). Raises on anything the kernel does not take;
+    never falls back to the plain version."""
+    if cn != "minsum":
+        raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
+                         f"spa and minstar are layered_exact_cuda's")
+    alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
+    _check_cuda_input(graph, llr, max_iters, "layered_decode_cuda")
     dev = llr.device
     B, Z, n = llr.shape[0], graph.Z, graph.n
     tiles = -(-B // _FT)
-    alphas, betas, per_iter = _schedule(alpha, beta, max_iters)
     min_deg = min(d for d, _ in graph.layer_groups)
     fast_mag = not per_iter and float(betas[0]) == 0.0 and not early_term \
         and min_deg >= 2
     tab = _device_tables(graph, dev, "kernel", _kernel_table)
     ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
           if per_iter else None)
-    x = llr if tiles * _FT == B else torch.cat(
-        [llr, llr.new_zeros((tiles * _FT - B, n))])
-    # [tiles, n, FT]: in LLRs, out posteriors; each tile contiguous
-    total = x.view(tiles, _FT, n).transpose(1, 2).contiguous()
+    total = _to_tiles(llr)  # in: LLRs; out: posteriors
     # per check: mag1, mag2, sign bits, min slot (csrc/layered_qc.cu)
     cs = torch.empty((tiles, graph.m * 4, _FT), dtype=torch.int32,
                      device=dev)
     bits = torch.empty((tiles, n, _FT), dtype=torch.uint8, device=dev)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
-    lib = _lib()
+    lib = _lib("layered_qc", "layered_qc_decode", _QC_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_qc_decode(
             total.data_ptr(), cs.data_ptr(), bits.data_ptr(), ok.data_ptr(),
@@ -260,28 +386,88 @@ def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(
-            f"layered_qc kernel launch failed: cudaError {rc} "
-            f"({lib.layered_qc_error_string(rc).decode()})")
+        _raise_launch(lib, "layered_qc", rc)
     layered_decode_cuda.launches += 1
-    bits = bits.transpose(1, 2).reshape(tiles * _FT, n)[:B].contiguous()
-    return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters)
+    return DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
+                        iterations=iters)
 
 
 layered_decode_cuda.launches = 0
 
 
+def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
+                  early_term: bool, cn: str):
+    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
+    exact-BP layered kernel on the current stream."""
+    if cn not in ("spa", "minstar"):
+        raise ValueError(f"the exact-BP kernel runs spa or minstar, not {cn!r}")
+    _check_cuda_input(graph, llr, max_iters, "layered_exact_cuda")
+    dev = llr.device
+    B, Z, n = llr.shape[0], graph.Z, graph.n
+    tiles = -(-B // _FT)
+    tab = _device_tables(graph, dev, "kernel", _kernel_table)
+    total = _to_tiles(llr)  # in: LLRs; out: posteriors
+    # check-to-variable messages, one row per sweep slot and check
+    C = torch.empty((tiles, graph.num_block_edges * Z, _FT),
+                    dtype=torch.float32, device=dev)
+    bits = torch.empty((tiles, n, _FT), dtype=torch.uint8, device=dev)
+    ok = torch.empty(B, dtype=torch.uint8, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    lib = _lib("layered_exact", "layered_exact_decode", _EXACT_ARGS)
+    with torch.cuda.device(dev):
+        rc = lib.layered_exact_decode(
+            total.data_ptr(), C.data_ptr(), bits.data_ptr(), ok.data_ptr(),
+            iters.data_ptr(), tab.data_ptr(),
+            Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
+            graph.dcb_max, int(cn == "minstar"), int(early_term),
+            threads_z(Z), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        _raise_launch(lib, "layered_exact", rc)
+    layered_exact_cuda.launches += 1
+    layered_exact_cuda.frames += B
+    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
+                       iterations=iters)
+    return res, total
+
+
+def layered_exact_cuda(graph: QCGraph, llr: torch.Tensor, *,
+                       max_iters: int = 25, early_term: bool = True,
+                       cn: str = "spa") -> DecodeResult:
+    """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
+    the exact-BP layered kernel (csrc/layered_exact.cu) on the current
+    stream. Raises on anything the kernel does not take; never falls back
+    to the plain version."""
+    return _launch_exact(graph, llr, max_iters, early_term, cn)[0]
+
+
+def exact_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
+                               max_iters: int = 25, early_term: bool = True,
+                               cn: str = "spa"):
+    """(DecodeResult, posteriors f32 [B, n]) of one launch of the
+    exact-BP layered kernel: layered_exact_cuda plus the posteriors it
+    leaves, for holding the kernel against plain_with_posteriors."""
+    res, total = _launch_exact(graph, llr, max_iters, early_term, cn)
+    return res, _from_tiles(total, llr.shape[0])
+
+
+layered_exact_cuda.launches = 0
+layered_exact_cuda.frames = 0  # frames decoded: the retry fallback's load
+
+
 def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
                          max_iters: int = 25, early_term: bool = True,
-                         device="cuda"):
+                         cn: str = "minsum", device="cuda"):
     """decode(llr [B, n]) -> DecodeResult. The decoder runs the plain
-    version on CPU tensors and the CUDA kernel on CUDA tensors; `device`
-    (default "cuda", which raises when CUDA is absent) is where its tables
-    are built up front."""
+    version on CPU tensors and the CUDA kernel of rule `cn` on CUDA
+    tensors; `device` (default "cuda", which raises when CUDA is absent)
+    is where its tables are built up front. Exact rules ignore
+    alpha/beta."""
     check_graph(graph)
+    _schedule(alpha, beta, max_iters, cn)
     dev = resolve_device(device)
     kw = dict(alpha=alpha, beta=beta, max_iters=max_iters,
-              early_term=early_term)
+              early_term=early_term, cn=cn)
     if dev.type == "cuda":
         _device_tables(graph, dev, "kernel", _kernel_table)
     else:
@@ -290,6 +476,9 @@ def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
     def decode(llr: torch.Tensor) -> DecodeResult:
         if llr.device.type == "cpu":
             return layered_decode_plain(graph, llr, **kw)
-        return layered_decode_cuda(graph, llr, **kw)
+        if cn == "minsum":
+            return layered_decode_cuda(graph, llr, **kw)
+        return layered_exact_cuda(graph, llr, max_iters=max_iters,
+                                  early_term=early_term, cn=cn)
 
     return decode

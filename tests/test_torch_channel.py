@@ -69,3 +69,25 @@ def test_torch_noise_statistics():
     # same generator seed, same stream
     gen2 = torch.Generator().manual_seed(11)
     assert torch.equal(awgn.awgn_llr(gen2, bits, ebn0_db, rate), llr)
+
+
+CHANNEL_SPECS = ["bpsk", "AWGN", "hard", "rayleigh", "bsc:0.05", "bec:0.3",
+                 "qpsk", "qam64:il", "8psk", "apsk16", "apsk16:r910",
+                 "apsk32:g2.8:g5.2:il"]
+
+
+@pytest.mark.parametrize("spec", CHANNEL_SPECS)
+def test_parse_channel_spec_matches_jax(spec):
+    from ecc_ldpc_tpu.chan.modem import parse_channel_spec as jax_parse
+    from ecc_ldpc_tpu_torch.chan.modem import build_channel, parse_channel_spec
+
+    assert parse_channel_spec(spec) == jax_parse(spec)
+    code = CodeSpec(name="uncoded", n=8, m=0, row_cols=(), k=8)
+    if parse_channel_spec(spec)["kind"] == "bpsk":
+        gen = torch.Generator().manual_seed(0)
+        llr = build_channel(code, spec)(gen, torch.zeros(2, 8, dtype=torch.uint8),
+                                        3.0)
+        assert llr.shape == (2, 8) and llr.dtype == torch.float32
+    else:
+        with pytest.raises(NotImplementedError, match="step 12"):
+            build_channel(code, spec)

@@ -23,6 +23,7 @@ from ecc_ldpc_tpu_torch.decode.api import get_decoder, parse_decoder_spec
 from ecc_ldpc_tpu_torch.decode.layered_qc import (
     layered_decode_cuda,
     layered_decode_plain,
+    layered_exact_cuda,
     make_layered_decoder,
 )
 from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
@@ -81,10 +82,19 @@ def test_entry_points_need_cuda_unless_cpu(small):
 def test_cuda_wrapper_raises_on_cpu_tensor(small):
     spec, graph = small
     llr = torch.zeros((2, spec.n), dtype=torch.float32)
-    before = layered_decode_cuda.launches
+    before = (layered_decode_cuda.launches, layered_exact_cuda.launches,
+              layered_exact_cuda.frames)
     with pytest.raises(ValueError, match="CUDA tensor"):
         layered_decode_cuda(graph, llr, alpha=0.8125, max_iters=2)
-    assert layered_decode_cuda.launches == before
+    for cn in ("spa", "minstar"):
+        with pytest.raises(ValueError, match="layered_exact_cuda's"):
+            layered_decode_cuda(graph, llr, max_iters=2, cn=cn)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            layered_exact_cuda(graph, llr, max_iters=2, cn=cn)
+    with pytest.raises(ValueError, match="spa or minstar"):
+        layered_exact_cuda(graph, llr, max_iters=2, cn="minsum")
+    assert (layered_decode_cuda.launches, layered_exact_cuda.launches,
+            layered_exact_cuda.frames) == before
 
 
 def test_build_paths():
@@ -103,10 +113,13 @@ def test_spec_parsing_limits():
     assert kw["max_iters"] == 25 and kw["alpha"].dtype == np.float32
     assert parse_decoder_spec("layered/norm:0.8125/25/noet") == dict(
         kind="layered", alpha=0.8125, max_iters=25, early_term=False)
-    for bad in ("layered/norm:0.8/25;retry=spa/50", "layered/q:5:0.5/25",
-                "layered/spa/25", "layered/norm:0.8/25/cleanup"):
+    # what still waits: quantization, cleanup, flooding kinds, and a
+    # flooding fallback behind ;retry=
+    graph = compile_qc_graph(get_code("dvbs2/16200/12"))
+    for bad in ("layered/q:5:0.5/25", "layered/norm:0.8/25/cleanup",
+                "minsum/25", "layered/norm:0.8/25;retry=spa/50"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            parse_decoder_spec(bad)
+            get_decoder(graph, bad, device="cpu")
     with pytest.raises(ValueError):
         parse_decoder_spec("layered/norm:0.8/sched:dvbs2_64800_12_T25")
 
@@ -126,6 +139,12 @@ def test_bench_inputs_on_cpu_and_bound(small):
     assert form == "operations" and 4.0e-3 < s < 4.3e-3
     s, form = decode_bound(64800, 227160, 4096, 0)
     assert form == "bytes" and abs(s - 4096 * 64800 * 5 / 3.35e12) < 1e-12
+    # the exact rules: the longer of transcendentals at the SFU rate and
+    # arithmetic at the fp32 rate (here the SFU side: 27.81 and 47.71 ms)
+    s, form = decode_bound(64800, 227160, 4096, 4096 * 25, "spa", 32400)
+    assert form == "operations" and 27.8e-3 < s < 27.9e-3
+    s, form = decode_bound(64800, 227160, 4096, 4096 * 25, "minstar", 32400)
+    assert form == "operations" and 47.6e-3 < s < 47.8e-3
     assert x.frame_errors(x.cw) == (0, 0)
     bad = x.cw.clone()
     bad[0, -1] ^= 1
