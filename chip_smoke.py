@@ -45,6 +45,31 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      in batches of 4096: FER <= 1.5e-4, the fallback fired, the exact
      kernel launched; then the 8 trap frames through the same decoder:
      the primary fails all 8 and the retry recovers each codeword.
+  11. flooding kernel vs plain — K2 (csrc/flooding.cu) against its plain
+     version on mackay1008 on the same LLRs on the card: minsum fixed at
+     2.5 dB and track at 2.0 dB, spa and minstar fixed and track at
+     1.5 dB (32 frames; 13 for a ragged last tile), and each rule at the
+     timed leg's shape (2048 frames). Bits, ok and iterations identical;
+     posteriors after one iteration within EXACT_MAX_ULPS.
+  12. QC flooding kernel vs plain — K3 (csrc/flooding_qc.cu) the same
+     way on dvbs2/64800/12, each rule: fixed at 1.5 dB and track at 1.2
+     dB (32 and 13 frames), r=3/4 fixed at 3.0 dB and r=9/10 fixed at 4.0
+     dB (its 16- and 32-wide builds), the stored trap batch with spa/50,
+     and each timed leg's shape (4096 frames).
+  13. flooding legs timed — bench.FLOODING_LEGS through run_benchmark
+     (mackay1008 minsum, and spa and minstar on the same shape; the three
+     dvbs2/64800/12 flooding legs): ms, Mbit/s, launches, bound, plain ms,
+     FER (mackay1008 <= 0.01; the DVB-S2 legs are held to no band: the
+     repo stores no flooding FER for that code).
+  14. mackay1008 sweep vs golden — run_sweep of spa/50 and
+     minsum/norm:0.8125/25 at 1.5 and 2.0 dB (batch 4096, 100 frame
+     errors or 65536 frames) must overlap curves/mackay1008_tpu_golden.json
+     and curves/mackay1008_cpu_golden.json.
+  15. flooding fallback in production — the CLI's sweep with
+     layered/norm:0.8125/50;retry=spa/50 at 1.5 dB, 65536 frames in
+     batches of 4096: FER <= 1.5e-4, K1a and K3 launched, the fallback
+     got frames; then the 8 trap frames: the primary fails all 8 and the
+     flooding retry recovers each codeword.
 Then the kernels line, nvidia-smi's line, and the result line last.
 """
 from __future__ import annotations
@@ -62,6 +87,8 @@ import torch
 from ecc_ldpc_tpu_torch import _build
 from ecc_ldpc_tpu_torch.bench.throughput import (
     EXACT_LEGS,
+    FLOODING_LEGS,
+    FLOODING_PRODUCTION_SWEEP,
     LEGS,
     PRODUCTION_SWEEP,
     make_inputs,
@@ -73,6 +100,16 @@ from ecc_ldpc_tpu_torch.decode.api import (
     choose_graph,
     get_decoder,
     parse_decoder_spec,
+)
+from ecc_ldpc_tpu_torch.decode.flooding import (
+    flooding_decode_cuda,
+    flooding_with_posteriors_cuda,
+    flooding_with_posteriors_plain,
+)
+from ecc_ldpc_tpu_torch.decode.flooding_qc import (
+    flooding_qc_decode_cuda,
+    flooding_qc_with_posteriors_cuda,
+    flooding_qc_with_posteriors_plain,
 )
 from ecc_ldpc_tpu_torch.decode.layered_qc import (
     exact_with_posteriors_cuda,
@@ -136,6 +173,30 @@ SWEEP_EBN0 = (1.0, 1.05, 1.1)
 # with retry and FER 3.9e-5 without at 1.5 dB (README.md); 65536 frames
 PRODUCTION_FRAMES = 65536
 PRODUCTION_FER_MAX = 1.5e-4
+KINDS = ("minsum", "spa", "minstar")
+RULE = {"minsum": "minsum/norm:0.8125", "spa": "spa", "minstar": "minstar"}
+# K2 vs plain on mackay1008: (name, spec with {r}, Eb/N0 dB, B)
+FLOODING_CASES = [
+    ("minsum_fixed_2.5dB", "minsum/norm:0.8125/25/noet", 2.5, 32),
+    ("minsum_track_2.0dB", "minsum/norm:0.8125/25", 2.0, 32),
+    ("minsum_track_2.0dB_13frames", "minsum/norm:0.8125/25", 2.0, 13),
+    *[(f"{k}_{m}_1.5dB", f"{k}/25" + ("/noet" if m == "fixed" else ""),
+       1.5, 32) for k in ("spa", "minstar") for m in ("fixed", "track")],
+    ("spa_track_1.5dB_13frames", "spa/50", 1.5, 13),
+]
+# K3 vs plain: (name, code, spec with {r} for the rule, Eb/N0, B)
+FLOODING_QC_CASES = [
+    ("r12_fixed_1.5dB", "dvbs2/64800/12", "{r}/25/noet", 1.5, 32),
+    ("r12_track_1.2dB", "dvbs2/64800/12", "{r}/25", 1.2, 32),
+    ("r12_track_1.2dB_13frames", "dvbs2/64800/12", "{r}/25", 1.2, 13),
+    ("r34_fixed_3.0dB", "dvbs2/64800/34", "{r}/25/noet", 3.0, 32),
+    ("r910_fixed_4.0dB", "dvbs2/64800/910", "{r}/25/noet", 4.0, 32),
+]
+MACKAY_FER_MAX = 0.01
+GOLDEN_MACKAY = {"spa/50": ROOT / "curves" / "mackay1008_tpu_golden.json",
+                 "minsum/norm:0.8125/25":
+                     ROOT / "curves" / "mackay1008_cpu_golden.json"}
+MACKAY_SWEEP_EBN0 = (1.5, 2.0)
 
 
 def emit(phase: str, **kw) -> None:
@@ -214,6 +275,46 @@ def compare_exact(graph, llr, kw) -> dict:
                 one_sweep_max_ulps=ulps1, frames=llr.shape[0],
                 ok_frames=int(kern.ok.sum().item()),
                 mean_iters=kern.iterations.float().mean().item())
+
+
+def compare_flooding(graph, llr, kw, kernel_fn, plain_fn) -> dict:
+    """A flooding kernel (`kernel_fn`, its with-posteriors wrapper) and its
+    plain version (`plain_fn`) on the same LLRs: raises unless bits, ok and iterations
+    are identical and, after one fixed iteration, the posteriors are within
+    EXACT_MAX_ULPS."""
+    dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
+               beta=kw.get("beta", 0.0), max_iters=kw.get("max_iters", 25),
+               early_term=kw.get("early_term", True))
+    (kern, ktot), kern_ms = timed(kernel_fn, graph, llr, **dkw)
+    (plain, ptot), plain_ms = timed(plain_fn, graph, llr, **dkw)
+    same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
+            and torch.equal(kern.iterations, plain.iterations))
+    max_abs = (ktot - ptot).abs().max().item()
+    one = dict(dkw, max_iters=1, early_term=False)
+    _, k1 = kernel_fn(graph, llr, **one)
+    _, p1 = plain_fn(graph, llr, **one)
+    ulps1 = int((_ordered(k1) - _ordered(p1)).abs().max().item())
+    if not same:
+        raise AssertionError(
+            f"flooding kernel and plain version decide differently "
+            f"(posterior max abs err {max_abs}, one-sweep ulps {ulps1})")
+    if ulps1 > EXACT_MAX_ULPS:
+        raise AssertionError(f"one-iteration posteriors {ulps1} ulps apart")
+    return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=max_abs,
+                one_sweep_max_ulps=ulps1, frames=llr.shape[0],
+                ok_frames=int(kern.ok.sum().item()),
+                mean_iters=kern.iterations.float().mean().item())
+
+
+def bench_line(res, launches, smi_before) -> dict:
+    return dict(smi_before=smi_before, smi_after=smi_sample(),
+                ms=res.wall_s_per_batch * 1e3, mbps=res.throughput_mbps,
+                tries_ms=[t * 1e3 for t in res.tries_s], launches=launches,
+                bound_ms=res.bound_ms, bound_by=res.roofline_form,
+                frame_errors=res.frame_errors, frames=res.batch,
+                fer=res.frame_errors / res.batch,
+                codeword_frame_errors=res.codeword_frame_errors,
+                mean_iters=res.mean_iters)
 
 
 def point_line(pr: PointResult) -> dict:
@@ -444,6 +545,153 @@ def main() -> int:
     if not (bool(retried.ok.all()) and torch.equal(retried.bits, cw)):
         raise AssertionError("the retry decoder misses a trap codeword")
 
+    # 11. the flooding kernel (K2) against its plain version on mackay1008
+    k2 = (flooding_with_posteriors_cuda, flooding_with_posteriors_plain)
+    k3 = (flooding_qc_with_posteriors_cuda, flooding_qc_with_posteriors_plain)
+    flood_err = {f"flooding:{k}": 0.0 for k in KINDS}
+    flood_err.update({f"flooding_qc:{k}": 0.0 for k in KINDS})
+    for name, spec_str, ebn0, B in FLOODING_CASES:
+        x = make_inputs("mackay1008", spec_str, B, ebn0, dev, seed=1)
+        r = compare_flooding(x.graph, x.llr, x.kw, *k2)
+        key = f"flooding:{x.kw['kind']}"
+        flood_err[key] = max(flood_err[key], r["max_abs_err"])
+        emit("flooding_vs_plain", case=name, decoder=spec_str, **r)
+    # each rule at the timed leg's shape (the leg's code, batch and seed)
+    mackay_legs = {k: dict(FLOODING_LEGS["mackay"],
+                           decoder=f"{RULE[k]}/25/noet") for k in KINDS}
+    flood_parity = {}
+    for k in KINDS:
+        x = make_inputs(**mackay_legs[k], device=dev, seed=0)
+        flood_parity[f"flooding:{k}"] = r = compare_flooding(
+            x.graph, x.llr, x.kw, *k2)
+        flood_err[f"flooding:{k}"] = max(flood_err[f"flooding:{k}"],
+                                         r["max_abs_err"])
+        emit("flooding_vs_plain", case=f"{k}_bench_shape", **r)
+
+    # 12. the QC flooding kernel (K3) against its plain version
+    for k in KINDS:
+        for name, code, spec_str, ebn0, B in FLOODING_QC_CASES:
+            spec_str = spec_str.format(r=RULE[k])
+            x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+            r = compare_flooding(x.graph, x.llr, x.kw, *k3)
+            flood_err[f"flooding_qc:{k}"] = max(flood_err[f"flooding_qc:{k}"],
+                                                r["max_abs_err"])
+            emit("flooding_qc_vs_plain", case=f"{k}_{name}", decoder=spec_str,
+                 **r)
+    r = compare_flooding(choose_graph(spec12, "spa/50"),
+                         torch.as_tensor(trap["llr"], device=dev),
+                         parse_decoder_spec("spa/50"), *k3)
+    flood_err["flooding_qc:spa"] = max(flood_err["flooding_qc:spa"],
+                                       r["max_abs_err"])
+    emit("flooding_qc_vs_plain", case="spa_trap_batch_track_50",
+         decoder="spa/50", **r)
+    for k in KINDS:
+        x = make_inputs(**FLOODING_LEGS[f"dvbs2_{k}"], device=dev, seed=0)
+        flood_parity[f"flooding_qc:{k}"] = r = compare_flooding(
+            x.graph, x.llr, x.kw, *k3)
+        flood_err[f"flooding_qc:{k}"] = max(flood_err[f"flooding_qc:{k}"],
+                                            r["max_abs_err"])
+        emit("flooding_qc_vs_plain", case=f"{k}_bench_shape", **r)
+        del x
+
+    # 13. the flooding legs timed; each count read around its own run
+    flood_bench, flood_launches = {}, {}
+    timed_legs = [(f"flooding:{k}", mackay_legs[k], flooding_decode_cuda)
+                  for k in KINDS]
+    timed_legs += [(f"flooding_qc:{k}", FLOODING_LEGS[f"dvbs2_{k}"],
+                    flooding_qc_decode_cuda) for k in KINDS]
+    for key, cfg, wrapper in timed_legs:
+        wrapper.launches = 0
+        smi_before = smi_sample()
+        res = run_benchmark(**cfg, device=dev)
+        flood_launches[key] = wrapper.launches
+        emit("flooding_bench", kernel=key, code=cfg["code"],
+             decoder=cfg["decoder"], plain_ms=flood_parity[key]["plain_ms"],
+             **bench_line(res, flood_launches[key], smi_before))
+        if flood_launches[key] <= 0:
+            raise AssertionError(f"{key}: the kernel never launched")
+        if cfg["code"] == "mackay1008" and not (
+                res.frame_errors / res.batch <= MACKAY_FER_MAX):
+            raise AssertionError(f"{key}: FER above {MACKAY_FER_MAX}")
+        flood_bench[key] = res
+
+    # 14. the mackay1008 sweep against the golden curves; K2's count read
+    # around the spa/50 sweep, the path that decodes with it in a sweep
+    for dec_spec, path in GOLDEN_MACKAY.items():
+        with open(path) as f:
+            golden = [PointResult.from_json(d) for d in json.load(f)
+                      if d["decoder"] == dec_spec]
+        flooding_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        swept = run_sweep(SweepSpec(
+            code="mackay1008", decoder=dec_spec, ebn0_db=MACKAY_SWEEP_EBN0,
+            batch=4096, stopping=StoppingRule(min_frame_errors=100,
+                                              max_frames=65536)), device=dev)
+        if dec_spec == "spa/50":
+            flood_launches["flooding:spa"] = flooding_decode_cuda.launches
+        overlap = curves_overlap(swept, golden, "fer")
+        for pr in swept:
+            g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+            emit("mackay_vs_golden", decoder=dec_spec, **point_line(pr),
+                 golden_fer=g.fer, golden_fer_ci=g.fer_ci, golden=path.name)
+        emit("mackay_vs_golden", decoder=dec_spec, overlap=overlap,
+             launches=flooding_decode_cuda.launches,
+             seconds=time.perf_counter() - t0)
+        if not overlap:
+            raise AssertionError(f"{dec_spec}: mackay1008 FER misses "
+                                 f"{path.name}")
+
+    # 15. the floor program's first production decoder, with the flooding
+    # fallback, through the CLI: counts from this run only
+    layered_decode_cuda.launches = 0
+    flooding_qc_decode_cuda.launches = 0
+    flooding_qc_decode_cuda.frames = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "production_flooding.json"
+        t0 = time.perf_counter()
+        rc = cli_main([
+            "sweep", "--code", FLOODING_PRODUCTION_SWEEP["code"],
+            "--decoder", FLOODING_PRODUCTION_SWEEP["decoder"],
+            "--ebn0", str(FLOODING_PRODUCTION_SWEEP["ebn0_db"]),
+            "--batch", str(FLOODING_PRODUCTION_SWEEP["batch"]),
+            "--min-frame-errors", "1000000",
+            "--max-frames", str(PRODUCTION_FRAMES), "--out", str(out)])
+        wall = time.perf_counter() - t0
+        (prod,) = [PointResult.from_json(d)
+                   for d in json.loads(out.read_text())]
+    flood_sweep = {"layered_qc": layered_decode_cuda.launches,
+                   "flooding_qc": flooding_qc_decode_cuda.launches}
+    emit("production_flooding", decoder=prod.decoder, rc=rc,
+         **point_line(prod), seconds=wall, launches=flood_sweep,
+         frames_to_fallback=flooding_qc_decode_cuda.frames)
+    if rc != 0 or prod.frames != PRODUCTION_FRAMES:
+        raise AssertionError(f"flooding production sweep: rc {rc}, "
+                             f"{prod.frames} frames")
+    if not prod.fer <= PRODUCTION_FER_MAX:
+        raise AssertionError(f"flooding production FER {prod.fer} above "
+                             f"{PRODUCTION_FER_MAX}")
+    if flood_sweep["flooding_qc"] <= 0 or flooding_qc_decode_cuda.frames <= 0:
+        raise AssertionError("the flooding fallback never ran")
+    if flood_sweep["layered_qc"] <= 0:
+        raise AssertionError("the production primary never launched")
+    flood_launches["flooding_qc:spa"] = flood_sweep["flooding_qc"]
+    production = FLOODING_PRODUCTION_SWEEP["decoder"]
+    graph = choose_graph(spec12, production)
+    llr = torch.as_tensor(trap["llr"], device=dev)
+    cw = torch.as_tensor(trap["cw"], device=dev)
+    primary = get_decoder(graph, production.split(";retry=")[0],
+                          device=dev)(llr)
+    retried = get_decoder(graph, production, device=dev)(llr)
+    emit("production_flooding_trap", frames=len(cw),
+         primary_ok=int(primary.ok.sum().item()),
+         retry_ok=int(retried.ok.sum().item()),
+         retry_exact=bool(torch.equal(retried.bits, cw)),
+         iterations=retried.iterations.tolist())
+    if bool(primary.ok.any()):
+        raise AssertionError("the primary decodes a stored trap frame")
+    if not (bool(retried.ok.all()) and torch.equal(retried.bits, cw)):
+        raise AssertionError("the flooding retry misses a trap codeword")
+
     hl = results["headline"]
     kernels = [{
         "name": "layered_qc",
@@ -476,6 +724,31 @@ def main() -> int:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
+    # K2's minsum count is its leg's (the benchmark's mackay1008 path), spa's
+    # the spa/50 golden sweep's, minstar's its own timed run's; K3's spa
+    # count is the production sweep's fallback, minsum's and minstar's
+    # their timed legs'
+    sources = {"flooding": ("ecc_ldpc_tpu_torch/csrc/flooding.cu",
+                            "ecc_ldpc_tpu/decode/pallas/fused_mm.py:151"),
+               "flooding_qc": ("ecc_ldpc_tpu_torch/csrc/flooding_qc.cu",
+                               "ecc_ldpc_tpu/decode/pallas/flooding_qc.py:85")}
+    for key, res in flood_bench.items():
+        src, replaces = sources[key.split(":")[0]]
+        kernels.append({
+            "name": key,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": flood_launches[key],
+            "max_abs_err": flood_err[key],
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": flood_parity[key]["plain_ms"],
+            "bound_ms": res.bound_ms,
+            "bound_by": res.roofline_form,
+            "library_ms": None,
+        })
+    if any(k["launches"] <= 0 for k in kernels):
+        raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)

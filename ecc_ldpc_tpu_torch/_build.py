@@ -2,8 +2,9 @@
 
 Each source csrc/<name>.cu has a plain C interface (no PyTorch headers),
 so nvcc builds it in seconds. The library lands in build/kernels/ beside
-the package (git-ignored), named by a hash of its source and flags, so an
-edited source is rebuilt and a built one is reused. Nothing is built or
+the package (git-ignored), named by a hash of its source, the shared
+csrc/*.cuh headers and the flags, so an edited source is rebuilt and a
+built one is reused. Nothing is built or
 loaded when a module is imported.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("layered_qc", "layered_exact")
+KERNEL_SOURCES = ("layered_qc", "layered_exact", "flooding", "flooding_qc")
 
 
 def nvcc_path() -> str:
@@ -39,7 +40,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the tag covers the shared headers too, so editing one rebuilds
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -15,7 +15,8 @@ actually ran, of the check-node rule it decoded (decode_ops): the larger
 of the arithmetic over 67 TFLOP/s of fp32 outside the tensor cores and
 the transcendentals (exp, log, tanh, log1p of the exact rules) over the
 special-function units' 4.18e12 results/s, since the two units issue in
-parallel. `roofline_form` names the side that bounds it.
+parallel; layered and flooding schedules count differently (decode_ops).
+`roofline_form` names the side that bounds it.
 """
 from __future__ import annotations
 
@@ -54,11 +55,27 @@ EXACT_LEGS = {
              batch=4096, ebn0_db=1.5)
     for cn in ("spa", "minstar")
 }
+# The flooding legs: the JAX package's mackay1008 fallback leg
+# (bench.py:69-70, at run_benchmark's default 2.5 dB) and each flooding
+# kind on the headline's code, batch and Eb/N0, fixed 25 iterations.
+FLOODING_LEGS = {
+    "mackay": dict(code="mackay1008", decoder="minsum/norm:0.8125/25/noet",
+                   batch=2048, ebn0_db=2.5),
+    **{f"dvbs2_{kind}": dict(
+        code="dvbs2/64800/12",
+        decoder=("minsum/norm:0.8125" if kind == "minsum" else kind)
+        + "/25/noet", batch=4096, ebn0_db=1.5)
+       for kind in ("minsum", "spa", "minstar")},
+}
 # The production sweep point: the floor program's retry decoder at the
 # 1.5 dB operating point, in batches of 4096 frames.
 PRODUCTION_SWEEP = dict(code="dvbs2/64800/12",
                         decoder="layered/norm:0.8125/50;retry=layered/spa/50",
                         batch=4096, ebn0_db=1.5)
+# The same point with the floor program's first production decoder, whose
+# fallback is flooding spa (the QC flooding kernel).
+FLOODING_PRODUCTION_SWEEP = dict(
+    PRODUCTION_SWEEP, decoder="layered/norm:0.8125/50;retry=spa/50")
 
 
 @dataclasses.dataclass
@@ -105,10 +122,13 @@ class BenchResult:
         )
 
 
-def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum"):
+def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum",
+               schedule: str = "layered"):
     """(transcendentals, arithmetic operations) of one iteration of one
     frame under check-node rule `cn`, for E edges and m checks (every
-    check of degree >= 2):
+    check of degree >= 2).
+
+    schedule="layered":
       minsum   0; 12 per edge visit (pass 1: subtract, abs, min, max, min,
                sign xor; pass 2: abs-compare, select, xor, and, or, add).
       spa      5 per edge visit (tanh and log in pass 1; exp and two log1p
@@ -121,29 +141,48 @@ def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum"):
                compares, xor, select, add, abs, negate, subtract, abs,
                negate, subtract, multiply, add); plus 4 per edge visit
                (subtract, clip low and high, add): 12(E - 2m) and
-               48(E - 2m) + 4E."""
+               48(E - 2m) + 4E.
+    schedule="flooding" (decode/cn_ops.py's rules; csrc/flooding*.cu):
+      the same check-node work, except that spa's magnitude is the
+      oracle's 2*atanh(t), so 4 transcendentals per edge visit (tanh, log,
+      exp, atanh), not 5; plus 2 arithmetic per edge visit: the VN
+      accumulate (an add into the new posterior) and the recompute of the
+      extrinsic total - C. So minsum 0 and 14E, spa 4E and 16E, minstar
+      12(E - 2m) and 48(E - 2m) + 6E."""
     E, m = num_edges, num_checks
+    if schedule not in ("layered", "flooding"):
+        raise KeyError(f"schedule must be layered/flooding, got {schedule!r}")
+    extra = 2 * E if schedule == "flooding" else 0
     if cn == "minsum":
-        return 0, OPS_PER_EDGE_VISIT * E
+        return 0, OPS_PER_EDGE_VISIT * E + extra
     if cn == "spa":
-        return 5 * E, 14 * E
+        return (4 if schedule == "flooding" else 5) * E, 14 * E + extra
     if cn == "minstar":
-        return 12 * (E - 2 * m), 48 * (E - 2 * m) + 4 * E
+        return 12 * (E - 2 * m), 48 * (E - 2 * m) + 4 * E + extra
     raise KeyError(f"cn must be minsum/spa/minstar, got {cn!r}")
 
 
 def decode_bound(n: int, num_edges: int, batch: int, iteration_sum: int,
-                 cn: str = "minsum", num_checks: int = 0):
+                 cn: str = "minsum", num_checks: int = 0,
+                 schedule: str = "layered"):
     """(seconds, "bytes" | "operations"): the least time an H100 could
     take to decode `batch` frames that ran `iteration_sum` iterations in
-    all (batch * max_iters in fixed-iteration mode) with rule `cn`. The
-    special-function units and the fp32 pipes run side by side, so the
-    operations take the longer of the two, not their sum."""
+    all (batch * max_iters in fixed-iteration mode) with rule `cn` on
+    `schedule`. The special-function units and the fp32 pipes run side by
+    side, so the operations take the longer of the two, not their sum."""
     t_bytes = batch * n * (4 + 1) / H100_HBM_BYTES_PER_S
-    trans, arith = decode_ops(num_edges, num_checks, cn)
+    trans, arith = decode_ops(num_edges, num_checks, cn, schedule)
     t_ops = iteration_sum * max(trans / H100_SFU_PER_S,
                                 arith / H100_FP32_OPS_PER_S)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rule_of(kw: dict):
+    """(cn, schedule) of a parsed decoder spec: a layered spec's check
+    rule, or a flooding kind."""
+    if kw["kind"] == "layered":
+        return kw.get("cn", "minsum"), "layered"
+    return kw["kind"], "flooding"
 
 
 @dataclasses.dataclass
@@ -152,17 +191,20 @@ class BenchInputs:
     graph: object
     decode: object
     kw: dict
+    enc: object        # the encoder (its extract_message finds the message)
+    msg: torch.Tensor  # uint8 [B, k] sent messages
     cw: torch.Tensor   # uint8 [B, n] transmitted codewords
     llr: torch.Tensor  # f32 [B, n] channel LLRs
 
     def frame_errors(self, bits: torch.Tensor):
         """(frames with a wrong message bit — the sweep runner's FER in
         the JAX package, against which the golden curves were measured —
-        and frames with any wrong code bit)."""
-        wrong = bits != self.cw
-        k = self.spec.k  # the structured encoders are systematic
-        return (int(wrong[:, :k].any(1).sum().item()),
-                int(wrong.any(1).sum().item()))
+        and frames with any wrong code bit). The message bits are where
+        the encoder put them: a prefix for the structured encoders, the
+        generator's info_cols for the dense one."""
+        wrong_msg = self.enc.extract_message(bits) != self.msg
+        return (int(wrong_msg.any(1).sum().item()),
+                int((bits != self.cw).any(1).sum().item()))
 
 
 def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
@@ -182,10 +224,11 @@ def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
     gen.manual_seed(seed)
     msg = torch.randint(0, 2, (batch, spec.k), generator=gen, device=dev,
                         dtype=torch.uint8)
-    cw = build_encoder(spec)(msg)
+    enc = build_encoder(spec)
+    cw = enc(msg)
     llr = make_channel(spec)(gen, cw, ebn0_db)
-    return BenchInputs(spec=spec, graph=graph, decode=dec, kw=kw, cw=cw,
-                       llr=llr)
+    return BenchInputs(spec=spec, graph=graph, decode=dec, kw=kw, enc=enc,
+                       msg=msg, cw=cw, llr=llr)
 
 
 def run_benchmark(code: str = "dvbs2/64800/12",
@@ -211,9 +254,9 @@ def run_benchmark(code: str = "dvbs2/64800/12",
     wall = float(np.median(times))
     iteration_sum = int(res.iterations.sum().item())
     frame_errors, cw_errors = x.frame_errors(res.bits)
+    cn, schedule = rule_of(x.kw)
     bound_s, form = decode_bound(x.spec.n, x.spec.num_edges, batch,
-                                 iteration_sum, x.kw.get("cn", "minsum"),
-                                 x.spec.m)
+                                 iteration_sum, cn, x.spec.m, schedule)
     return BenchResult(
         throughput_mbps=batch * x.spec.k / wall / 1e6,
         code=code,

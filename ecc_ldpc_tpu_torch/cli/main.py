@@ -192,8 +192,7 @@ def main(argv=None) -> int:
     args, rest = parser.parse_known_args(argv)
     if rest and args.fn is not cmd_waiting:
         parser.error(f"unrecognized arguments: {' '.join(rest)}")
-    # the JAX package's defaults; both wait for the flooding decoders and
-    # the other code families (ROADMAP.md Queue 1 steps 8 and 15)
+    # the JAX package's defaults
     if getattr(args, "code", None) is None:
         args.code = ["mackay1008"]
     if getattr(args, "decoder", None) is None:

@@ -1,19 +1,25 @@
 """String-named code registry (port of ecc_ldpc_tpu/codes/registry.py).
 
-Only the DVB-S2 family is ported so far:
+Ported so far:
 
   dvbs2/64800/12                  DVB-S2 normal frame rate 1/2
   dvbs2/16200/12                  DVB-S2 short frame rate 1/2
+  mackay1008                      shipped (3,6) n=1008 code
+  alist:/path/to/code.alist       load from file
 """
 from __future__ import annotations
 
 from .spec import CodeSpec
 
-_PORTED = ("dvbs2",)
+_PORTED = ("dvbs2", "mackay1008", "alist:")
 
 
 def get_code(spec_str: str) -> CodeSpec:
-    """Resolve a compact code-spec string ('dvbs2/N/R') to a CodeSpec."""
+    """Resolve a compact code-spec string to a CodeSpec."""
+    if spec_str.startswith("alist:"):
+        from .alist import load_alist
+
+        return load_alist(spec_str[len("alist:"):])
     head, *args = spec_str.split("/")
     if head == "dvbs2":
         from .dvbs2 import dvbs2
@@ -21,7 +27,11 @@ def get_code(spec_str: str) -> CodeSpec:
         if len(args) != 2:
             raise ValueError(f"DVB-S2 spec is 'dvbs2/N/R', got {spec_str!r}")
         return dvbs2(int(args[0]), args[1])
+    if head == "mackay1008" and not args:
+        from .mackay import mackay_1008
+
+        return mackay_1008()
     raise NotImplementedError(
-        f"code {spec_str!r}: only the {_PORTED} families are ported; the "
-        f"others wait in ROADMAP.md Queue 1 step 15 (other code families)"
+        f"code {spec_str!r}: only {_PORTED} are ported; the other families "
+        f"wait in ROADMAP.md Queue 1 step 15 (other code families)"
     )

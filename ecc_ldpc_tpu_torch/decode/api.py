@@ -1,23 +1,30 @@
 """Decoder construction + compact decoder-spec strings (port of
-ecc_ldpc_tpu/decode/api.py for the layered family).
+ecc_ldpc_tpu/decode/api.py for the layered and flooding families).
 
   layered/norm:0.8125/25/noet        fixed 25 iterations, alpha 0.8125
   layered/norm:0.8125/25             early termination (exact stop rule)
   layered/offset:0.15/25             offset min-sum
   layered/sched:dvbs2_64800_12_T25_op2   learned per-iteration schedule
   layered/spa/50, layered/minstar/25 layered exact BP (tanh rule, box-plus)
-  layered/norm:0.8125/50;retry=layered/spa/50
+  minsum/norm:0.8125/25              flooding normalized min-sum
+  spa/50, minstar/25                 flooding exact BP
+  layered/norm:0.8125/50;retry=spa/50
                                      frames the primary fails are decoded
                                      again by the fallback (with_retry)
 
 The port has one decoder per device and no backend choice: a CUDA tensor
-goes through the CUDA kernels, a CPU tensor through the plain version.
+goes through the CUDA kernels, a CPU tensor through the plain version. The
+spec parts `pallas`, `xla` and `auto` are parsed and have no effect;
+`xla-mm` (the incidence-matmul form) exists only for the TPU and raises.
+Flooding kinds decode a QCGraph with decode/flooding_qc (K3) and a
+CompiledGraph with decode/flooding (K2).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .cn_ops import CN_KINDS
 from .layered_qc import make_layered_decoder
 from .types import DecodeResult
 
@@ -25,8 +32,7 @@ from .types import DecodeResult
 _WAITING = {
     "cleanup": "ROADMAP.md Queue 1 step 10 (post-processing: cleanup)",
     "q:": "ROADMAP.md Queue 1 step 11 (quantization emulation)",
-    "kind": "ROADMAP.md Queue 1 step 8 (flooding decoders) and step 10 "
-            "(bit flipping)",
+    "kind": "ROADMAP.md Queue 1 step 10 (bit flipping)",
 }
 
 
@@ -52,6 +58,8 @@ def parse_decoder_spec(spec: str) -> dict:
             kw["alpha"] = float(p[5:])
         elif p.startswith("offset:"):
             kw["beta"] = float(p[7:])
+        elif p.startswith("theta:"):
+            kw["theta"] = float(p[6:])  # gdbf flip threshold
         elif p.startswith("q:"):
             raise _waiting("q:", spec)
         elif p.startswith("sched:"):
@@ -62,6 +70,8 @@ def parse_decoder_spec(spec: str) -> dict:
             kw["early_term"] = False
         elif p == "cleanup":
             raise _waiting("cleanup", spec)
+        elif p in ("pallas", "xla", "xla-mm", "auto"):
+            kw["backend"] = p
         elif p.isdigit():
             kw["max_iters"] = int(p)
         else:
@@ -88,15 +98,43 @@ def parse_decoder_spec(spec: str) -> dict:
 
 
 def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
-                 max_iters: int = 25, early_term: bool = True,
+                 theta: float = 0.0, max_iters: int = 25,
+                 early_term: bool = True, backend: str = "auto",
                  cn: str = "minsum", device="cuda"):
-    """Build `decode(llr[B, n]) -> DecodeResult` for one graph."""
-    if kind != "layered":
+    """Build `decode(llr[B, n]) -> DecodeResult` for one graph: layered on
+    a QCGraph, or flooding minsum/spa/minstar on a QCGraph (K3) or a
+    CompiledGraph (K2). `theta` belongs to gdbf, which is not ported."""
+    from ..graph.qc import QCGraph
+
+    if backend == "xla-mm":
+        raise ValueError(
+            "backend 'xla-mm' is the incidence-matmul form, which exists only "
+            "for the TPU (it has no vector gather); the port decodes with "
+            "gathers on the card — drop '/xla-mm'")
+    if backend not in ("auto", "pallas", "xla"):
+        raise KeyError(f"unknown backend {backend!r}")
+    if kind in ("bitflip", "gdbf"):
         raise _waiting("kind", f"{kind}/...")
-    return make_layered_decoder(
-        graph, alpha=alpha, beta=beta, max_iters=max_iters,
-        early_term=early_term, cn=cn, device=device,
-    )
+    if kind == "layered":
+        return make_layered_decoder(
+            graph, alpha=alpha, beta=beta, max_iters=max_iters,
+            early_term=early_term, cn=cn, device=device,
+        )
+    if kind not in CN_KINDS:
+        raise KeyError(f"unknown decoder kind {kind!r}")
+    if cn != "minsum":
+        raise KeyError(
+            f"cn={cn!r} selects the layered sweep's check-node rule; for "
+            f"flooding use kind='spa'/'minstar' directly")
+    kw = dict(kind=kind, alpha=alpha, beta=beta, max_iters=max_iters,
+              early_term=early_term, device=device)
+    if isinstance(graph, QCGraph):
+        from .flooding_qc import make_flooding_qc_decoder
+
+        return make_flooding_qc_decoder(graph, **kw)
+    from .flooding import make_flooding_decoder
+
+    return make_flooding_decoder(graph, **kw)
 
 
 def _split_retry(spec: str):
@@ -157,12 +195,17 @@ def with_retry(primary, fallback):
 
 
 def choose_graph(code_spec, decoder_spec: str):
-    """Compile the graph view a decoder spec needs: the QC block view for
-    the layered decoders (raises clearly on non-QC codes). A ';retry='
-    suffix shares the primary's graph."""
+    """Compile the graph view a decoder spec needs (the JAX package's rule
+    without its TPU branches): the QC block view for layered decoding
+    (raises clearly on non-QC codes) and for a QC code's flooding kinds;
+    the expanded graph for every other code. A ';retry=' suffix shares the
+    primary's graph."""
+    from ..graph.compile import compile_graph
     from ..graph.qc import compile_qc_graph
 
-    kind = parse_decoder_spec(decoder_spec)["kind"]
-    if kind != "layered":
-        raise _waiting("kind", decoder_spec)
+    kind = parse_decoder_spec(decoder_spec.split(";retry=")[0])["kind"]
+    if kind == "layered":
+        return compile_qc_graph(code_spec)
+    if code_spec.qc is None or kind not in CN_KINDS + ("bitflip", "gdbf"):
+        return compile_graph(code_spec)
     return compile_qc_graph(code_spec)

@@ -306,22 +306,29 @@ _QC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
 _EXACT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
-                      who: str) -> None:
-    """Raise on anything the kernels do not take."""
+def _check_llr(llr: torch.Tensor, n: int, max_iters: int, who: str,
+               plain: str) -> None:
+    """Raise on LLRs and iteration counts the decoders' kernels do not
+    take (`who` names the wrapper, `plain` its plain version)."""
     if llr.device.type != "cuda":
         raise ValueError(
             f"{who} needs a CUDA tensor, got {llr.device}; "
-            f"the plain version is layered_decode_plain")
+            f"the plain version is {plain}")
     if llr.dtype != torch.float32:
         raise TypeError(f"llr must be float32, got {llr.dtype}")
-    if llr.dim() != 2 or llr.shape[1] != graph.n or llr.shape[0] < 1:
-        raise ValueError(f"llr must be [B, {graph.n}], got {tuple(llr.shape)}")
+    if llr.dim() != 2 or llr.shape[1] != n or llr.shape[0] < 1:
+        raise ValueError(f"llr must be [B, {n}], got {tuple(llr.shape)}")
     if not llr.is_contiguous():
         raise ValueError("llr must be contiguous")
-    check_graph(graph)
     if max_iters < 1:
         raise ValueError("max_iters must be >= 1")
+
+
+def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
+                      who: str) -> None:
+    """Raise on anything the layered kernels do not take."""
+    _check_llr(llr, graph.n, max_iters, who, "layered_decode_plain")
+    check_graph(graph)
 
 
 def _to_tiles(llr: torch.Tensor) -> torch.Tensor:

@@ -11,9 +11,10 @@ same compact spec strings the CLI uses.
     out  = ecc.decode(llr)                     # DecodeResult
     m2   = ecc.extract_message(out.bits)
 
-The JAX package's default decoder, flooding `minsum/norm:0.8125/25`, keeps
-its name here and raises until the flooding decoders are ported (ROADMAP.md
-Queue 1 step 8).
+The default decoder is the JAX package's, flooding `minsum/norm:0.8125/25`:
+on a QC code it runs the QC flooding kernel (K3), on an unstructured code
+such as `mackay1008` the flooding kernel (K2), or their plain versions
+with device="cpu".
 """
 from __future__ import annotations
 

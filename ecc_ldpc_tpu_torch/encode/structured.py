@@ -1,4 +1,5 @@
-"""Structured QC encoders in O(n) (port of ecc_ldpc_tpu/encode/structured.py).
+"""Structured QC encoders in O(n) (port of ecc_ldpc_tpu/encode/structured.py;
+codes with no structured skeleton fall back to encode/dense.py).
 
 For base matrices of the 802.11n/WiMAX shape H = [Hi | Hp], where Hp has a
 special first parity column with entries (x, y, x) at rows (0, rx, mb-1)
@@ -218,11 +219,11 @@ class StaircaseEncoder:
 
 def build_encoder(spec: CodeSpec):
     """The structured encoder for a QC code, tried in the JAX package's
-    order (dual-diagonal, then staircase)."""
+    order (dual-diagonal, then staircase); the dense generator otherwise."""
     if spec.shortened_cols:
         raise NotImplementedError(
             f"{spec.name}: shortened codes wait for ROADMAP.md Queue 1 "
-            f"step 3 (NR core+extension and dense encoders)"
+            f"step 3 (NR core+extension encoder, shortened-code wrapper)"
         )
     if spec.qc is not None:
         for cls in (DualDiagonalEncoder, StaircaseEncoder):
@@ -230,8 +231,6 @@ def build_encoder(spec: CodeSpec):
                 return cls(spec)
             except ValueError:
                 pass
-    raise NotImplementedError(
-        f"{spec.name}: no dual-diagonal or staircase skeleton; the NR "
-        f"core+extension and dense encoders wait for ROADMAP.md Queue 1 "
-        f"step 3"
-    )
+    from .dense import DenseEncoder
+
+    return DenseEncoder.build(spec)

@@ -51,10 +51,10 @@ def test_not_ported_yet_names_its_roadmap_step(tmp_path, capsys):
     for cmd in ("findsnr", "trap", "bench", "learn", "codes"):
         assert main([cmd, "--code", "dvbs2/64800/12"]) == 2
         assert "ROADMAP.md Queue 1 step" in capsys.readouterr().err
-    # the JAX package's default decoder is flooding: not ported yet
-    with pytest.raises(NotImplementedError, match="step 8"):
-        main(["sweep", "--code", "dvbs2/16200/12", "--ebn0", "1.0",
-              "--device", "cpu"])
+    # the bit-flipping decoders are not ported yet
+    with pytest.raises(NotImplementedError, match="step 10"):
+        main(["sweep", "--code", "dvbs2/16200/12", "--decoder", "bitflip/50",
+              "--ebn0", "1.0", "--device", "cpu"])
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({"code": "dvbs2/16200/12",
                                "decoder": "layered/norm:0.8125/2",

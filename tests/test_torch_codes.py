@@ -1,9 +1,13 @@
-"""The port's DVB-S2 codes, graphs and encoders against the JAX package's.
+"""The port's codes, graphs and encoders against the JAX package's.
 
-Same code string through both packages: identical base matrices,
-block-edge tables and layer order, and codewords that are bit-identical
-to ecc_ldpc_tpu's encode_numpy and satisfy H.
+Same code string through both packages: for DVB-S2 identical base
+matrices, block-edge tables and layer order, and codewords that are
+bit-identical to ecc_ldpc_tpu's encode_numpy and satisfy H; for
+mackay1008 the same data file, k, generator, info_cols and flooding
+tables; alist files in both of their forms.
 """
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -104,6 +108,72 @@ def test_circulant_and_registry_limits():
     P = circulant(5, 2)
     assert P.sum() == 5 and P[0, 2] == 1 and P[4, 1] == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_code("mackay1008")
+        get_code("wimax/576/12")
     with pytest.raises(ValueError):
         get_code("dvbs2/64800")
+
+
+def test_mackay1008_matches_jax():
+    """The port's copy of the data file, its code, generator and graph
+    tables are the JAX package's; the dense encoder's codewords match and
+    pass H, with the message at info_cols (not a prefix)."""
+    import ecc_ldpc_tpu
+    from ecc_ldpc_tpu.encode.dense import systematic_generator as jax_sg
+    from ecc_ldpc_tpu.graph import compile_graph as jax_compile_graph
+    from ecc_ldpc_tpu_torch.codes import mackay
+    from ecc_ldpc_tpu_torch.convert import dense_encoder_from_numpy
+    from ecc_ldpc_tpu_torch.encode.dense import DenseEncoder
+    from ecc_ldpc_tpu_torch.graph.compile import compile_graph
+
+    jax_data = pathlib.Path(ecc_ldpc_tpu.__file__).parent / "data"
+    assert mackay.PATH.read_bytes() == (jax_data / "mackay1008.alist").read_bytes()
+    spec, jspec = get_code("mackay1008"), jax_get_code("mackay1008")
+    assert (spec.n, spec.m, spec.k, spec.name) == (jspec.n, jspec.m, jspec.k,
+                                                   jspec.name) == (
+        1008, 504, 506, "mackay1008")
+    assert all(np.array_equal(a, b) for a, b in zip(spec.row_cols,
+                                                    jspec.row_cols))
+    enc = build_encoder(spec)
+    assert isinstance(enc, DenseEncoder)
+    G, info = jax_sg(jspec)
+    assert np.array_equal(enc.G, G) and np.array_equal(enc.info_cols, info)
+    assert not np.array_equal(info, np.arange(spec.k))
+    g, jg = compile_graph(spec), jax_compile_graph(jspec)
+    assert (g.n, g.m, g.k, g.num_edges, g.dc_max, g.dv_max) == (
+        jg.n, jg.m, jg.k, jg.num_edges, jg.dc_max, jg.dv_max)
+    for f in ("cn_vn", "cn_mask", "vn_edge", "vn_mask"):
+        assert np.array_equal(getattr(g, f), np.asarray(getattr(jg, f))), f
+    msg = np.random.default_rng(9).integers(0, 2, (5, spec.k), dtype=np.uint8)
+    cw = enc(torch.from_numpy(msg)).numpy()
+    assert np.array_equal(cw, (msg.astype(np.int64) @ G % 2).astype(np.uint8))
+    carried = dense_encoder_from_numpy(G, info)  # the JAX generator, carried
+    assert np.array_equal(carried(torch.from_numpy(msg)).numpy(), cw)
+    assert spec.check_syndrome(cw)
+    assert np.array_equal(enc.extract_message(torch.from_numpy(cw)).numpy(),
+                          msg)
+
+
+def test_alist_forms_and_registry(tmp_path, monkeypatch):
+    """Padded and unpadded alist bodies read alike; 'alist:PATH' resolves;
+    a missing mackay1008 data file raises FileNotFoundError."""
+    from ecc_ldpc_tpu.codes.alist import dumps_alist
+    from ecc_ldpc_tpu_torch.codes import alist, mackay
+
+    jspec = jax_get_code("wimax/576/12")
+    text = dumps_alist(jspec)
+    padded = tmp_path / "w.alist"
+    padded.write_text(text)
+    spec = get_code(f"alist:{padded}")
+    assert (spec.n, spec.m) == (jspec.n, jspec.m)
+    assert all(np.array_equal(a, b) for a, b in zip(spec.row_cols,
+                                                    jspec.row_cols))
+    lines = text.splitlines()
+    body = [" ".join(t for t in ln.split() if t != "0") for ln in lines[4:]]
+    unpadded = alist.loads_alist("\n".join(lines[:4] + body))
+    assert all(np.array_equal(a, b) for a, b in zip(unpadded.row_cols,
+                                                    spec.row_cols))
+    with pytest.raises(ValueError, match="alist body"):
+        alist.loads_alist("\n".join(lines[:-1]))
+    monkeypatch.setattr(mackay, "PATH", tmp_path / "missing.alist")
+    with pytest.raises(FileNotFoundError):
+        get_code("mackay1008")

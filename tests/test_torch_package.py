@@ -12,10 +12,14 @@ import torch
 import ecc_ldpc_tpu_torch
 from ecc_ldpc_tpu_torch import _build
 from ecc_ldpc_tpu_torch.bench.throughput import (
+    FLOODING_LEGS,
+    H100_SFU_PER_S,
     LEGS,
     BenchResult,
     decode_bound,
+    decode_ops,
     make_inputs,
+    rule_of,
     run_benchmark,
 )
 from ecc_ldpc_tpu_torch.codes.registry import get_code
@@ -50,6 +54,10 @@ def test_port_imports_no_jax():
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
+    for m in ("codes.alist", "codes.mackay", "encode.gf2", "encode.dense",
+              "graph.compile", "decode.cn_ops", "decode.flooding",
+              "decode.flooding_qc"):
+        assert f"ecc_ldpc_tpu_torch.{m}" in mods, m
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -113,13 +121,15 @@ def test_spec_parsing_limits():
     assert kw["max_iters"] == 25 and kw["alpha"].dtype == np.float32
     assert parse_decoder_spec("layered/norm:0.8125/25/noet") == dict(
         kind="layered", alpha=0.8125, max_iters=25, early_term=False)
-    # what still waits: quantization, cleanup, flooding kinds, and a
-    # flooding fallback behind ;retry=
+    # what still waits: quantization, cleanup and the bit-flipping kinds,
+    # also behind ;retry=; the TPU's incidence-matmul backend is refused
     graph = compile_qc_graph(get_code("dvbs2/16200/12"))
     for bad in ("layered/q:5:0.5/25", "layered/norm:0.8/25/cleanup",
-                "minsum/25", "layered/norm:0.8/25;retry=spa/50"):
+                "bitflip/50", "layered/norm:0.8/25;retry=gdbf/theta:-0.5/50"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_decoder(graph, bad, device="cpu")
+    with pytest.raises(ValueError, match="only for the TPU"):
+        get_decoder(graph, "minsum/25/xla-mm", device="cpu")
     with pytest.raises(ValueError):
         parse_decoder_spec("layered/norm:0.8/sched:dvbs2_64800_12_T25")
 
@@ -158,3 +168,46 @@ def test_bench_inputs_on_cpu_and_bound(small):
                                     decoder="layered/norm:0.8125/25/noet",
                                     batch=4096, ebn0_db=1.5)
     assert sorted(LEGS) == ["headline", "prod", "r34"]
+
+
+def test_frame_errors_count_the_message_at_info_cols():
+    """mackay1008's dense encoder puts the message at info_cols, which is
+    not a prefix: a wrong message bit past position k is a frame error, and
+    a wrong parity bit before k is not (the benchmark once counted
+    bits[:, :k] as the message)."""
+    x = make_inputs("mackay1008", "minsum/norm:0.8125/2/noet", 2, 3.0,
+                    device="cpu", seed=1)
+    info = x.enc.info_cols
+    parity = np.setdiff1d(np.arange(x.spec.n), info)
+    assert info[-1] >= x.spec.k and parity[0] < x.spec.k
+    bad = x.cw.clone()
+    bad[0, int(info[-1])] ^= 1   # a message bit past k
+    assert x.frame_errors(bad) == (1, 1)
+    bad = x.cw.clone()
+    bad[1, int(parity[0])] ^= 1  # a parity bit before k
+    assert x.frame_errors(bad) == (0, 1)
+    assert x.frame_errors(x.cw) == (0, 0)
+
+
+def test_flooding_bound_counts():
+    """decode_ops(schedule="flooding"): layered's check work plus the VN
+    accumulate and the recompute of total - C (2 per edge visit); spa's
+    2*atanh makes 4 transcendentals per edge visit, not 5."""
+    E, m = 227160, 32400
+    assert decode_ops(E, m, "minsum", "flooding") == (0, 14 * E)
+    assert decode_ops(E, m, "spa", "flooding") == (4 * E, 16 * E)
+    assert decode_ops(E, m, "minstar", "flooding") == (
+        12 * (E - 2 * m), 48 * (E - 2 * m) + 6 * E)
+    assert decode_ops(E, m, "spa") == (5 * E, 14 * E)
+    with pytest.raises(KeyError):
+        decode_ops(E, m, "spa", "bp")
+    s, form = decode_bound(64800, E, 4096, 4096 * 25, "spa", m, "flooding")
+    assert form == "operations" and abs(s - 4096 * 25 * 4 * E / H100_SFU_PER_S) < 1e-12
+    assert rule_of(parse_decoder_spec("spa/50")) == ("spa", "flooding")
+    assert rule_of(parse_decoder_spec("layered/minstar/25")) == ("minstar",
+                                                                  "layered")
+    assert sorted(FLOODING_LEGS) == ["dvbs2_minstar", "dvbs2_minsum",
+                                     "dvbs2_spa", "mackay"]
+    assert FLOODING_LEGS["mackay"] == dict(
+        code="mackay1008", decoder="minsum/norm:0.8125/25/noet", batch=2048,
+        ebn0_db=2.5)

@@ -227,6 +227,13 @@ def test_ecc_facade_round_trip():
     out = ecc.decode(ecc.transmit(gen, cw, 3.0))
     assert torch.equal(ecc.extract_message(out.bits), msg)
     assert bool(out.ok.all())
-    # the JAX package's default decoder is flooding min-sum: not ported yet
-    with pytest.raises(NotImplementedError, match="step 8"):
-        build_ecc("dvbs2/16200/12", device="cpu")
+    # the JAX package's default decoder, flooding normalized min-sum, on
+    # the unstructured mackay1008 (dense encoder, message at info_cols)
+    ecc = build_ecc("mackay1008", device="cpu")
+    assert (ecc.n, ecc.k) == (1008, 506)
+    msg = torch.randint(0, 2, (3, ecc.k), generator=gen, dtype=torch.uint8)
+    out = ecc.decode(ecc.transmit(gen, ecc.encode(msg), 4.0))
+    assert torch.equal(ecc.extract_message(out.bits), msg)
+    assert bool(out.ok.all())
+    with pytest.raises(NotImplementedError, match="step 10"):
+        build_ecc("mackay1008", "gdbf/theta:-0.5/50", device="cpu")
