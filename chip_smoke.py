@@ -70,6 +70,29 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      batches of 4096: FER <= 1.5e-4, K1a and K3 launched, the fallback
      got frames; then the 8 trap frames: the primary fails all 8 and the
      flooding retry recovers each codeword.
+  16. classic kernel vs plain — K1b/K1c' (csrc/layered_classic.cu, graphs
+     that repeat a block-column in a layer) against its plain version on
+     ccsds/4096/12, /23 and /45 (row degrees 6, 10 and 18: its 8-, 16- and
+     32-wide builds), each rule fixed and track (32 frames, and 13 for a
+     ragged last tile) at an Eb/N0 where some of 32 frames fail; min-sum
+     also with offset:0.15 and the per-iteration schedule
+     dvbs2_64800_12_T25; each rule at the timed shape (4096 frames); two
+     K3 cases (spa fixed and track) on the multi-edge ccsds/4096/12. Bits,
+     ok and iterations identical; posteriors after one sweep within
+     EXACT_MAX_ULPS. The other layered kernels refuse a multi-edge graph
+     and the classic kernel a graph without one.
+  17. CCSDS legs timed — bench.CCSDS_LEGS through run_benchmark
+     (ccsds/4096/12, 2.5 dB, 4096 frames, layered/{norm:0.8125,spa,minstar}
+     /25/noet): ms, Mbit/s, launches, bound, plain ms, FER < 0.5.
+  18. CCSDS sweep vs the JAX reference — run_sweep of
+     layered/norm:0.8125/50 at 2.0 and 2.5 dB, 8192 frames each, must
+     overlap ecc_ldpc_tpu_torch/data/ccsds_4096_12_jax_cpu.json.
+  19. CCSDS production path — the CLI's sweep with
+     layered/norm:0.8125/50;retry=layered/spa/50 at the reference's retry
+     points, 1.5 and 2.5 dB, 65536 frames each in batches of 4096: the
+     classic kernel ran both the primary (min-sum) and the fallback (spa),
+     the fallback got frames (at 1.5 dB: from 2.0 dB up this surrogate's
+     frame errors are undetected), and the FER overlaps the reference.
 Then the kernels line, nvidia-smi's line, and the result line last.
 """
 from __future__ import annotations
@@ -86,6 +109,8 @@ import torch
 
 from ecc_ldpc_tpu_torch import _build
 from ecc_ldpc_tpu_torch.bench.throughput import (
+    CCSDS_LEGS,
+    CCSDS_PRODUCTION_SWEEP,
     EXACT_LEGS,
     FLOODING_LEGS,
     FLOODING_PRODUCTION_SWEEP,
@@ -112,7 +137,9 @@ from ecc_ldpc_tpu_torch.decode.flooding_qc import (
     flooding_qc_with_posteriors_plain,
 )
 from ecc_ldpc_tpu_torch.decode.layered_qc import (
+    classic_with_posteriors_cuda,
     exact_with_posteriors_cuda,
+    layered_classic_cuda,
     layered_decode_cuda,
     layered_decode_plain,
     layered_exact_cuda,
@@ -197,6 +224,25 @@ GOLDEN_MACKAY = {"spa/50": ROOT / "curves" / "mackay1008_tpu_golden.json",
                  "minsum/norm:0.8125/25":
                      ROOT / "curves" / "mackay1008_cpu_golden.json"}
 MACKAY_SWEEP_EBN0 = (1.5, 2.0)
+# K1b/K1c' vs plain: code -> Eb/N0 where 25 iterations fail some of 32
+# frames (on the card, seed 1, min-sum decodes 27, 14 and 18 of them)
+CLASSIC_CODES = {"ccsds/4096/12": 1.5, "ccsds/4096/23": 2.0,
+                 "ccsds/4096/45": 2.8}
+CLASSIC_CASES = [  # (name, spec with {r} for the rule, B)
+    ("fixed", "layered/{r}/25/noet", 32),
+    ("track", "layered/{r}/25", 32),
+    ("track_13frames", "layered/{r}/25", 13),
+]
+CLASSIC_MINSUM_CASES = [
+    ("fixed_offset", "layered/norm:0.8125/offset:0.15/25/noet", 32),
+    ("track_sched", "layered/sched:dvbs2_64800_12_T25", 32),
+]
+CCSDS_REFERENCE = (ROOT / "ecc_ldpc_tpu_torch" / "data"
+                   / "ccsds_4096_12_jax_cpu.json")
+CCSDS_SWEEP_DECODER = "layered/norm:0.8125/50"
+CCSDS_SWEEP_EBN0 = (2.0, 2.5)
+CCSDS_SWEEP_FRAMES = 8192
+CCSDS_FER_MAX = 0.5
 
 
 def emit(phase: str, **kw) -> None:
@@ -250,60 +296,66 @@ def _ordered(x: torch.Tensor) -> torch.Tensor:
     return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
 
 
-def compare_exact(graph, llr, kw) -> dict:
-    """Exact kernel and plain version on the same LLRs: raises unless bits,
-    ok and iterations are identical and, after one fixed sweep, the
-    posteriors are within EXACT_MAX_ULPS."""
-    dkw = dict(max_iters=kw.get("max_iters", 25),
-               early_term=kw.get("early_term", True), cn=kw["cn"])
-    (kern, ktot), kern_ms = timed(exact_with_posteriors_cuda, graph, llr, **dkw)
-    (plain, ptot), plain_ms = timed(plain_with_posteriors, graph, llr, **dkw)
-    same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
-            and torch.equal(kern.iterations, plain.iterations))
-    max_abs = (ktot - ptot).abs().max().item()
-    one = dict(dkw, max_iters=1, early_term=False)
-    _, k1 = exact_with_posteriors_cuda(graph, llr, **one)
-    _, p1 = plain_with_posteriors(graph, llr, **one)
-    ulps1 = int((_ordered(k1) - _ordered(p1)).abs().max().item())
-    if not same:
-        raise AssertionError(
-            f"exact kernel and plain version decide differently (posterior "
-            f"max abs err {max_abs}, one-sweep ulps {ulps1})")
-    if ulps1 > EXACT_MAX_ULPS:
-        raise AssertionError(f"one-sweep posteriors {ulps1} ulps apart")
-    return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=max_abs,
-                one_sweep_max_ulps=ulps1, frames=llr.shape[0],
-                ok_frames=int(kern.ok.sum().item()),
-                mean_iters=kern.iterations.float().mean().item())
+def _first(x):
+    """A per-iteration schedule's first entry (as a schedule), or x."""
+    return np.asarray(x)[:1] if np.ndim(x) else x
 
 
-def compare_flooding(graph, llr, kw, kernel_fn, plain_fn) -> dict:
-    """A flooding kernel (`kernel_fn`, its with-posteriors wrapper) and its
-    plain version (`plain_fn`) on the same LLRs: raises unless bits, ok and iterations
-    are identical and, after one fixed iteration, the posteriors are within
-    EXACT_MAX_ULPS."""
-    dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
-               beta=kw.get("beta", 0.0), max_iters=kw.get("max_iters", 25),
-               early_term=kw.get("early_term", True))
+def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw) -> dict:
+    """A kernel's with-posteriors wrapper and its plain version on the same
+    LLRs with decoder arguments dkw: raises unless bits, ok and iterations
+    are identical and, after one fixed iteration (a schedule's first
+    alpha/beta), the posteriors are within EXACT_MAX_ULPS."""
     (kern, ktot), kern_ms = timed(kernel_fn, graph, llr, **dkw)
     (plain, ptot), plain_ms = timed(plain_fn, graph, llr, **dkw)
     same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
             and torch.equal(kern.iterations, plain.iterations))
     max_abs = (ktot - ptot).abs().max().item()
     one = dict(dkw, max_iters=1, early_term=False)
+    for ab in ("alpha", "beta"):
+        if ab in one:
+            one[ab] = _first(one[ab])
     _, k1 = kernel_fn(graph, llr, **one)
     _, p1 = plain_fn(graph, llr, **one)
     ulps1 = int((_ordered(k1) - _ordered(p1)).abs().max().item())
     if not same:
         raise AssertionError(
-            f"flooding kernel and plain version decide differently "
+            f"{kernel_fn.__name__} and its plain version decide differently "
             f"(posterior max abs err {max_abs}, one-sweep ulps {ulps1})")
     if ulps1 > EXACT_MAX_ULPS:
-        raise AssertionError(f"one-iteration posteriors {ulps1} ulps apart")
+        raise AssertionError(f"{kernel_fn.__name__}: one-sweep posteriors "
+                             f"{ulps1} ulps apart")
     return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=max_abs,
                 one_sweep_max_ulps=ulps1, frames=llr.shape[0],
                 ok_frames=int(kern.ok.sum().item()),
                 mean_iters=kern.iterations.float().mean().item())
+
+
+def compare_exact(graph, llr, kw) -> dict:
+    """The exact-BP kernel (K1c) against its plain version."""
+    dkw = dict(max_iters=kw.get("max_iters", 25),
+               early_term=kw.get("early_term", True), cn=kw["cn"])
+    return compare_posteriors(exact_with_posteriors_cuda,
+                              plain_with_posteriors, graph, llr, dkw)
+
+
+def compare_classic(graph, llr, kw) -> dict:
+    """The classic kernel (K1b, K1c'; multi-edge graphs) against its plain
+    version."""
+    dkw = dict(alpha=kw.get("alpha", 1.0), beta=kw.get("beta", 0.0),
+               max_iters=kw.get("max_iters", 25),
+               early_term=kw.get("early_term", True),
+               cn=kw.get("cn", "minsum"))
+    return compare_posteriors(classic_with_posteriors_cuda,
+                              plain_with_posteriors, graph, llr, dkw)
+
+
+def compare_flooding(graph, llr, kw, kernel_fn, plain_fn) -> dict:
+    """A flooding kernel (K2 or K3) against its plain version."""
+    dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
+               beta=kw.get("beta", 0.0), max_iters=kw.get("max_iters", 25),
+               early_term=kw.get("early_term", True))
+    return compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw)
 
 
 def bench_line(res, launches, smi_before) -> dict:
@@ -322,6 +374,161 @@ def point_line(pr: PointResult) -> dict:
                 frame_errors=pr.frame_errors, fer=pr.fer, fer_ci=pr.fer_ci,
                 bit_errors=pr.bit_errors, ber=pr.ber,
                 mean_iters=pr.mean_iters, wall_s=pr.wall_s)
+
+
+def ccsds_path(dev, spec12, k3, flood_err) -> list:
+    """Phases 16-19: the classic kernel on multi-edge graphs (CCSDS
+    AR4JA) against its plain version, timed, in a sweep and in the
+    production retry decoder; returns its entries of the kernels line.
+    flood_err gains the K3 cases on the multi-edge graph."""
+    # 16. the classic kernel (K1b, K1c') against its plain version
+    t0 = time.perf_counter()
+    classic_err = dict.fromkeys(KINDS, 0.0)
+    for code, ebn0 in CLASSIC_CODES.items():
+        cases = [(f"{k}_{name}", spec_str.format(r=RULE[k]), B)
+                 for k in KINDS for name, spec_str, B in CLASSIC_CASES]
+        cases += [(f"minsum_{name}", spec_str, B)
+                  for name, spec_str, B in CLASSIC_MINSUM_CASES]
+        for name, spec_str, B in cases:
+            x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+            r = compare_classic(x.graph, x.llr, x.kw)
+            cn = x.kw.get("cn", "minsum")
+            classic_err[cn] = max(classic_err[cn], r["max_abs_err"])
+            emit("classic_vs_plain", code=code, case=name, decoder=spec_str,
+                 ebn0_db=ebn0, **r)
+    classic_parity = {}
+    for cn in KINDS:
+        x = make_inputs(**CCSDS_LEGS[cn], device=dev, seed=0)
+        classic_parity[cn] = r = compare_classic(x.graph, x.llr, x.kw)
+        classic_err[cn] = max(classic_err[cn], r["max_abs_err"])
+        emit("classic_vs_plain", code=CCSDS_LEGS[cn]["code"],
+             case=f"{cn}_bench_shape", decoder=CCSDS_LEGS[cn]["decoder"], **r)
+        del x
+    for name, spec_str in (("spa_fixed", "spa/25/noet"), ("spa_track", "spa/25")):
+        code = CCSDS_PRODUCTION_SWEEP["code"]
+        x = make_inputs(code, spec_str, 32, CLASSIC_CODES[code], dev, seed=1)
+        r = compare_flooding(x.graph, x.llr, x.kw, *k3)
+        flood_err["flooding_qc:spa"] = max(flood_err["flooding_qc:spa"],
+                                           r["max_abs_err"])
+        emit("flooding_qc_vs_plain", code=code, case=name,
+             decoder=spec_str, **r)
+    # each layered kernel takes only its own form of graph
+    ccsds12 = choose_graph(get_code(CCSDS_PRODUCTION_SWEEP["code"]),
+                           "layered/spa/2")
+    refusals = [
+        (layered_classic_cuda, choose_graph(spec12, "layered/spa/2"), {}),
+        (layered_decode_cuda, ccsds12, {}),
+        (layered_exact_cuda, ccsds12, {"cn": "spa"}),
+    ]
+    for fn, graph, kw in refusals:
+        try:
+            fn(graph, torch.zeros((1, graph.n), device=dev), max_iters=2, **kw)
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__} took the other form of graph")
+    emit("classic_vs_plain", refusals=len(refusals),
+         seconds=time.perf_counter() - t0)
+
+    # 17. the CCSDS legs timed; each rule's count read around its own run
+    classic_bench, classic_bench_launches = {}, {}
+    for cn in KINDS:
+        layered_classic_cuda.by_rule = dict.fromkeys(KINDS, 0)
+        smi_before = smi_sample()
+        res = run_benchmark(**CCSDS_LEGS[cn], device=dev)
+        classic_bench_launches[cn] = layered_classic_cuda.by_rule[cn]
+        emit("ccsds_bench", cn=cn, code=res.code, decoder=res.decoder,
+             plain_ms=classic_parity[cn]["plain_ms"],
+             **bench_line(res, classic_bench_launches[cn], smi_before))
+        if not res.frame_errors / res.batch < CCSDS_FER_MAX:
+            raise AssertionError(f"ccsds {cn}: FER above {CCSDS_FER_MAX}")
+        if classic_bench_launches[cn] <= 0:
+            raise AssertionError(f"ccsds {cn}: the classic kernel never "
+                                 f"launched")
+        classic_bench[cn] = res
+
+    # 18. the CCSDS sweep against the JAX package's CPU reference
+    with open(CCSDS_REFERENCE) as f:
+        reference = [PointResult.from_json(d) for d in json.load(f)]
+    t0 = time.perf_counter()
+    swept = run_sweep(SweepSpec(
+        code=CCSDS_PRODUCTION_SWEEP["code"], decoder=CCSDS_SWEEP_DECODER,
+        ebn0_db=CCSDS_SWEEP_EBN0, batch=CCSDS_PRODUCTION_SWEEP["batch"],
+        stopping=StoppingRule(min_frame_errors=10 ** 9,
+                              max_frames=CCSDS_SWEEP_FRAMES)), device=dev)
+    ref = [q for q in reference if q.decoder == CCSDS_SWEEP_DECODER]
+    overlap = curves_overlap(swept, ref, "fer")
+    for pr in swept:
+        g = next(q for q in ref if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+        emit("ccsds_vs_reference", decoder=CCSDS_SWEEP_DECODER,
+             **point_line(pr), reference_fer=g.fer,
+             reference_fer_ci=g.fer_ci)
+    emit("ccsds_vs_reference", overlap=overlap,
+         seconds=time.perf_counter() - t0)
+    if not overlap:
+        raise AssertionError("the CCSDS sweep misses the JAX reference")
+
+    # 19. the CCSDS production path through the CLI at the reference's
+    # retry points (the fallback gets frames at the lower one): counts
+    # from this run
+    ref_retry = [q for q in reference
+                 if q.decoder == CCSDS_PRODUCTION_SWEEP["decoder"]]
+    layered_classic_cuda.launches = 0
+    layered_classic_cuda.frames = 0
+    layered_classic_cuda.by_rule = dict.fromkeys(KINDS, 0)
+    layered_classic_cuda.frames_by_rule = dict.fromkeys(KINDS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "production_ccsds.json"
+        t0 = time.perf_counter()
+        rc = cli_main([
+            "sweep", "--code", CCSDS_PRODUCTION_SWEEP["code"],
+            "--decoder", CCSDS_PRODUCTION_SWEEP["decoder"],
+            "--ebn0", ",".join(str(q.ebn0_db) for q in ref_retry),
+            "--batch", str(CCSDS_PRODUCTION_SWEEP["batch"]),
+            "--min-frame-errors", "1000000",
+            "--max-frames", str(PRODUCTION_FRAMES), "--out", str(out)])
+        wall = time.perf_counter() - t0
+        prods = [PointResult.from_json(d) for d in json.loads(out.read_text())]
+    ccsds_sweep = dict(layered_classic_cuda.by_rule)
+    overlap = curves_overlap(prods, ref_retry, "fer")
+    for pr, q in zip(prods, ref_retry):
+        emit("production_ccsds", decoder=pr.decoder, **point_line(pr),
+             reference_fer=q.fer, reference_fer_ci=q.fer_ci)
+    emit("production_ccsds", rc=rc, seconds=wall, launches=ccsds_sweep,
+         frames_to_fallback=layered_classic_cuda.frames_by_rule["spa"],
+         overlap=overlap)
+    if rc != 0 or [pr.frames for pr in prods] != [PRODUCTION_FRAMES] * len(
+            ref_retry):
+        raise AssertionError(f"ccsds production sweep: rc {rc}, "
+                             f"{[pr.frames for pr in prods]} frames")
+    if ccsds_sweep["minsum"] <= 0 or ccsds_sweep["spa"] <= 0:
+        raise AssertionError("the CCSDS production sweep missed a rule of "
+                             "the classic kernel")
+    if layered_classic_cuda.frames_by_rule["spa"] <= 0:
+        raise AssertionError("the CCSDS fallback got no frames")
+    if not overlap:
+        raise AssertionError("the CCSDS production FER misses the reference")
+
+    kernels = []
+    # K1b's and K1c' spa's counts are the CCSDS production sweep's (primary
+    # and fallback), minstar's its own timed run's
+    for cn in KINDS:
+        res = classic_bench[cn]
+        kernels.append({
+            "name": f"layered_classic:{cn}",
+            "route": "cuda",
+            "source": "ecc_ldpc_tpu_torch/csrc/layered_classic.cu",
+            "replaces": "ecc_ldpc_tpu/decode/pallas/layered_qc.py:"
+                        + ("415" if cn == "minsum" else "630"),
+            "launches": (classic_bench_launches[cn] if cn == "minstar"
+                         else ccsds_sweep[cn]),
+            "max_abs_err": classic_err[cn],
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": classic_parity[cn]["plain_ms"],
+            "bound_ms": res.bound_ms,
+            "bound_by": res.roofline_form,
+            "library_ms": None,
+        })
+    return kernels
 
 
 def main() -> int:
@@ -692,6 +899,8 @@ def main() -> int:
     if not (bool(retried.ok.all()) and torch.equal(retried.bits, cw)):
         raise AssertionError("the flooding retry misses a trap codeword")
 
+    kernels_ccsds = ccsds_path(dev, spec12, k3, flood_err)
+
     hl = results["headline"]
     kernels = [{
         "name": "layered_qc",
@@ -747,6 +956,7 @@ def main() -> int:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
+    kernels += kernels_ccsds
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,7 +24,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("layered_qc", "layered_exact", "flooding", "flooding_qc")
+KERNEL_SOURCES = ("layered_qc", "layered_exact", "layered_classic", "flooding",
+                  "flooding_qc")
 
 
 def nvcc_path() -> str:

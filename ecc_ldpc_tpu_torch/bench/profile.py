@@ -6,9 +6,10 @@ card:
     python -m ecc_ldpc_tpu_torch.bench.profile
 
 Prints one JSON line per leg (the three min-sum legs, the two exact-BP
-legs, the four flooding legs) and one for each production sweep step
-(random message, encode, channel, the retry decoder with its layered and
-with its flooding fallback, tally). The window is the host time of `steps`
+legs, the four flooding legs, the three CCSDS legs) and one for each
+production sweep step (random message, encode, channel, the retry decoder
+with its layered and with its flooding fallback on DVB-S2, and on CCSDS,
+tally). The window is the host time of `steps`
 back-to-back calls ending in a synchronize, after a warm-up call; busy
 time is the sum of the device activities (kernels, copies, fills) the
 profiler recorded in it, so idle = 1 - busy / window. Run with tracing
@@ -25,6 +26,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from .throughput import (
+    CCSDS_LEGS,
+    CCSDS_PRODUCTION_SWEEP,
     EXACT_LEGS,
     FLOODING_LEGS,
     FLOODING_PRODUCTION_SWEEP,
@@ -70,7 +73,7 @@ def profile_sweep_step(code: str, decoder: str, batch: int, ebn0_db: float,
     """`steps` steps of run_sweep's pipeline, each with the noise stream of
     the next step of grid point 0 (seed 0), as the sweep draws them."""
     from ..decode.flooding_qc import flooding_qc_decode_cuda
-    from ..decode.layered_qc import layered_exact_cuda
+    from ..decode.layered_qc import layered_classic_cuda, layered_exact_cuda
     from ..sim.runner import Pipeline, SweepSpec, step_seed
 
     dev = torch.device("cuda", 0)
@@ -83,13 +86,16 @@ def profile_sweep_step(code: str, decoder: str, batch: int, ebn0_db: float,
         gen.manual_seed(step_seed(0, 0, 0, next(step)))
         counters.append(pipe.step(gen, ebn0_db))
 
-    before = layered_exact_cuda.frames + flooding_qc_decode_cuda.frames
+    def fallback_frames():
+        # frames a fallback kernel decoded: the retry's load, if any
+        return (layered_exact_cuda.frames + flooding_qc_decode_cuda.frames
+                + layered_classic_cuda.frames_by_rule["spa"])
+
+    before = fallback_frames()
     out = _profiled(one, steps, dev, top=12)
     out["frame_errors"] = sum(c[1] for c in counters)
     out["frames"] = batch * len(counters)
-    # frames the fallback kernel decoded: the retry's load, if any
-    out["fallback_frames"] = (layered_exact_cuda.frames
-                              + flooding_qc_decode_cuda.frames - before)
+    out["fallback_frames"] = fallback_frames() - before
     return out
 
 
@@ -97,12 +103,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench.profile needs a CUDA card")
     name = torch.cuda.get_device_name(0)
-    for leg, cfg in {**LEGS, **EXACT_LEGS, **FLOODING_LEGS}.items():
+    ccsds = {f"ccsds_{cn}": cfg for cn, cfg in CCSDS_LEGS.items()}
+    for leg, cfg in {**LEGS, **EXACT_LEGS, **FLOODING_LEGS, **ccsds}.items():
         out = profile_leg(**cfg)
         print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
     for leg, cfg in (("production_sweep_step", PRODUCTION_SWEEP),
                      ("flooding_production_sweep_step",
-                      FLOODING_PRODUCTION_SWEEP)):
+                      FLOODING_PRODUCTION_SWEEP),
+                     ("ccsds_production_sweep_step",
+                      CCSDS_PRODUCTION_SWEEP)):
         out = profile_sweep_step(**cfg)
         print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
     return 0

@@ -15,12 +15,14 @@ actually ran, of the check-node rule it decoded (decode_ops): the larger
 of the arithmetic over 67 TFLOP/s of fp32 outside the tensor cores and
 the transcendentals (exp, log, tanh, log1p of the exact rules) over the
 special-function units' 4.18e12 results/s, since the two units issue in
-parallel; layered and flooding schedules count differently (decode_ops).
-`roofline_form` names the side that bounds it.
+parallel; layered and flooding schedules count differently, and so do the
+layered set and accumulate forms (decode_ops). `roofline_form` names the
+side that bounds it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 
 import numpy as np
@@ -67,6 +69,17 @@ FLOODING_LEGS = {
         + "/25/noet", batch=4096, ebn0_db=1.5)
        for kind in ("minsum", "spa", "minstar")},
 }
+# The CCSDS AR4JA legs (k = 4096, rate 1/2: a block-column repeated in
+# every layer, so the layered decoders take the accumulate form): each
+# layered rule, fixed 25 iterations, at 2.5 dB, the upper point of the
+# stored JAX reference (FER ~0.03; PERF.md section 4).
+CCSDS_LEGS = {
+    cn: dict(code="ccsds/4096/12",
+             decoder=("layered/norm:0.8125" if cn == "minsum"
+                      else f"layered/{cn}") + "/25/noet",
+             batch=4096, ebn0_db=2.5)
+    for cn in ("minsum", "spa", "minstar")
+}
 # The production sweep point: the floor program's retry decoder at the
 # 1.5 dB operating point, in batches of 4096 frames.
 PRODUCTION_SWEEP = dict(code="dvbs2/64800/12",
@@ -76,6 +89,12 @@ PRODUCTION_SWEEP = dict(code="dvbs2/64800/12",
 # fallback is flooding spa (the QC flooding kernel).
 FLOODING_PRODUCTION_SWEEP = dict(
     PRODUCTION_SWEEP, decoder="layered/norm:0.8125/50;retry=spa/50")
+# The production retry decoder on ccsds/4096/12 at 1.5 dB, where the
+# primary fails to converge on some frames. From 2.0 dB up nearly every
+# frame error of this surrogate lifting is undetected (the decoder
+# converges to another codeword), so the fallback gets no frames there.
+CCSDS_PRODUCTION_SWEEP = dict(PRODUCTION_SWEEP, code="ccsds/4096/12",
+                              ebn0_db=1.5)
 
 
 @dataclasses.dataclass
@@ -123,7 +142,7 @@ class BenchResult:
 
 
 def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum",
-               schedule: str = "layered"):
+               schedule: str = "layered", accumulate: bool = False):
     """(transcendentals, arithmetic operations) of one iteration of one
     frame under check-node rule `cn`, for E edges and m checks (every
     check of degree >= 2).
@@ -148,11 +167,19 @@ def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum",
       exp, atanh), not 5; plus 2 arithmetic per edge visit: the VN
       accumulate (an add into the new posterior) and the recompute of the
       extrinsic total - C. So minsum 0 and 14E, spa 4E and 16E, minstar
-      12(E - 2m) and 48(E - 2m) + 6E."""
+      12(E - 2m) and 48(E - 2m) + 6E.
+    accumulate=True (layered, on graphs that repeat a block-column in a
+    layer; csrc/layered_classic.cu): the layered counts plus 2 arithmetic
+    per edge visit, the message change Cnew - Cold and its add into the
+    posterior. spa keeps 5 transcendentals (log|tanh| stays in registers
+    from pass 1 to pass 2; the TPU kernel recomputes it, 7). So minsum 0
+    and 14E, spa 5E and 16E, minstar 12(E - 2m) and 48(E - 2m) + 6E."""
     E, m = num_edges, num_checks
     if schedule not in ("layered", "flooding"):
         raise KeyError(f"schedule must be layered/flooding, got {schedule!r}")
-    extra = 2 * E if schedule == "flooding" else 0
+    if accumulate and schedule != "layered":
+        raise ValueError("the accumulate form is a layered schedule's")
+    extra = 2 * E if schedule == "flooding" or accumulate else 0
     if cn == "minsum":
         return 0, OPS_PER_EDGE_VISIT * E + extra
     if cn == "spa":
@@ -164,14 +191,16 @@ def decode_ops(num_edges: int, num_checks: int, cn: str = "minsum",
 
 def decode_bound(n: int, num_edges: int, batch: int, iteration_sum: int,
                  cn: str = "minsum", num_checks: int = 0,
-                 schedule: str = "layered"):
+                 schedule: str = "layered", accumulate: bool = False):
     """(seconds, "bytes" | "operations"): the least time an H100 could
     take to decode `batch` frames that ran `iteration_sum` iterations in
     all (batch * max_iters in fixed-iteration mode) with rule `cn` on
-    `schedule`. The special-function units and the fp32 pipes run side by
-    side, so the operations take the longer of the two, not their sum."""
+    `schedule` (layered: in the accumulate form if `accumulate`). The
+    special-function units and the fp32 pipes run side by side, so the
+    operations take the longer of the two, not their sum."""
     t_bytes = batch * n * (4 + 1) / H100_HBM_BYTES_PER_S
-    trans, arith = decode_ops(num_edges, num_checks, cn, schedule)
+    trans, arith = decode_ops(num_edges, num_checks, cn, schedule,
+                              accumulate)
     t_ops = iteration_sum * max(trans / H100_SFU_PER_S,
                                 arith / H100_FP32_OPS_PER_S)
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -183,6 +212,16 @@ def rule_of(kw: dict):
     if kw["kind"] == "layered":
         return kw.get("cn", "minsum"), "layered"
     return kw["kind"], "flooding"
+
+
+@functools.lru_cache(maxsize=None)
+def _encoder(code: str):
+    """The encoder of a registered code, built once per process: the
+    dense generator of a CCSDS code takes seconds of host elimination."""
+    from ..codes.registry import get_code
+    from ..encode.structured import build_encoder
+
+    return build_encoder(get_code(code))
 
 
 @dataclasses.dataclass
@@ -213,7 +252,6 @@ def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
     from ..chan.awgn import make_channel
     from ..codes.registry import get_code
     from ..decode.api import choose_graph, get_decoder, parse_decoder_spec
-    from ..encode.structured import build_encoder
 
     dev = resolve_device(device)
     spec = get_code(code)
@@ -224,7 +262,7 @@ def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
     gen.manual_seed(seed)
     msg = torch.randint(0, 2, (batch, spec.k), generator=gen, device=dev,
                         dtype=torch.uint8)
-    enc = build_encoder(spec)
+    enc = _encoder(code)
     cw = enc(msg)
     llr = make_channel(spec)(gen, cw, ebn0_db)
     return BenchInputs(spec=spec, graph=graph, decode=dec, kw=kw, enc=enc,
@@ -255,8 +293,10 @@ def run_benchmark(code: str = "dvbs2/64800/12",
     iteration_sum = int(res.iterations.sum().item())
     frame_errors, cw_errors = x.frame_errors(res.bits)
     cn, schedule = rule_of(x.kw)
+    accumulate = schedule == "layered" and not x.graph.intra_layer_dup_free
     bound_s, form = decode_bound(x.spec.n, x.spec.num_edges, batch,
-                                 iteration_sum, cn, x.spec.m, schedule)
+                                 iteration_sum, cn, x.spec.m, schedule,
+                                 accumulate)
     return BenchResult(
         throughput_mbps=batch * x.spec.k / wall / 1e6,
         code=code,

@@ -1,8 +1,10 @@
-// Check-node rules of flooding BP, shared by csrc/flooding.cu (K2) and
-// csrc/flooding_qc.cu (K3). Each rule turns the d variable-to-check
-// messages v[0..d) of one check, held in registers, into its
-// check-to-variable messages, in place. They repeat the plain PyTorch rules
-// of ecc_ldpc_tpu_torch/decode/cn_ops.py float for float: signs by
+// Check-node rules with count signs, shared by csrc/flooding.cu (K2),
+// csrc/flooding_qc.cu (K3) and csrc/layered_classic.cu (K1b, K1c'); the
+// box-plus and log|tanh| primitives are csrc/layered_exact.cu's (K1c) too.
+// Each rule turns the d variable-to-check messages v[0..d) of one check,
+// held in registers, into its check-to-variable messages, in place. They
+// repeat the plain PyTorch rules (decode/cn_ops.py for flooding,
+// decode/layered_qc.py for the layered sweeps) float for float: signs by
 // (v < 0), so -0.0 counts as positive; a message is (sign product * own
 // sign) * magnitude; sums in slot order; every add, subtract and multiply
 // an explicit _rn intrinsic (the sources are also built with -fmad=false);
@@ -55,10 +57,16 @@ __device__ __forceinline__ void minsum(float (&v)[MAX_DEG], int d, float alpha,
   }
 }
 
-// Sum-product by the tanh rule: lt = log(tanh(clip(|v|, 1e-10, 40) / 2)),
-// acc = sum of lt in slot order, magnitude 2 * atanh(min(exp(acc - lt),
-// 1 - 1e-7)). 4 transcendentals per edge.
-template <int MAX_DEG>
+// log(tanh(clip(|x|, 1e-10, 40) / 2)), the tanh rule's per-edge term.
+__device__ __forceinline__ float log_tanh_half(float x) {
+  return logf(tanhf(__fmul_rn(fminf(fmaxf(fabsf(x), 1e-10f), 40.f), 0.5f)));
+}
+
+// Sum-product by the tanh rule: lt = log_tanh_half(v), acc = sum of lt in
+// slot order, t = min(exp(acc - lt), 1 - 1e-7), magnitude 2 * atanh(t)
+// (flooding: 4 transcendentals per edge) or, with LOG1P, the layered
+// sweeps' log1p(t) - log1p(-t) (5).
+template <int MAX_DEG, bool LOG1P = false>
 __device__ __forceinline__ void spa(float (&v)[MAX_DEG], int d) {
   float lt[MAX_DEG];
   float acc = 0.f;
@@ -66,8 +74,7 @@ __device__ __forceinline__ void spa(float (&v)[MAX_DEG], int d) {
 #pragma unroll
   for (int j = 0; j < MAX_DEG; ++j) {
     if (j < d) {
-      const float a = fminf(fmaxf(fabsf(v[j]), 1e-10f), 40.f);
-      lt[j] = logf(tanhf(__fmul_rn(a, 0.5f)));
+      lt[j] = log_tanh_half(v[j]);
       acc = j == 0 ? lt[j] : __fadd_rn(acc, lt[j]);
       neg ^= (v[j] < 0.f);
     }
@@ -77,7 +84,8 @@ __device__ __forceinline__ void spa(float (&v)[MAX_DEG], int d) {
   for (int j = 0; j < MAX_DEG; ++j) {
     if (j < d) {
       const float t = fminf(expf(__fsub_rn(acc, lt[j])), kTanhClip);
-      const float mag = __fmul_rn(2.f, atanhf(t));
+      const float mag = LOG1P ? __fsub_rn(log1pf(t), log1pf(-t))
+                              : __fmul_rn(2.f, atanhf(t));
       v[j] = __fmul_rn(__fmul_rn(sp, sign_of(v[j])), mag);
     }
   }

@@ -59,13 +59,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bp_rules.cuh"
+
 namespace {
+
+using bp::boxplus;
+using bp::kIdentity;
+using bp::kMagCap;
+using bp::kTanhClip;
+using bp::log_tanh_half;
 
 constexpr int FT = 8;
 constexpr unsigned kSign = 0x80000000u;
-constexpr float kMagCap = 1e12f;
-constexpr float kTanhClip = (float)(1.0 - 1e-7);  // f32 of the reference's
-constexpr float kIdentity = 1e9f;
 enum Rule { kSpa = 0, kMinstar = 1 };
 
 struct Params {
@@ -101,20 +106,6 @@ __device__ bool syndrome_fail_part(const Params& p, const float* tot,
     }
   }
   return fail;
-}
-
-// x [+] y, the expression of decode/xla/flooding_qc.py::_boxplus in its
-// operation order: sgn * min(|x|, |y|) + (log1p(e^-|x+y|) - log1p(e^-|x-y|)).
-__device__ __forceinline__ float boxplus(float x, float y) {
-  const float mag = fminf(fabsf(x), fabsf(y));
-  const float sgn = ((x < 0.f) != (y < 0.f)) ? -1.f : 1.f;
-  const float c1 = log1pf(expf(-fabsf(__fadd_rn(x, y))));
-  const float c2 = log1pf(expf(-fabsf(__fsub_rn(x, y))));
-  return __fadd_rn(__fmul_rn(sgn, mag), __fsub_rn(c1, c2));
-}
-
-__device__ __forceinline__ float log_tanh_half(float x) {
-  return logf(tanhf(__fmul_rn(fminf(fmaxf(fabsf(x), 1e-10f), 40.f), 0.5f)));
 }
 
 template <int MAX_DEG, int RULE, bool TRACK>

@@ -12,6 +12,13 @@ ecc_ldpc_tpu/decode/api.py for the layered and flooding families).
                                      frames the primary fails are decoded
                                      again by the fallback (with_retry)
 
+The same specs decode every QC code. On a graph that repeats a
+block-column inside a layer (ccsds/4096/12 and the rest of the AR4JA
+family), every layered spec runs the accumulate form, on the card through
+csrc/layered_classic.cu: e.g. `--code ccsds/4096/12 --decoder
+"layered/norm:0.8125/50;retry=layered/spa/50"` sends both the primary and
+the fallback there.
+
 The port has one decoder per device and no backend choice: a CUDA tensor
 goes through the CUDA kernels, a CPU tensor through the plain version. The
 spec parts `pallas`, `xla` and `auto` are parsed and have no effect;

@@ -1,28 +1,33 @@
 """Layered decoding on circulant QC graphs: the plain PyTorch version and
-the wrappers of its two CUDA kernels (csrc/layered_qc.cu, min-sum;
-csrc/layered_exact.cu, exact BP).
+the wrappers of its three CUDA kernels (csrc/layered_qc.cu, min-sum;
+csrc/layered_exact.cu, exact BP; csrc/layered_classic.cu, every rule on
+graphs that repeat a block-column in a layer).
 
 `layered_decode_plain` ports ecc_ldpc_tpu/decode/xla/layered.py::
-decode_layered with signbit sign semantics on graphs with no duplicate
-column inside a layer (every DVB-S2, 802.11n, WiMAX and 5G NR table):
-fixed-iteration mode (`early_term=False`, exactly max_iters sweeps) and
-track mode (per-frame freeze on the exact "every layer parity passed and
-no posterior changed sign" rule). The check-node rule `cn` is "minsum"
-(normalized/offset, scalar or per-iteration alpha/beta), or one of the
-exact-BP rules "spa" (tanh rule, running log|tanh| sum) and "minstar"
-(box-plus forward/backward scans), which ignore alpha/beta. It is the CPU
-path and the card's yardstick.
+decode_layered: fixed-iteration mode (`early_term=False`, exactly
+max_iters sweeps) and track mode (per-frame freeze on the exact "every
+layer parity passed and no posterior changed sign" rule). The check-node
+rule `cn` is "minsum" (normalized/offset, scalar or per-iteration
+alpha/beta), or one of the exact-BP rules "spa" (tanh rule, running
+log|tanh| sum) and "minstar" (box-plus forward/backward scans), which
+ignore alpha/beta. On graphs with no duplicate column inside a layer
+(every DVB-S2, 802.11n, WiMAX and 5G NR table) signs follow the sign bits
+and a layer sets each posterior to V + Cnew; on multi-edge graphs (CCSDS
+AR4JA) it takes the oracle's other form: count signs (v < 0) and posterior
+updates that accumulate each slot's Cnew - Cold. It is the CPU path and
+the card's yardstick.
 
-`layered_decode_cuda` (min-sum) and `layered_exact_cuda` (spa, minstar)
-launch the kernels that replace
-ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel's `sweep_delta` and
-`sweep_exact`; `make_layered_decoder` picks one by rule. Min-sum is
-bit-identical with the plain version in f32 (same
-operations in the same order, no fused multiply-add, no reduction across
-frames); the exact rules are too wherever the card's expf, logf, tanhf
-and log1pf are the ones PyTorch's CUDA elementwise ops call.
+`layered_decode_cuda` (min-sum), `layered_exact_cuda` (spa, minstar) and
+`layered_classic_cuda` (all three, multi-edge graphs) launch the kernels
+that replace ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel's
+`sweep_delta`, `sweep_exact`, and `sweep_classic` with
+`sweep_exact_classic`; `make_layered_decoder` picks one by graph and rule.
+Min-sum is bit-identical with the plain version in f32 (same operations in
+the same order, no fused multiply-add, no reduction across frames); the
+exact rules are too wherever the card's expf, logf, tanhf and log1pf are
+the ones PyTorch's CUDA elementwise ops call.
 
-Both visit block-rows in QCGraph.layer_order and each row's edges in
+All visit block-rows in QCGraph.layer_order and each row's edges in
 layer_edges order, as the JAX package does.
 """
 from __future__ import annotations
@@ -68,10 +73,6 @@ def check_graph(graph: QCGraph) -> None:
     if not isinstance(graph, QCGraph):
         raise TypeError("layered decoding needs the port's QCGraph "
                         "(graph.qc.compile_qc_graph)")
-    if not graph.intra_layer_dup_free:
-        raise NotImplementedError(
-            f"{graph.name}: a layer touches one block-column twice; the "
-            f"accumulate form waits for ROADMAP.md Queue 2 K1b")
     if graph.dcb_max > MAX_DEG:
         raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
                          f"the layered kernel's limit {MAX_DEG}")
@@ -103,10 +104,13 @@ def _plain_layers(graph: QCGraph, device):
     return layers
 
 
-def _cn_minsum(V: torch.Tensor, a: float, b: float) -> torch.Tensor:
-    """Leave-one-out two-min check update over axis 0 of V [d, Z, B], sign
-    bits XOR-ed (-0.0 is negative), magnitude max(a*min(m, cap) - b, 0)."""
-    negb = torch.signbit(V)
+def _cn_minsum(V: torch.Tensor, a: float, b: float,
+               signbit: bool = True) -> torch.Tensor:
+    """Leave-one-out two-min check update over axis 0 of V [d, Z, B],
+    magnitude max(a*min(m, cap) - b, 0). Signs: sign bits XOR-ed (-0.0 is
+    negative), or with signbit=False the count rule (v < 0) of
+    layered.py::_cn_minsum_axis0(signbit=False)."""
+    negb = torch.signbit(V) if signbit else V < 0
     neg_out = (negb.sum(0, keepdim=True) % 2 == 1) ^ negb
     A = V.abs()
     min1 = A.amin(0, keepdim=True)
@@ -119,18 +123,24 @@ def _cn_minsum(V: torch.Tensor, a: float, b: float) -> torch.Tensor:
     return torch.where(neg_out, -mag, mag)
 
 
-def _cn_spa(V: torch.Tensor) -> torch.Tensor:
-    """Exact sum-product over axis 0 of V [d, Z, B] (layered.py:64-85,
-    signbit=True): leave-one-out through a log|tanh| sum accumulated in
-    slot order, magnitude 2*atanh(t) = log1p(t) - log1p(-t), and the XOR
-    of the other slots' sign bits OR-ed onto it (so a zero magnitude keeps
-    its sign bit, as the Pallas kernel's integer form does)."""
+def _cn_spa(V: torch.Tensor, signbit: bool = True) -> torch.Tensor:
+    """Exact sum-product over axis 0 of V [d, Z, B] (layered.py:64-85):
+    leave-one-out through a log|tanh| sum accumulated in slot order,
+    magnitude 2*atanh(t) = log1p(t) - log1p(-t). With signbit=True the XOR
+    of the other slots' sign bits is OR-ed onto it (so a zero magnitude
+    keeps its sign bit, as the Pallas kernel's integer form does); with
+    signbit=False the sign is the count rule's (v < 0), as
+    _cn_spa_seq(signbit=False) and sweep_exact_classic take it."""
     lt = torch.log(torch.tanh(torch.clamp(V.abs(), 1e-10, 40.0) * 0.5))
     acc = lt[0]
     for j in range(1, V.shape[0]):
         acc = acc + lt[j]
     t = torch.clamp_max(torch.exp(acc - lt), _SPA_TANH_CLIP)
     mag = torch.log1p(t) - torch.log1p(-t)
+    if not signbit:
+        neg = V < 0
+        neg_out = (neg.sum(0, keepdim=True) % 2 == 1) ^ neg
+        return torch.where(neg_out, -mag, mag)
     sb = V.view(torch.int32)
     sg = sb[0]
     for j in range(1, V.shape[0]):
@@ -170,13 +180,15 @@ def _cn_minstar(V: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.stack(outs), -_MAG_CAP, _MAG_CAP)
 
 
-def _check_rule(cn: str, a: float, b: float):
-    """Cnew(V [d, Z, B]) for rule `cn` at this iteration's alpha/beta."""
+def _check_rule(cn: str, a: float, b: float, signbit: bool = True):
+    """Cnew(V [d, Z, B]) for rule `cn` at this iteration's alpha/beta, with
+    sign bits (dup-free graphs) or the count rule (signbit=False: graphs
+    with a column repeated in a layer, as the JAX oracle forces there)."""
     if cn == "spa":
-        return _cn_spa
+        return lambda V: _cn_spa(V, signbit)
     if cn == "minstar":
         return _cn_minstar
-    return lambda V: _cn_minsum(V, a, b)
+    return lambda V: _cn_minsum(V, a, b, signbit)
 
 
 def _syndrome_fail_plain(layers, total: torch.Tensor, Z: int) -> torch.Tensor:
@@ -189,11 +201,19 @@ def _syndrome_fail_plain(layers, total: torch.Tensor, Z: int) -> torch.Tensor:
     return fail
 
 
-def _sweep_plain(layers, total, C, Z, rule, frozen):
+def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
+                 reverse=False):
     """One layered iteration, in place on total [n, B] and C [BE, Z, B],
     with check rule `rule` (V [d, Z, B] -> Cnew). With `frozen` (bool [B],
-    track mode) frozen frames keep their state and the on-the-fly fail
-    flag (layer parity or a sign flip) is returned."""
+    track mode) frozen frames keep their state exactly and the on-the-fly
+    fail flag (layer parity or a sign flip) is returned.
+
+    Posterior update: the set form total = V + Cnew where a layer touches
+    each column once; with `accumulate` (a column repeated in the layer)
+    the accumulate form of decode/xla/layered.py:187-234: every slot's
+    rolled posterior is read first, then each slot in layer order (reverse
+    for minstar: `reverse`) adds Cnew - Cold to its posteriors, and a sign
+    flip is checked after each slot's add."""
     B = total.shape[1]
     track = frozen is not None
     fail = torch.zeros(B, dtype=torch.bool, device=total.device)
@@ -209,11 +229,24 @@ def _sweep_plain(layers, total, C, Z, rule, frozen):
         Cnew = rule(V)
         if track:
             Cnew = torch.where(keep, Cold, Cnew)
-            new = torch.where(keep, rolled, V + Cnew)
-            fail |= (torch.signbit(new) != torch.signbit(rolled)).any(0).any(0)
+        if accumulate:
+            delta = Cnew - Cold
+            for j in (range(d - 1, -1, -1) if reverse else range(d)):
+                ij = idx[j * Z:(j + 1) * Z]
+                old = total[ij]
+                new = old + delta[j]
+                if track:
+                    new = torch.where(keep[0], old, new)
+                    fail |= (torch.signbit(new) != torch.signbit(old)).any(0)
+                total[ij] = new
         else:
-            new = V + Cnew
-        total[idx] = new.view(d * Z, B)
+            if track:
+                new = torch.where(keep, rolled, V + Cnew)
+                fail |= (torch.signbit(new)
+                         != torch.signbit(rolled)).any(0).any(0)
+            else:
+                new = V + Cnew
+            total[idx] = new.view(d * Z, B)
         C[eids] = Cnew
     return fail
 
@@ -231,20 +264,26 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     total = llr.to(torch.float32).t().contiguous()  # [n, B]
     C = torch.zeros((graph.num_block_edges, Z, B), dtype=torch.float32,
                     device=llr.device)
+    # graphs with a column repeated in a layer: count signs, accumulate form
+    dup = not graph.intra_layer_dup_free
+    form = dict(accumulate=dup, reverse=dup and cn == "minstar")
+
+    def rule(t):
+        return _check_rule(cn, float(alphas[t]), float(betas[t]),
+                           signbit=not dup)
+
     if early_term:
         done = ~_syndrome_fail_plain(layers, total, Z)
         iters = torch.zeros(B, dtype=torch.int32, device=llr.device)
         for t in range(max_iters):
             if bool(done.all()):
                 break
-            rule = _check_rule(cn, float(alphas[t]), float(betas[t]))
-            fail = _sweep_plain(layers, total, C, Z, rule, done)
+            fail = _sweep_plain(layers, total, C, Z, rule(t), done, **form)
             iters += (~done).to(torch.int32)
             done = done | ~fail
     else:
         for t in range(max_iters):
-            rule = _check_rule(cn, float(alphas[t]), float(betas[t]))
-            _sweep_plain(layers, total, C, Z, rule, None)
+            _sweep_plain(layers, total, C, Z, rule(t), None, **form)
         iters = torch.full((B,), max_iters, dtype=torch.int32,
                            device=llr.device)
     bits = (total < 0).to(torch.uint8).t().contiguous()
@@ -304,6 +343,8 @@ def _lib(name: str, entry: str, argtypes):
 _QC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _EXACT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _check_llr(llr: torch.Tensor, n: int, max_iters: int, who: str,
@@ -325,10 +366,20 @@ def _check_llr(llr: torch.Tensor, n: int, max_iters: int, who: str,
 
 
 def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
-                      who: str) -> None:
-    """Raise on anything the layered kernels do not take."""
+                      who: str, classic: bool = False) -> None:
+    """Raise on anything the layered kernel of `who` does not take: the
+    classic kernel decodes graphs that repeat a block-column in a layer,
+    the other two only graphs that do not."""
     _check_llr(llr, graph.n, max_iters, who, "layered_decode_plain")
     check_graph(graph)
+    if classic and graph.intra_layer_dup_free:
+        raise ValueError(
+            f"{graph.name}: no layer repeats a block-column; its kernels are "
+            f"layered_decode_cuda's (minsum) and layered_exact_cuda's")
+    if not classic and not graph.intra_layer_dup_free:
+        raise ValueError(
+            f"{graph.name}: a layer repeats a block-column; its kernel is "
+            f"layered_classic_cuda's")
 
 
 def _to_tiles(llr: torch.Tensor) -> torch.Tensor:
@@ -402,6 +453,21 @@ def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
 layered_decode_cuda.launches = 0
 
 
+def _message_buffers(graph: QCGraph, llr: torch.Tensor):
+    """Tile buffers of the kernels that keep every message:
+    (slot table, total, C, bits, ok, iters); total holds the LLRs in and
+    the posteriors out, C one row per sweep slot and check."""
+    dev = llr.device
+    B, tiles = llr.shape[0], -(-llr.shape[0] // _FT)
+    tab = _device_tables(graph, dev, "kernel", _kernel_table)
+    C = torch.empty((tiles, graph.num_block_edges * graph.Z, _FT),
+                    dtype=torch.float32, device=dev)
+    bits = torch.empty((tiles, graph.n, _FT), dtype=torch.uint8, device=dev)
+    ok = torch.empty(B, dtype=torch.uint8, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    return tab, _to_tiles(llr), C, bits, ok, iters
+
+
 def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
                   early_term: bool, cn: str):
     """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
@@ -409,17 +475,8 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
     if cn not in ("spa", "minstar"):
         raise ValueError(f"the exact-BP kernel runs spa or minstar, not {cn!r}")
     _check_cuda_input(graph, llr, max_iters, "layered_exact_cuda")
-    dev = llr.device
-    B, Z, n = llr.shape[0], graph.Z, graph.n
-    tiles = -(-B // _FT)
-    tab = _device_tables(graph, dev, "kernel", _kernel_table)
-    total = _to_tiles(llr)  # in: LLRs; out: posteriors
-    # check-to-variable messages, one row per sweep slot and check
-    C = torch.empty((tiles, graph.num_block_edges * Z, _FT),
-                    dtype=torch.float32, device=dev)
-    bits = torch.empty((tiles, n, _FT), dtype=torch.uint8, device=dev)
-    ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    dev, B, Z = llr.device, llr.shape[0], graph.Z
+    tab, total, C, bits, ok, iters = _message_buffers(graph, llr)
     lib = _lib("layered_exact", "layered_exact_decode", _EXACT_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_exact_decode(
@@ -462,14 +519,82 @@ layered_exact_cuda.launches = 0
 layered_exact_cuda.frames = 0  # frames decoded: the retry fallback's load
 
 
+def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
+                    max_iters: int, early_term: bool, cn: str):
+    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
+    layered kernel for graphs that repeat a block-column in a layer."""
+    alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
+    _check_cuda_input(graph, llr, max_iters, "layered_classic_cuda",
+                      classic=True)
+    dev, B, Z = llr.device, llr.shape[0], graph.Z
+    tab, total, C, bits, ok, iters = _message_buffers(graph, llr)
+    ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
+          if per_iter else None)
+    # one layer's message changes Cnew - Cold (csrc/layered_classic.cu)
+    D = torch.empty((C.shape[0], graph.dcb_max * Z, _FT),
+                    dtype=torch.float32, device=dev)
+    lib = _lib("layered_classic", "layered_classic_decode", _CLASSIC_ARGS)
+    with torch.cuda.device(dev):
+        rc = lib.layered_classic_decode(
+            total.data_ptr(), C.data_ptr(), D.data_ptr(), bits.data_ptr(),
+            ok.data_ptr(), iters.data_ptr(), tab.data_ptr(),
+            None if ab is None else ab.data_ptr(),
+            Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
+            graph.dcb_max, float(alphas[0]), float(betas[0]),
+            CN_RULES.index(cn), int(early_term), threads_z(Z),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        _raise_launch(lib, "layered_classic", rc)
+    layered_classic_cuda.launches += 1
+    layered_classic_cuda.frames += B
+    layered_classic_cuda.by_rule[cn] += 1
+    layered_classic_cuda.frames_by_rule[cn] += B
+    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
+                       iterations=iters)
+    return res, total
+
+
+def layered_classic_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
+                         beta=0.0, max_iters: int = 25,
+                         early_term: bool = True,
+                         cn: str = "minsum") -> DecodeResult:
+    """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
+    the layered kernel for graphs that repeat a block-column in a layer
+    (csrc/layered_classic.cu: min-sum, spa and minstar in the accumulate
+    form with count signs) on the current stream. Raises on anything the
+    kernel does not take, dup-free graphs included; never falls back to
+    the plain version."""
+    return _launch_classic(graph, llr, alpha, beta, max_iters, early_term,
+                           cn)[0]
+
+
+def classic_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
+                                 alpha=1.0, beta=0.0, max_iters: int = 25,
+                                 early_term: bool = True, cn: str = "minsum"):
+    """(DecodeResult, posteriors f32 [B, n]) of one launch of the classic
+    layered kernel, for holding it against plain_with_posteriors."""
+    res, total = _launch_classic(graph, llr, alpha, beta, max_iters,
+                                 early_term, cn)
+    return res, _from_tiles(total, llr.shape[0])
+
+
+layered_classic_cuda.launches = 0
+layered_classic_cuda.frames = 0
+# per rule: one kernel serves a retry decoder's primary and its fallback
+layered_classic_cuda.by_rule = dict.fromkeys(CN_RULES, 0)         # launches
+layered_classic_cuda.frames_by_rule = dict.fromkeys(CN_RULES, 0)  # frames
+
+
 def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
                          max_iters: int = 25, early_term: bool = True,
                          cn: str = "minsum", device="cuda"):
     """decode(llr [B, n]) -> DecodeResult. The decoder runs the plain
-    version on CPU tensors and the CUDA kernel of rule `cn` on CUDA
-    tensors; `device` (default "cuda", which raises when CUDA is absent)
-    is where its tables are built up front. Exact rules ignore
-    alpha/beta."""
+    version on CPU tensors and a CUDA kernel on CUDA tensors: on graphs
+    that repeat a block-column in a layer the classic kernel for every
+    rule, otherwise the min-sum or the exact-BP kernel by rule `cn`.
+    `device` (default "cuda", which raises when CUDA is absent) is where
+    its tables are built up front. Exact rules ignore alpha/beta."""
     check_graph(graph)
     _schedule(alpha, beta, max_iters, cn)
     dev = resolve_device(device)
@@ -483,6 +608,8 @@ def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
     def decode(llr: torch.Tensor) -> DecodeResult:
         if llr.device.type == "cpu":
             return layered_decode_plain(graph, llr, **kw)
+        if not graph.intra_layer_dup_free:
+            return layered_classic_cuda(graph, llr, **kw)
         if cn == "minsum":
             return layered_decode_cuda(graph, llr, **kw)
         return layered_exact_cuda(graph, llr, max_iters=max_iters,

@@ -4,8 +4,11 @@ ecc_ldpc_tpu/graph/qc.py, circulant "roll" blocks only).
 The tables are NumPy; `QCGraph.to(device)` gives their int32/bool tensors.
 Check r of block-edge e (block-row br[e], block-column bc[e], shift s[e])
 connects variable bc[e]*Z + (r + s[e]) % Z. The layered decoders visit the
-block-rows in `layer_order` and the edges of a row in `layer_edges` order,
-the same order as the JAX package, so the two share fixed points.
+block-rows in `layer_order` and the edges of a row in `layer_edges` order
+(edge-id order), the same order as the JAX package, so the two share fixed
+points. The block edges come from the code's `block_edges()`: a QCCode's
+base matrix, or a QCMultiCode's explicit list (CCSDS AR4JA), whose parallel
+edges put one block-column twice in a layer (`intra_layer_dup_free` False).
 """
 from __future__ import annotations
 
@@ -15,7 +18,6 @@ import functools
 import numpy as np
 import torch
 
-from ..codes.qc import QCCode
 from ..codes.spec import CodeSpec
 
 
@@ -99,7 +101,8 @@ class QCGraph:
     def intra_layer_dup_free(self) -> bool:
         """True when no block-row touches the same block-column twice, so a
         layer writes each posterior at most once (the set-form update
-        `extrinsic + Cnew` that the port's layered decoders use)."""
+        `extrinsic + Cnew`); otherwise the layered decoders add each slot's
+        message change to the posteriors (the accumulate form)."""
         for r in self._rows:
             cols = [c for _, c, _ in r]
             if len(cols) != len(set(cols)):
@@ -163,7 +166,9 @@ def qc_graph_from_block_edges(
 
 
 def compile_qc_graph(spec: CodeSpec) -> QCGraph:
-    qc: QCCode = spec.qc
+    """The QCGraph of a code with QC structure (QCCode or QCMultiCode),
+    block edges in the order `block_edges()` lists them."""
+    qc = spec.qc
     if qc is None:
         raise ValueError(f"code {spec.name!r} has no QC structure")
     br, bc, sh = qc.block_edges()

@@ -1,6 +1,8 @@
 """The port's flooding decoder on QC graphs (decode/flooding_qc.py) against
 the JAX package: decode/xla/flooding_qc.py::decode_flooding_qc on the z16
-surrogate and on wimax/576/12, and the Pallas kernel
+surrogate, on wimax/576/12 and on the multi-edge AR4JA rate-1/2 graph at
+M=64 (parallel circulants in one cell, punctured block at LLR 0), and the
+Pallas kernel
 (decode/pallas/flooding_qc.py, K3) in interpret mode at f32.
 
 Same graph (carried across with convert.graph_from_numpy), same LLR array
@@ -21,11 +23,13 @@ import pytest
 import torch
 
 from ecc_ldpc_tpu.codes import get_code as jax_get_code
+from ecc_ldpc_tpu.codes.ccsds import ar4ja as jax_ar4ja
 from ecc_ldpc_tpu.codes.ieee80211n import surrogate_base
 from ecc_ldpc_tpu.codes.qc import QCCode as JaxQCCode
 from ecc_ldpc_tpu.codes.qc import expand_qc as jax_expand_qc
 from ecc_ldpc_tpu.decode.pallas.flooding_qc import make_flooding_pallas_decoder
 from ecc_ldpc_tpu.decode.xla import flooding_qc as jax_fqc
+from ecc_ldpc_tpu.encode.dense import systematic_generator as jax_sg
 from ecc_ldpc_tpu.encode.structured import build_encoder as jax_build_encoder
 from ecc_ldpc_tpu.graph.qc import compile_qc_graph as jax_compile_qc_graph
 from ecc_ldpc_tpu_torch.convert import graph_from_numpy
@@ -54,21 +58,27 @@ def _llr(cw, rate, ebn0_db, rng):
 @pytest.fixture(scope="module")
 def graphs():
     """{name: (JAX QCGraph, port QCGraph, llr f32 [B, n])}: the z16
-    surrogate (B=24, 2.6 dB) and wimax/576/12 (B=16, 2.2 dB), each with a
-    noiseless frame 0."""
+    surrogate (B=24, 2.6 dB), wimax/576/12 (B=16, 2.2 dB) and ar4ja(M=64)
+    (B=24, 2.5 dB, punctured LLRs zeroed), each with a noiseless frame 0."""
     out = {}
     base = surrogate_base(mb=4, nb=12, Z=16, seed=99)
     cases = [
         ("z16", jax_expand_qc(JaxQCCode(Z=16, base=base), name="test.z16",
                               k=8 * 16), 24, 2.6),
         ("wimax576", jax_get_code("wimax/576/12"), 16, 2.2),
+        ("ar4ja_m64", jax_ar4ja(rate="12", M=64), 24, 2.5),
     ]
     for i, (name, spec, B, ebn0) in enumerate(cases):
         jg = jax_compile_qc_graph(spec)
         rng = np.random.default_rng(21 + i)
         msg = rng.integers(0, 2, (B, spec.k), dtype=np.uint8)
-        cw = jax_build_encoder(spec).encode_numpy(msg)
+        if spec.punctured_cols:  # no structured encoder: the generator
+            G, _ = jax_sg(spec)
+            cw = (msg.astype(np.int64) @ G % 2).astype(np.uint8)
+        else:
+            cw = jax_build_encoder(spec).encode_numpy(msg)
         llr = _llr(cw, spec.rate, ebn0, rng)
+        llr[:, list(spec.punctured_cols)] = 0.0
         llr[0] = 4.0 * (1.0 - 2.0 * cw[0])
         g = graph_from_numpy(jg.Z, jg.mb, jg.nb, jg.k, jg.be_row_np,
                              jg.be_col_np, jg.be_shift_np, jg.name)
@@ -101,7 +111,7 @@ def _jax_posteriors(jg, llr, kind, T, monkeypatch):
     return np.asarray(acc.reshape(jg.nb * jg.Z, B)).T
 
 
-@pytest.mark.parametrize("name", ["z16", "wimax576"])
+@pytest.mark.parametrize("name", ["z16", "wimax576", "ar4ja_m64"])
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("mode", ["fixed", "track"])
 def test_flooding_qc_plain_matches_jax(graphs, name, kind, mode,

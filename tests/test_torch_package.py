@@ -56,7 +56,8 @@ def test_port_imports_no_jax():
     )
     for m in ("codes.alist", "codes.mackay", "encode.gf2", "encode.dense",
               "graph.compile", "decode.cn_ops", "decode.flooding",
-              "decode.flooding_qc"):
+              "decode.flooding_qc", "codes.ccsds", "codes.girth",
+              "codes.qc"):
         assert f"ecc_ldpc_tpu_torch.{m}" in mods, m
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
