@@ -8,8 +8,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
   1. device  — the card's name and nvidia-smi's name and power limit.
   2. build   — nvcc builds every kernel of the path into build/kernels/.
   3. kernel vs plain — the CUDA layered kernel against its plain PyTorch
-     version on the same LLRs on the card: bits, ok and iterations must be
-     identical (fixed and track mode, rate 1/2, 3/4 and 9/10 — row
+     version on the same LLRs on the card: bits, ok, iterations and the
+     final posteriors must be identical (fixed and track mode, rate 1/2,
+     3/4 and 9/10 — row
      degrees 7-8, 14-15 and 30-31, one build of the kernel each — scalar
      and offset alpha/beta, the learned schedule, the stored trap batch,
      and each main-path leg's shapes).
@@ -93,6 +94,31 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      classic kernel ran both the primary (min-sum) and the fallback (spa),
      the fallback got frames (at 1.5 dB: from 2.0 dB up this surrogate's
      frame errors are undetected), and the FER overlaps the reference.
+  20. xor kernels vs plain — the XOR instantiations of csrc/layered_qc.cu
+     and csrc/flooding_qc.cu (K4's layered and flooding modes) and of
+     csrc/layered_exact.cu against their plain versions on 8023an (Z = 64
+     XOR-permutation blocks, row degree 32): each rule, layered and
+     flooding, fixed at 3.6 dB and track at 3.4 dB (32 frames, and 13 for
+     a ragged last tile); layered min-sum also with offset:0.15 and the
+     per-iteration schedule dvbs2_64800_12_T25; the toy Z = 16 xor code
+     (the 8-wide builds), min-sum layered and flooding, fixed and track;
+     each XOR_LEGS shape (2048 frames). Bits, ok and iterations identical;
+     posteriors after one sweep within EXACT_MAX_ULPS, and min-sum's final
+     posteriors identical. The classic kernel
+     refuses a xor graph, and no roll instantiation launches in 20-22.
+  21. xor legs timed — bench.XOR_LEGS through run_benchmark (8023an,
+     4.0 dB, 2048 frames, layered/norm:0.8125/25/noet and
+     minsum/norm:0.8125/25/noet), and layered/spa/25/noet on the same
+     shape: ms, Mbit/s, launches by perm, bound, plain ms, FER <= 0.01.
+  22. 8023an sweeps vs the JAX reference — run_sweep of
+     layered/norm:0.8125/25 at 3.4 and 3.6 dB and of minsum/norm:0.8125/25
+     at 3.6 and 3.8 dB, 8192 frames a point, must overlap
+     ecc_ldpc_tpu_torch/data/8023an_jax_cpu.json (the overlap with the TPU
+     goldens, measured through a bf16 permutation, is printed and gates
+     nothing); then the CLI's sweep with
+     layered/norm:0.8125/50;retry=layered/spa/50 at 3.6 dB, 65536 frames
+     in batches of 4096: both xor kernels launched, the fallback got
+     frames, and the FER overlaps the reference's retry point.
 Then the kernels line, nvidia-smi's line, and the result line last.
 """
 from __future__ import annotations
@@ -116,10 +142,14 @@ from ecc_ldpc_tpu_torch.bench.throughput import (
     FLOODING_PRODUCTION_SWEEP,
     LEGS,
     PRODUCTION_SWEEP,
+    XOR_LEGS,
+    XOR_PRODUCTION_SWEEP,
     make_inputs,
     run_benchmark,
 )
+from ecc_ldpc_tpu_torch.chan.awgn import awgn_llr
 from ecc_ldpc_tpu_torch.cli.main import main as cli_main
+from ecc_ldpc_tpu_torch.codes.qc import QCXorCode, expand_qc_xor
 from ecc_ldpc_tpu_torch.codes.registry import get_code
 from ecc_ldpc_tpu_torch.decode.api import (
     choose_graph,
@@ -141,10 +171,11 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
     exact_with_posteriors_cuda,
     layered_classic_cuda,
     layered_decode_cuda,
-    layered_decode_plain,
     layered_exact_cuda,
+    minsum_with_posteriors_cuda,
     plain_with_posteriors,
 )
+from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
 from ecc_ldpc_tpu_torch.sim import (
     PointResult,
     StoppingRule,
@@ -243,6 +274,31 @@ CCSDS_SWEEP_DECODER = "layered/norm:0.8125/50"
 CCSDS_SWEEP_EBN0 = (2.0, 2.5)
 CCSDS_SWEEP_FRAMES = 8192
 CCSDS_FER_MAX = 0.5
+# the xor kernels vs plain on 8023an: (name, spec with {r} for the rule,
+# Eb/N0, B); at 3.4-3.6 dB 25 iterations fail some of 32 frames
+XOR_CASES = [
+    ("fixed_3.6dB", "{r}/25/noet", 3.6, 32),
+    ("track_3.4dB", "{r}/25", 3.4, 32),
+    ("track_3.4dB_13frames", "{r}/25", 3.4, 13),
+]
+XOR_MINSUM_CASES = [
+    ("fixed_offset_3.6dB", "layered/norm:0.8125/offset:0.15/25/noet", 3.6),
+    ("track_sched_3.4dB", "layered/sched:dvbs2_64800_12_T25", 3.4),
+]
+XOR_RULES = {"layered": {"minsum": "layered/norm:0.8125", "spa": "layered/spa",
+                         "minstar": "layered/minstar"},
+             "flooding": RULE}
+XOR_TOY_EBN0 = 2.0  # the toy code fails some of 32 frames here
+XOR_REFERENCE = ROOT / "ecc_ldpc_tpu_torch" / "data" / "8023an_jax_cpu.json"
+# sweep decoder -> (Eb/N0 points, the TPU golden printed beside them)
+XOR_SWEEPS = {
+    "layered/norm:0.8125/25": ((3.4, 3.6), ROOT / "curves"
+                               / "8023an_layered_tpu_golden.json"),
+    "minsum/norm:0.8125/25": ((3.6, 3.8), ROOT / "curves"
+                              / "8023an_tpu_golden.json"),
+}
+XOR_SWEEP_FRAMES = 8192
+XOR_FER_MAX = 0.01
 
 
 def emit(phase: str, **kw) -> None:
@@ -269,20 +325,30 @@ def timed(fn, *args, **kw):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when two f32 tensors hold the same bits (NaN and -0.0 too)."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
 def compare(graph, llr, kw):
-    """Kernel and plain version on the same LLRs; raises unless identical.
-    Returns (the numbers to print, the kernel's DecodeResult)."""
+    """Kernel and plain version on the same LLRs; raises unless bits, ok,
+    iterations and the final posteriors are identical. Returns (the
+    numbers to print, the kernel's DecodeResult)."""
     dkw = {k: kw[k] for k in ("alpha", "beta", "max_iters", "early_term")
            if k in kw}
-    kern, kern_ms = timed(layered_decode_cuda, graph, llr, **dkw)
-    plain, plain_ms = timed(layered_decode_plain, graph, llr, **dkw)
+    (kern, ktot), kern_ms = timed(minsum_with_posteriors_cuda, graph, llr,
+                                  **dkw)
+    (plain, ptot), plain_ms = timed(plain_with_posteriors, graph, llr, **dkw)
     err = max(
         (kern.bits.int() - plain.bits.int()).abs().max().item(),
         (kern.ok.int() - plain.ok.int()).abs().max().item(),
         (kern.iterations - plain.iterations).abs().max().item(),
+        (ktot - ptot).abs().max().item(),
     )
     same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
-            and torch.equal(kern.iterations, plain.iterations))
+            and torch.equal(kern.iterations, plain.iterations)
+            and same_floats(ktot, ptot))
     if not same:
         raise AssertionError(f"kernel and plain version differ (max abs err {err})")
     return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=float(err),
@@ -301,11 +367,13 @@ def _first(x):
     return np.asarray(x)[:1] if np.ndim(x) else x
 
 
-def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw) -> dict:
+def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw,
+                       final_exact: bool = False) -> dict:
     """A kernel's with-posteriors wrapper and its plain version on the same
     LLRs with decoder arguments dkw: raises unless bits, ok and iterations
     are identical and, after one fixed iteration (a schedule's first
-    alpha/beta), the posteriors are within EXACT_MAX_ULPS."""
+    alpha/beta), the posteriors are within EXACT_MAX_ULPS; with
+    final_exact (min-sum) also unless the final posteriors are identical."""
     (kern, ktot), kern_ms = timed(kernel_fn, graph, llr, **dkw)
     (plain, ptot), plain_ms = timed(plain_fn, graph, llr, **dkw)
     same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
@@ -325,6 +393,9 @@ def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw) -> dict:
     if ulps1 > EXACT_MAX_ULPS:
         raise AssertionError(f"{kernel_fn.__name__}: one-sweep posteriors "
                              f"{ulps1} ulps apart")
+    if final_exact and not same_floats(ktot, ptot):
+        raise AssertionError(f"{kernel_fn.__name__}: final posteriors differ "
+                             f"(max abs err {max_abs})")
     return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=max_abs,
                 one_sweep_max_ulps=ulps1, frames=llr.shape[0],
                 ok_frames=int(kern.ok.sum().item()),
@@ -524,6 +595,238 @@ def ccsds_path(dev, spec12, k3, flood_err) -> list:
             "max_abs_err": classic_err[cn],
             "ms": res.wall_s_per_batch * 1e3,
             "plain_ms": classic_parity[cn]["plain_ms"],
+            "bound_ms": res.bound_ms,
+            "bound_by": res.roofline_form,
+            "library_ms": None,
+        })
+    return kernels
+
+
+def compare_xor(schedule: str, graph, llr, kw) -> dict:
+    """The xor instantiation of the kernel that serves `schedule` and the
+    rule in kw against its plain version."""
+    if schedule == "flooding":
+        dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
+                   beta=kw.get("beta", 0.0), max_iters=kw.get("max_iters", 25),
+                   early_term=kw.get("early_term", True))
+        return compare_posteriors(
+            flooding_qc_with_posteriors_cuda, flooding_qc_with_posteriors_plain,
+            graph, llr, dkw, final_exact=kw["kind"] == "minsum")
+    if kw.get("cn", "minsum") != "minsum":
+        return compare_exact(graph, llr, kw)
+    dkw = {k: kw[k] for k in ("alpha", "beta", "max_iters", "early_term")
+           if k in kw}
+    return compare_posteriors(minsum_with_posteriors_cuda,
+                              plain_with_posteriors, graph, llr, dkw,
+                              final_exact=True)
+
+
+def xor_toy(dev):
+    """The toy xor code (Z = 16, a 4x8 base from default_rng(3), as the
+    JAX package's tests build it): its graph and 32 frames of LLRs of the
+    all-zero codeword at XOR_TOY_EBN0."""
+    Z = 16
+    base = np.random.default_rng(3).integers(0, Z, size=(4, 8)).astype(
+        np.int32)
+    spec = expand_qc_xor(QCXorCode(Z=Z, base=base), name="toyxor16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cw = torch.zeros((32, spec.n), dtype=torch.uint8, device=dev)
+    return compile_qc_graph(spec), awgn_llr(gen, cw, XOR_TOY_EBN0, 0.5)
+
+
+def xor_path(dev) -> list:
+    """Phases 20-22: the xor instantiations of the QC kernels (K4's two
+    modes, and exact BP) on IEEE 802.3an against their plain versions,
+    timed, in sweeps and in the production retry decoder; returns their
+    entries of the kernels line."""
+    wrappers = {"layered": layered_decode_cuda, "exact": layered_exact_cuda,
+                "flooding": flooding_qc_decode_cuda}
+    roll_before = {k: w.launches_by_perm["roll"] for k, w in wrappers.items()}
+
+    # 20. each xor kernel against its plain version
+    t0 = time.perf_counter()
+    xor_err = {}
+
+    def note(key, r):
+        xor_err[key] = max(xor_err.get(key, 0.0), r["max_abs_err"])
+
+    code = XOR_LEGS["layered"]["code"]
+    for schedule, rules in XOR_RULES.items():
+        cases = [(f"{k}_{name}", spec_str.format(r=rules[k]), ebn0, B)
+                 for k in KINDS for name, spec_str, ebn0, B in XOR_CASES]
+        if schedule == "layered":
+            cases += [(f"minsum_{name}", spec_str, ebn0, 32)
+                      for name, spec_str, ebn0 in XOR_MINSUM_CASES]
+        for name, spec_str, ebn0, B in cases:
+            x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+            r = compare_xor(schedule, x.graph, x.llr, x.kw)
+            note(f"{schedule}:{name.split('_')[0]}", r)
+            emit("xor_vs_plain", code=code, schedule=schedule, case=name,
+                 decoder=spec_str, ebn0_db=ebn0, **r)
+    toy, toy_llr = xor_toy(dev)
+    for schedule in ("layered", "flooding"):
+        for mode, et in (("fixed", False), ("track", True)):
+            kw = dict(alpha=0.8125, max_iters=25, early_term=et,
+                      kind="minsum")
+            r = compare_xor(schedule, toy, toy_llr, kw)
+            note(f"{schedule}:minsum", r)
+            emit("xor_vs_plain", code=toy.name, schedule=schedule,
+                 case=f"minsum_{mode}", ebn0_db=XOR_TOY_EBN0, **r)
+    xor_parity = {}
+    for leg, cfg in XOR_LEGS.items():
+        x = make_inputs(**cfg, device=dev, seed=0)
+        xor_parity[leg] = r = compare_xor(leg, x.graph, x.llr, x.kw)
+        note(f"{leg}:minsum", r)
+        emit("xor_vs_plain", code=cfg["code"], schedule=leg,
+             case="minsum_bench_shape", decoder=cfg["decoder"], **r)
+        del x
+    an = choose_graph(get_code(code), "layered/spa/2")
+    for cn in ("minsum", "spa"):  # K1b, K1c′
+        try:
+            layered_classic_cuda(an, torch.zeros((1, an.n), device=dev),
+                                 max_iters=2, cn=cn)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"layered_classic_cuda ({cn}) took a xor "
+                                 f"graph")
+    emit("xor_vs_plain", refusals=2, seconds=time.perf_counter() - t0)
+
+    # 21. the xor legs timed, and exact BP on the same shape; each count
+    # read around its own run
+    timed_legs = {**XOR_LEGS,
+                  "spa": dict(XOR_LEGS["layered"], decoder="layered/spa/25/noet")}
+    kernel_of = {"layered": "layered", "flooding": "flooding", "spa": "exact"}
+    xor_bench, xor_launches = {}, {}
+    for leg, cfg in timed_legs.items():
+        x = make_inputs(**cfg, device=dev, seed=0)
+        if leg == "spa":
+            xor_parity[leg] = r = compare_xor("layered", x.graph, x.llr, x.kw)
+            note("layered:spa", r)
+            emit("xor_vs_plain", code=cfg["code"], schedule="layered",
+                 case="spa_bench_shape", decoder=cfg["decoder"], **r)
+        del x
+        w = wrappers[kernel_of[leg]]
+        w.launches_by_perm = dict.fromkeys(w.launches_by_perm, 0)
+        smi_before = smi_sample()
+        res = run_benchmark(**cfg, device=dev)
+        xor_launches[leg] = dict(w.launches_by_perm)
+        emit("xor_bench", leg=leg, code=res.code, decoder=res.decoder,
+             plain_ms=xor_parity[leg]["plain_ms"],
+             launches_by_perm=xor_launches[leg],
+             **bench_line(res, xor_launches[leg]["xor"], smi_before))
+        if not res.frame_errors / res.batch <= XOR_FER_MAX:
+            raise AssertionError(f"8023an {leg}: FER above {XOR_FER_MAX}")
+        if xor_launches[leg]["xor"] <= 0 or xor_launches[leg]["roll"]:
+            raise AssertionError(f"8023an {leg}: not the xor kernel alone")
+        xor_bench[leg] = res
+
+    # 22. the sweeps against the JAX package's CPU reference; K4's flooding
+    # count read around its sweep
+    with open(XOR_REFERENCE) as f:
+        reference = [PointResult.from_json(d) for d in json.load(f)]
+    sweep_launches = {}
+    for dec_spec, (ebn0s, golden_path) in XOR_SWEEPS.items():
+        with open(golden_path) as f:
+            golden = [PointResult.from_json(d) for d in json.load(f)]
+        ref = [q for q in reference if q.decoder == dec_spec]
+        for w in wrappers.values():
+            w.launches_by_perm = dict.fromkeys(w.launches_by_perm, 0)
+        t0 = time.perf_counter()
+        swept = run_sweep(SweepSpec(
+            code=code, decoder=dec_spec, ebn0_db=ebn0s,
+            batch=XOR_LEGS["layered"]["batch"],
+            stopping=StoppingRule(min_frame_errors=10 ** 9,
+                                  max_frames=XOR_SWEEP_FRAMES)), device=dev)
+        sweep_launches[dec_spec] = {k: dict(w.launches_by_perm)
+                                    for k, w in wrappers.items()}
+        overlap = curves_overlap(swept, ref, "fer")
+        golden_overlap = curves_overlap(swept, golden, "fer")
+        for pr in swept:
+            q = next(q for q in ref if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+            g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+            emit("xor_vs_reference", decoder=dec_spec, **point_line(pr),
+                 reference_fer=q.fer, reference_fer_ci=q.fer_ci,
+                 golden_fer=g.fer, golden_fer_ci=g.fer_ci)
+        emit("xor_vs_reference", decoder=dec_spec, overlap=overlap,
+             golden_overlap_information_only=golden_overlap,
+             golden=golden_path.name, launches=sweep_launches[dec_spec],
+             seconds=time.perf_counter() - t0)
+        if not overlap:
+            raise AssertionError(f"{dec_spec}: the 8023an sweep misses the "
+                                 f"JAX reference")
+
+    # the production retry decoder through the CLI: counts from this run
+    (ref_retry,) = [q for q in reference
+                    if q.decoder == XOR_PRODUCTION_SWEEP["decoder"]]
+    for w in wrappers.values():
+        w.launches_by_perm = dict.fromkeys(w.launches_by_perm, 0)
+    layered_exact_cuda.frames_by_perm = dict.fromkeys(
+        layered_exact_cuda.frames_by_perm, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "production_8023an.json"
+        t0 = time.perf_counter()
+        rc = cli_main([
+            "sweep", "--code", XOR_PRODUCTION_SWEEP["code"],
+            "--decoder", XOR_PRODUCTION_SWEEP["decoder"],
+            "--ebn0", str(XOR_PRODUCTION_SWEEP["ebn0_db"]),
+            "--batch", str(XOR_PRODUCTION_SWEEP["batch"]),
+            "--min-frame-errors", "1000000",
+            "--max-frames", str(PRODUCTION_FRAMES), "--out", str(out)])
+        wall = time.perf_counter() - t0
+        (prod,) = [PointResult.from_json(d)
+                   for d in json.loads(out.read_text())]
+    retry_launches = {k: dict(w.launches_by_perm) for k, w in wrappers.items()}
+    overlap = curves_overlap([prod], [ref_retry], "fer")
+    emit("production_8023an", decoder=prod.decoder, rc=rc, **point_line(prod),
+         reference_fer=ref_retry.fer, reference_fer_ci=ref_retry.fer_ci,
+         seconds=wall, launches=retry_launches,
+         frames_to_fallback=layered_exact_cuda.frames_by_perm["xor"],
+         overlap=overlap)
+    if rc != 0 or prod.frames != PRODUCTION_FRAMES:
+        raise AssertionError(f"8023an production sweep: rc {rc}, "
+                             f"{prod.frames} frames")
+    if (retry_launches["layered"]["xor"] <= 0
+            or retry_launches["exact"]["xor"] <= 0):
+        raise AssertionError("the 8023an production sweep missed a xor kernel")
+    if layered_exact_cuda.frames_by_perm["xor"] <= 0:
+        raise AssertionError("the 8023an fallback got no frames")
+    if not overlap:
+        raise AssertionError("the 8023an production FER misses the reference")
+    roll_after = {k: w.launches_by_perm["roll"] for k, w in wrappers.items()}
+    if any(roll_after.values()):
+        raise AssertionError(f"a roll kernel launched on a xor path "
+                             f"({roll_after}; before: {roll_before})")
+
+    # K4 layered's count is the production sweep's primary, K4 flooding's
+    # the flooding sweep's, exact BP's (xor) the production fallback's
+    rows = [
+        ("layered_qc:xor", "layered", "layered:minsum",
+         "ecc_ldpc_tpu_torch/csrc/layered_qc.cu",
+         "ecc_ldpc_tpu/decode/pallas/layered_xor.py:65",
+         retry_launches["layered"]["xor"]),
+        ("flooding_qc:minsum:xor", "flooding", "flooding:minsum",
+         "ecc_ldpc_tpu_torch/csrc/flooding_qc.cu",
+         "ecc_ldpc_tpu/decode/pallas/layered_xor.py:65",
+         sweep_launches["minsum/norm:0.8125/25"]["flooding"]["xor"]),
+        ("layered_exact:spa:xor", "spa", "layered:spa",
+         "ecc_ldpc_tpu_torch/csrc/layered_exact.cu",
+         "ecc_ldpc_tpu/decode/pallas/layered_qc.py:501",
+         retry_launches["exact"]["xor"]),
+    ]
+    kernels = []
+    for name, leg, err_key, src, replaces, launches in rows:
+        res = xor_bench[leg]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src,
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": xor_err[err_key],
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": xor_parity[leg]["plain_ms"],
             "bound_ms": res.bound_ms,
             "bound_by": res.roofline_form,
             "library_ms": None,
@@ -900,6 +1203,7 @@ def main() -> int:
         raise AssertionError("the flooding retry misses a trap codeword")
 
     kernels_ccsds = ccsds_path(dev, spec12, k3, flood_err)
+    kernels_xor = xor_path(dev)
 
     hl = results["headline"]
     kernels = [{
@@ -956,7 +1260,7 @@ def main() -> int:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
-    kernels += kernels_ccsds
+    kernels += kernels_ccsds + kernels_xor
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

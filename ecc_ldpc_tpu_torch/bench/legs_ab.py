@@ -1,0 +1,77 @@
+"""Same-call A/B of the benchmark legs between this checkout and another
+tree, such as the parent commit unpacked with `git archive` into a
+directory that .gitignore lists. Needs one CUDA card:
+
+    python -m ecc_ldpc_tpu_torch.bench.legs_ab OTHER_ROOT LEG [LEG ...]
+
+Each tree runs in a process of its own, in the order other, this, this,
+other, so a drift of the card's clock or temperature falls on both alike.
+Each process builds its own tree's kernels, times the legs through its own
+tree's bench.throughput.run_benchmark and prints one JSON line per leg.
+Then one line per leg: each tree's time (the mean of its two runs' medians)
+and this / other - 1. Leg names are bench.profile's: the keys of LEGS,
+EXACT_LEGS and FLOODING_LEGS, ccsds_<rule> and 8023an_<mode>; a leg that a
+tree lacks is skipped there.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+
+HERE = pathlib.Path(__file__).resolve().parents[2]
+
+# run in each tree's process: argv[1] is the tree, argv[2:] the legs
+_TIME_LEGS = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from ecc_ldpc_tpu_torch.bench import throughput as t
+legs = {}
+for name in ("LEGS", "EXACT_LEGS", "FLOODING_LEGS"):
+    legs.update(getattr(t, name, {}))
+legs.update({f"ccsds_{k}": v for k, v in getattr(t, "CCSDS_LEGS", {}).items()})
+legs.update({f"8023an_{k}": v for k, v in getattr(t, "XOR_LEGS", {}).items()})
+for leg in sys.argv[2:]:
+    if leg in legs:
+        r = t.run_benchmark(**legs[leg], device="cuda")
+        print(json.dumps({"leg": leg, "ms": r.wall_s_per_batch * 1e3,
+                          "tries_ms": [s * 1e3 for s in r.tries_s],
+                          "frame_errors": r.frame_errors}), flush=True)
+"""
+
+
+def time_tree(root: pathlib.Path, legs) -> dict:
+    """{leg: ms} of one process that times `legs` in the tree at root."""
+    out = subprocess.run([sys.executable, "-c", _TIME_LEGS, str(root), *legs],
+                         cwd=root, check=True, capture_output=True, text=True)
+    times = {}
+    for line in out.stdout.splitlines():
+        if line.startswith("{"):
+            d = json.loads(line)
+            print(json.dumps({"tree": str(root), **d}), flush=True)
+            times[d["leg"]] = d["ms"]
+    return times
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if len(args) < 2:
+        raise SystemExit(__doc__)
+    other, legs = pathlib.Path(args[0]).resolve(), args[1:]
+    runs = {"other": [], "this": []}
+    for tree in ("other", "this", "this", "other"):
+        runs[tree].append(time_tree(other if tree == "other" else HERE, legs))
+    for leg in legs:
+        ms = {k: [r[leg] for r in v if leg in r] for k, v in runs.items()}
+        if not ms["other"] or not ms["this"]:
+            continue
+        a, b = (sum(v) / len(v) for v in (ms["other"], ms["this"]))
+        print(json.dumps({"leg": leg, "other_ms": ms["other"],
+                          "this_ms": ms["this"], "change": b / a - 1}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

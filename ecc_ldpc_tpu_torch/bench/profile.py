@@ -3,13 +3,14 @@ the production sweep: torch.profiler over a few calls, device time summed
 by kernel name, and the device's idle share of the window. Needs one CUDA
 card:
 
-    python -m ecc_ldpc_tpu_torch.bench.profile
+    python -m ecc_ldpc_tpu_torch.bench.profile [LEG ...]
 
 Prints one JSON line per leg (the three min-sum legs, the two exact-BP
-legs, the four flooding legs, the three CCSDS legs) and one for each
-production sweep step (random message, encode, channel, the retry decoder
-with its layered and with its flooding fallback on DVB-S2, and on CCSDS,
-tally). The window is the host time of `steps`
+legs, the four flooding legs, the three CCSDS legs, the two 8023an legs of
+K4's modes) and one for each production sweep step (random message,
+encode, channel, the retry decoder with its layered and with its flooding
+fallback on DVB-S2, on CCSDS and on 8023an, tally); with LEG names, only
+those rows. The window is the host time of `steps`
 back-to-back calls ending in a synchronize, after a warm-up call; busy
 time is the sum of the device activities (kernels, copies, fills) the
 profiler recorded in it, so idle = 1 - busy / window. Run with tracing
@@ -33,6 +34,8 @@ from .throughput import (
     FLOODING_PRODUCTION_SWEEP,
     LEGS,
     PRODUCTION_SWEEP,
+    XOR_LEGS,
+    XOR_PRODUCTION_SWEEP,
     make_inputs,
 )
 
@@ -99,21 +102,32 @@ def profile_sweep_step(code: str, decoder: str, batch: int, ebn0_db: float,
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import sys
+
     if not torch.cuda.is_available():
         raise SystemExit("bench.profile needs a CUDA card")
     name = torch.cuda.get_device_name(0)
     ccsds = {f"ccsds_{cn}": cfg for cn, cfg in CCSDS_LEGS.items()}
-    for leg, cfg in {**LEGS, **EXACT_LEGS, **FLOODING_LEGS, **ccsds}.items():
-        out = profile_leg(**cfg)
-        print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
-    for leg, cfg in (("production_sweep_step", PRODUCTION_SWEEP),
-                     ("flooding_production_sweep_step",
-                      FLOODING_PRODUCTION_SWEEP),
-                     ("ccsds_production_sweep_step",
-                      CCSDS_PRODUCTION_SWEEP)):
-        out = profile_sweep_step(**cfg)
-        print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
+    xor = {f"8023an_{leg}": cfg for leg, cfg in XOR_LEGS.items()}
+    legs = {**LEGS, **EXACT_LEGS, **FLOODING_LEGS, **ccsds, **xor}
+    steps = {"production_sweep_step": PRODUCTION_SWEEP,
+             "flooding_production_sweep_step": FLOODING_PRODUCTION_SWEEP,
+             "ccsds_production_sweep_step": CCSDS_PRODUCTION_SWEEP,
+             "8023an_production_sweep_step": XOR_PRODUCTION_SWEEP}
+    want = sys.argv[1:] if argv is None else argv
+    unknown = set(want) - set(legs) - set(steps)
+    if unknown:
+        raise SystemExit(f"unknown legs {sorted(unknown)}; known: "
+                         f"{sorted(legs) + sorted(steps)}")
+    for leg, cfg in legs.items():
+        if not want or leg in want:
+            out = profile_leg(**cfg)
+            print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
+    for leg, cfg in steps.items():
+        if not want or leg in want:
+            out = profile_sweep_step(**cfg)
+            print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
     return 0
 
 

@@ -80,6 +80,22 @@ CCSDS_LEGS = {
              batch=4096, ebn0_db=2.5)
     for cn in ("minsum", "spa", "minstar")
 }
+# The IEEE 802.3an legs (8023an: n = 2048, k = 1723, Z = 64 XOR-permutation
+# blocks, 192 block-edges, row degree 32): the JAX package's family leg
+# (bench/families.py:29), layered, and the same with flooding min-sum, the
+# two modes of ecc_ldpc_tpu/decode/pallas/layered_xor.py (K4).
+XOR_LEGS = {
+    "layered": dict(code="8023an", decoder="layered/norm:0.8125/25/noet",
+                    batch=2048, ebn0_db=4.0),
+    "flooding": dict(code="8023an", decoder="minsum/norm:0.8125/25/noet",
+                     batch=2048, ebn0_db=4.0),
+}
+# The production retry decoder on 8023an at 3.6 dB, where the primary
+# fails to converge on some frames (JAX CPU reference: FER ~0.08 with
+# layered/norm:0.8125/25; PERF.md section 4).
+XOR_PRODUCTION_SWEEP = dict(code="8023an",
+                            decoder="layered/norm:0.8125/50;retry=layered/spa/50",
+                            batch=4096, ebn0_db=3.6)
 # The production sweep point: the floor program's retry decoder at the
 # 1.5 dB operating point, in batches of 4096 frames.
 PRODUCTION_SWEEP = dict(code="dvbs2/64800/12",

@@ -1,13 +1,14 @@
-"""Quasi-cyclic (QC) LDPC structure: base matrix + circulant lifting.
+"""Quasi-cyclic (QC) LDPC structure: base matrix + block lifting.
 
-Port of ecc_ldpc_tpu/codes/qc.py (QCCode, QCMultiCode, circulant, expand_qc,
-expand_qc_multi); NumPy only.
+Port of ecc_ldpc_tpu/codes/qc.py (QCCode, QCMultiCode, QCXorCode, circulant,
+expand_qc, expand_qc_multi, expand_qc_xor); NumPy only.
 
 Convention: a block with shift s is P^s where P is the Z x Z identity
 cyclically shifted so that row r has its 1 in column (r + s) mod Z. shift -1
 denotes the all-zero block. This matches IEEE 802.11n / 802.16e / 3GPP 38.212
 published base-matrix tables. On the GPU a circulant is index arithmetic:
-check r of a block reads variable (r + s) % Z of its block-column.
+check r of a block reads variable (r + s) % Z of its block-column. A
+QCXorCode's block (perm "xor") maps check r to variable r ^ s instead.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class QCCode:
 
     Z: int
     base: np.ndarray  # int32 [mb, nb]; -1 = zero block, s in [0, Z) = P^s
+    perm = "roll"
 
     def __post_init__(self):
         b = np.asarray(self.base, dtype=np.int32)
@@ -71,6 +73,7 @@ class QCMultiCode:
     br: np.ndarray  # int32 [BE] block-row per edge
     bc: np.ndarray  # int32 [BE] block-col per edge
     sh: np.ndarray  # int32 [BE] circulant shift per edge, in [0, Z)
+    perm = "roll"
 
     def __post_init__(self):
         br = np.asarray(self.br, dtype=np.int32)
@@ -124,6 +127,64 @@ def expand_qc_multi(qcm: QCMultiCode, name: str = "qc", **kw) -> CodeSpec:
         rows.extend(cols)
     return CodeSpec(
         name=name, n=qcm.n, m=qcm.m, row_cols=tuple(rows), qc=qcm, **kw
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class QCXorCode:
+    """Base matrix lifted by Z x Z XOR-permutation blocks (perm="xor").
+
+    A block with shift s maps check row r to variable r ^ s — the
+    GF(2)-additive permutation family of the IEEE 802.3an RS-LDPC
+    construction (codes/ieee8023an.py). Z must be a power of two. Same
+    (Z, mb, nb, block_edges()) surface as QCCode, so the graph compiler and
+    every QC decoder serve these codes (graph/qc.py var_index)."""
+
+    Z: int
+    base: np.ndarray  # int32 [mb, nb]; -1 = zero block, s in [0, Z)
+    perm = "xor"
+
+    def __post_init__(self):
+        if self.Z & (self.Z - 1) or self.Z <= 0:
+            raise ValueError(f"xor lifting needs power-of-two Z, got {self.Z}")
+        b = np.asarray(self.base, dtype=np.int32)
+        if np.any(b >= self.Z):
+            raise ValueError("shift >= Z in base matrix")
+        object.__setattr__(self, "base", b)
+
+    @property
+    def mb(self) -> int:
+        return self.base.shape[0]
+
+    @property
+    def nb(self) -> int:
+        return self.base.shape[1]
+
+    @property
+    def m(self) -> int:
+        return self.mb * self.Z
+
+    @property
+    def n(self) -> int:
+        return self.nb * self.Z
+
+    def block_edges(self):
+        br, bc = np.nonzero(self.base >= 0)
+        return br.astype(np.int32), bc.astype(np.int32), self.base[br, bc]
+
+
+def expand_qc_xor(qc: QCXorCode, name: str = "qc", **kw) -> CodeSpec:
+    """Lift a XOR base matrix into a CodeSpec (sparse row adjacency)."""
+    Z = qc.Z
+    rows = []
+    for bi in range(qc.mb):
+        shifts = qc.base[bi]
+        nz = np.flatnonzero(shifts >= 0)
+        for r in range(Z):
+            cols = nz * Z + (r ^ shifts[nz])
+            rows.append(np.sort(cols).astype(np.int32))
+    return CodeSpec(
+        name=name, n=qc.n, m=qc.m, row_cols=tuple(rows), qc=qc, **kw
     )
 
 

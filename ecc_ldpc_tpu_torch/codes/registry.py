@@ -6,6 +6,7 @@ Ported so far:
   dvbs2/16200/12                  DVB-S2 short frame rate 1/2
   ccsds/4096/12                   CCSDS AR4JA k=4096 rate 1/2
   ccsds/1024/45/s3                the same family at rate 4/5, shift seed 3
+  8023an                          IEEE 802.3an (2048, 1723) RS-LDPC, xor blocks
   mackay1008                      shipped (3,6) n=1008 code
   alist:/path/to/code.alist       load from file
 """
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 from .spec import CodeSpec
 
-_PORTED = ("dvbs2", "ccsds", "mackay1008", "alist:")
+_PORTED = ("dvbs2", "ccsds", "8023an", "mackay1008", "alist:")
 
 
 def get_code(spec_str: str) -> CodeSpec:
@@ -37,6 +38,10 @@ def get_code(spec_str: str) -> CodeSpec:
                 f"CCSDS spec is 'ccsds/K/R[/sSEED]', got {spec_str!r}")
         seed = args[2] if len(args) == 3 else "s0"
         return ar4ja(int(args[0]), args[1], seed=int(seed.lstrip("s")))
+    if head == "8023an" and not args:
+        from .ieee8023an import ieee8023an
+
+        return ieee8023an()
     if head == "mackay1008" and not args:
         from .mackay import mackay_1008
 

@@ -19,12 +19,14 @@ from .learn.schedules import NomsParams
 
 
 def graph_from_numpy(Z: int, mb: int, nb: int, k: int, be_row, be_col,
-                     be_shift, name: str = "qc") -> QCGraph:
-    """The port's QCGraph from block-edge tables (edge order kept)."""
+                     be_shift, name: str = "qc",
+                     perm: str = "roll") -> QCGraph:
+    """The port's QCGraph from block-edge tables (edge order kept) and the
+    block permutation kind ("roll" or "xor", the JAX QCGraph's perm)."""
     return qc_graph_from_block_edges(
         int(Z), int(mb), int(nb),
         np.asarray(be_row, np.int32), np.asarray(be_col, np.int32),
-        np.asarray(be_shift, np.int32), k=int(k), name=name,
+        np.asarray(be_shift, np.int32), k=int(k), name=name, perm=perm,
     )
 
 

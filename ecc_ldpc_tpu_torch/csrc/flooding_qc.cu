@@ -1,13 +1,17 @@
-// Flooding belief propagation (minsum, spa, minstar) on circulant QC
-// graphs, for Hopper.
+// Flooding belief propagation (minsum, spa, minstar) on QC graphs, for
+// Hopper.
 //
 // Replaces ecc_ldpc_tpu/decode/pallas/flooding_qc.py::_kernel (:85, sweep
-// :113), which computes decode/xla/flooding_qc.py::decode_flooding_qc. The
-// caller is ecc_ldpc_tpu_torch/decode/flooding_qc.py (flooding_qc_decode_
-// cuda); the plain PyTorch twin there is the reference this kernel must
-// match. Check z of block-edge (col, s) reads variable col*Z + (z + s) % Z:
-// the rolls are index arithmetic, so unlike the TPU kernel there is no
-// Z % 8 envelope, no bf16 fallback and no VMEM cap.
+// :113), which computes decode/xla/flooding_qc.py::decode_flooding_qc; its
+// XOR instantiation replaces ecc_ldpc_tpu/decode/pallas/layered_xor.py::
+// _kernel's `sweep_flooding` (K4's flooding mode, min-sum) and also runs spa
+// and minstar on XOR graphs. The caller is
+// ecc_ldpc_tpu_torch/decode/flooding_qc.py (flooding_qc_decode_cuda); the
+// plain PyTorch twin there is the reference this kernel must match. Check z
+// of block-edge (col, s) reads variable col*Z + qc::var_index<XOR>(z, s, Z):
+// (z + s) % Z on a circulant graph, z ^ s on an XOR graph (qc_index.cuh).
+// The permutations are index arithmetic, so unlike the TPU kernels there is
+// no Z % 8 envelope, no bf16 fallback, no one-hot matmul and no VMEM cap.
 //
 // Layout: frames in tiles of FT = 8, each tile's state contiguous with
 // frames innermost,
@@ -47,6 +51,7 @@
 #include <stdint.h>
 
 #include "bp_rules.cuh"
+#include "qc_index.cuh"
 
 namespace {
 
@@ -72,6 +77,7 @@ struct Tab {
 __device__ __forceinline__ size_t at(size_t row) { return row * FT + threadIdx.x; }
 
 // Parity failure of (tot < 0) over the checks this thread owns.
+template <bool XOR>
 __device__ __forceinline__ bool syndrome_fail_part(const Params& p, Tab t,
                                                    const float* tot) {
   bool fail = false;
@@ -80,8 +86,7 @@ __device__ __forceinline__ bool syndrome_fail_part(const Params& p, Tab t,
     const int L = q / Z, z = q - L * Z;
     bool par = false;
     for (int s = t.rptr[L]; s < t.rptr[L + 1]; ++s) {
-      int zz = z + t.sshift[s];
-      if (zz >= Z) zz -= Z;
+      const int zz = qc::var_index<XOR>(z, t.sshift[s], Z);
       par ^= (tot[at(t.scol[s] * Z + zz)] < 0.f);
     }
     fail |= par;
@@ -89,7 +94,7 @@ __device__ __forceinline__ bool syndrome_fail_part(const Params& p, Tab t,
   return fail;
 }
 
-template <int MAX_DEG, int RULE, bool TRACK>
+template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
 __global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
   extern __shared__ int smem[];
   Tab t;
@@ -125,7 +130,7 @@ __global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
   if (threadIdx.y == 0) fail_s[tx] = 0;
   __syncthreads();
   if constexpr (TRACK) {
-    if (live && syndrome_fail_part(p, t, buf0)) atomicOr(&fail_s[tx], 1);
+    if (live && syndrome_fail_part<XOR>(p, t, buf0)) atomicOr(&fail_s[tx], 1);
     __syncthreads();
     if (threadIdx.y == 0) {
       done_s[tx] = live ? !fail_s[tx] : 1;
@@ -151,8 +156,7 @@ __global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
 #pragma unroll
         for (int j = 0; j < MAX_DEG; ++j) {
           if (j < d) {
-            int zz = z + t.sshift[s0 + j];
-            if (zz >= Z) zz -= Z;
+            const int zz = qc::var_index<XOR>(z, t.sshift[s0 + j], Z);
             const float r = tot[at(t.scol[s0 + j] * Z + zz)];
             if constexpr (TRACK) par ^= (r < 0.f);
             v[j] = __fsub_rn(r, C[at((size_t)(s0 + j) * Z + z)]);
@@ -177,8 +181,7 @@ __global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
         const int col = q / Z, zv = q - col * Z;
         float acc = L[at(q)];
         for (int k = t.cptr[col]; k < t.cptr[col + 1]; ++k) {
-          int z = zv - t.cshift[k];
-          if (z < 0) z += Z;
+          const int z = qc::check_index<XOR>(zv, t.cshift[k], Z);
           acc = __fadd_rn(acc, C[at((size_t)t.cslot[k] * Z + z)]);
         }
         out[at(q)] = acc;
@@ -200,7 +203,7 @@ __global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
   __syncthreads();
   if (live) {
     const float* tot = cur ? buf1 : buf0;
-    if (syndrome_fail_part(p, t, tot)) atomicOr(&fail_s[tx], 1);
+    if (syndrome_fail_part<XOR>(p, t, tot)) atomicOr(&fail_s[tx], 1);
     uint8_t* bits = p.bits + tile * n * FT;
     for (int q = threadIdx.y; q < n; q += blockDim.y) {
       const float x = tot[at(q)];
@@ -215,10 +218,10 @@ __global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
   }
 }
 
-template <int MAX_DEG, int RULE, bool TRACK>
+template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
 cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
                    cudaStream_t stream) {
-  auto kern = flooding_qc_kernel<MAX_DEG, RULE, TRACK>;
+  auto kern = flooding_qc_kernel<MAX_DEG, RULE, TRACK, XOR>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -228,20 +231,28 @@ cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
   return cudaGetLastError();
 }
 
-template <int MAX_DEG>
+template <int MAX_DEG, bool XOR>
 cudaError_t launch_rule(const Params& p, int rule, int track, dim3 grid,
                         dim3 block, size_t smem, cudaStream_t st) {
   switch (rule) {
     case bp::kMinsum:
-      return track ? launch<MAX_DEG, bp::kMinsum, true>(p, grid, block, smem, st)
-                   : launch<MAX_DEG, bp::kMinsum, false>(p, grid, block, smem, st);
+      return track ? launch<MAX_DEG, bp::kMinsum, true, XOR>(p, grid, block, smem, st)
+                   : launch<MAX_DEG, bp::kMinsum, false, XOR>(p, grid, block, smem, st);
     case bp::kSpa:
-      return track ? launch<MAX_DEG, bp::kSpa, true>(p, grid, block, smem, st)
-                   : launch<MAX_DEG, bp::kSpa, false>(p, grid, block, smem, st);
+      return track ? launch<MAX_DEG, bp::kSpa, true, XOR>(p, grid, block, smem, st)
+                   : launch<MAX_DEG, bp::kSpa, false, XOR>(p, grid, block, smem, st);
     default:
-      return track ? launch<MAX_DEG, bp::kMinstar, true>(p, grid, block, smem, st)
-                   : launch<MAX_DEG, bp::kMinstar, false>(p, grid, block, smem, st);
+      return track ? launch<MAX_DEG, bp::kMinstar, true, XOR>(p, grid, block, smem, st)
+                   : launch<MAX_DEG, bp::kMinstar, false, XOR>(p, grid, block, smem, st);
   }
+}
+
+template <bool XOR>
+cudaError_t launch_width(const Params& p, int dcb_max, int rule, int track,
+                         dim3 grid, dim3 block, size_t smem, cudaStream_t st) {
+  if (dcb_max <= 8) return launch_rule<8, XOR>(p, rule, track, grid, block, smem, st);
+  if (dcb_max <= 16) return launch_rule<16, XOR>(p, rule, track, grid, block, smem, st);
+  return launch_rule<32, XOR>(p, rule, track, grid, block, smem, st);
 }
 
 }  // namespace
@@ -250,13 +261,14 @@ extern "C" {
 
 // Decodes B frames in ceil(B / FT) tiles of FT = 8 frames (the arrays hold
 // whole tiles; lanes past B are left alone) with rule 0 (minsum), 1 (spa)
-// or 2 (minstar); returns a cudaError_t (0 on a successful launch).
+// or 2 (minstar) on a circulant (xor_perm = 0) or an XOR-permutation graph
+// (xor_perm = 1); returns a cudaError_t (0 on a successful launch).
 // dcb_max must be <= 32 and 8 * threads_y <= 512; the wrapper checks both.
 int flooding_qc_decode(void* llr, void* total, void* nxt, void* C, void* bits,
                        void* ok, void* iters, void* tab, int Z, int mb, int nb,
                        int BE, int B, int max_iters, int dcb_max, int rule,
                        float alpha, float beta, int track, int threads_y,
-                       void* stream) {
+                       int xor_perm, void* stream) {
   if (threads_y < 1 || FT * threads_y > 512 || dcb_max > 32 || B < 1 ||
       rule < 0 || rule > 2)
     return (int)cudaErrorInvalidValue;
@@ -275,9 +287,9 @@ int flooding_qc_decode(void* llr, void* total, void* nxt, void* C, void* bits,
   const dim3 grid((B + FT - 1) / FT);
   const size_t smem = sizeof(int) * (size_t)(mb + 1 + nb + 1 + 4 * BE);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dcb_max <= 8) return (int)launch_rule<8>(p, rule, track, grid, block, smem, st);
-  if (dcb_max <= 16) return (int)launch_rule<16>(p, rule, track, grid, block, smem, st);
-  return (int)launch_rule<32>(p, rule, track, grid, block, smem, st);
+  if (xor_perm)
+    return (int)launch_width<true>(p, dcb_max, rule, track, grid, block, smem, st);
+  return (int)launch_width<false>(p, dcb_max, rule, track, grid, block, smem, st);
 }
 
 const char* flooding_qc_error_string(int err) {

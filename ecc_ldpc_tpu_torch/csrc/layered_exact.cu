@@ -1,5 +1,4 @@
-// Layered exact belief propagation (spa, minstar) on circulant QC graphs,
-// for Hopper.
+// Layered exact belief propagation (spa, minstar) on QC graphs, for Hopper.
 //
 // Replaces ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel in its
 // dup-free exact-BP form (sweep_exact, :501, with _boxplus, :491, and
@@ -14,7 +13,9 @@
 //   messages   C     f32 [tiles, BE*Z, FT], one row per (sweep slot, check)
 // one block per tile, threads over (frame, z), the layers walked in
 // layer_order with one __syncthreads() per layer. Check z of slot (col, s)
-// reads variable (z + s) % Z of block-column col. Exact BP sends a
+// reads variable qc::var_index<XOR>(z, s, Z) of block-column col: (z + s)
+// % Z on a circulant graph, z ^ s on an XOR graph (IEEE 802.3an, where the
+// JAX package serves these rules on its XLA tier). Exact BP sends a
 // different magnitude on every edge, so unlike K1a the check state is the
 // full message array.
 //
@@ -60,6 +61,7 @@
 #include <stdint.h>
 
 #include "bp_rules.cuh"
+#include "qc_index.cuh"
 
 namespace {
 
@@ -89,6 +91,7 @@ __device__ __forceinline__ size_t at(size_t row) {
 
 // Parity failure of the hard decisions (x < 0) over the checks this thread
 // owns (its frame, z = threadIdx.y + k * blockDim.y) in every layer.
+template <bool XOR>
 __device__ bool syndrome_fail_part(const Params& p, const float* tot,
                                    const int* lptr, const int* scol,
                                    const int* sshift) {
@@ -98,8 +101,7 @@ __device__ bool syndrome_fail_part(const Params& p, const float* tot,
     for (int z = threadIdx.y; z < p.Z; z += blockDim.y) {
       bool par = false;
       for (int s = s0; s < s1; ++s) {
-        int zz = z + sshift[s];
-        if (zz >= p.Z) zz -= p.Z;
+        const int zz = qc::var_index<XOR>(z, sshift[s], p.Z);
         par ^= (tot[at(scol[s] * p.Z + zz)] < 0.f);
       }
       fail |= par;
@@ -108,7 +110,7 @@ __device__ bool syndrome_fail_part(const Params& p, const float* tot,
   return fail;
 }
 
-template <int MAX_DEG, int RULE, bool TRACK>
+template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
 __global__ void __launch_bounds__(512)
 layered_exact_kernel(Params p) {
   extern __shared__ int smem[];
@@ -141,7 +143,7 @@ layered_exact_kernel(Params p) {
 
   if constexpr (TRACK) {
     // done_0: frames whose channel hard decisions already satisfy H
-    if (live && syndrome_fail_part(p, tot, lptr, scol, sshift))
+    if (live && syndrome_fail_part<XOR>(p, tot, lptr, scol, sshift))
       atomicOr(&fail_s[tx], 1);
     __syncthreads();
     if (threadIdx.y == 0) done_s[tx] = live ? !fail_s[tx] : 1;
@@ -174,8 +176,7 @@ layered_exact_kernel(Params p) {
 #pragma unroll
           for (int j = 0; j < MAX_DEG; ++j) {
             if (j < d) {
-              int zz = z + sshift[s0 + j];
-              if (zz >= Z) zz -= Z;
+              const int zz = qc::var_index<XOR>(z, sshift[s0 + j], Z);
               const float r = tot[at(scol[s0 + j] * Z + zz)];
               const float x = __fsub_rn(r, C[at((size_t)(s0 + j) * Z + z)]);
               v[j] = x;
@@ -234,8 +235,7 @@ layered_exact_kernel(Params p) {
               const float nw = __fadd_rn(v[j], cn);
               if constexpr (TRACK)
                 flip |= (__float_as_uint(nw) >> 31) ^ ((rneg >> j) & 1u);
-              int zz = z + sshift[s0 + j];
-              if (zz >= Z) zz -= Z;
+              const int zz = qc::var_index<XOR>(z, sshift[s0 + j], Z);
               tot[at(scol[s0 + j] * Z + zz)] = nw;
               C[at((size_t)(s0 + j) * Z + z)] = cn;
             }
@@ -258,7 +258,8 @@ layered_exact_kernel(Params p) {
   if (threadIdx.y == 0) fail_s[tx] = 0;
   __syncthreads();
   if (live) {
-    if (syndrome_fail_part(p, tot, lptr, scol, sshift)) atomicOr(&fail_s[tx], 1);
+    if (syndrome_fail_part<XOR>(p, tot, lptr, scol, sshift))
+      atomicOr(&fail_s[tx], 1);
     uint8_t* bits = p.bits + tile * p.nb * Z * FT;
     for (int i = threadIdx.y; i < p.nb * Z; i += blockDim.y)
       bits[at(i)] = tot[at(i)] < 0.f ? 1 : 0;
@@ -270,10 +271,10 @@ layered_exact_kernel(Params p) {
   }
 }
 
-template <int MAX_DEG, int RULE, bool TRACK>
+template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
 cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
                    cudaStream_t stream) {
-  auto kern = layered_exact_kernel<MAX_DEG, RULE, TRACK>;
+  auto kern = layered_exact_kernel<MAX_DEG, RULE, TRACK, XOR>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -283,15 +284,23 @@ cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
   return cudaGetLastError();
 }
 
-template <int MAX_DEG>
+template <int MAX_DEG, bool XOR>
 cudaError_t launch_rule(const Params& p, int minstar, int track, dim3 grid,
                         dim3 block, size_t smem, cudaStream_t st) {
   if (minstar) {
-    if (track) return launch<MAX_DEG, kMinstar, true>(p, grid, block, smem, st);
-    return launch<MAX_DEG, kMinstar, false>(p, grid, block, smem, st);
+    if (track) return launch<MAX_DEG, kMinstar, true, XOR>(p, grid, block, smem, st);
+    return launch<MAX_DEG, kMinstar, false, XOR>(p, grid, block, smem, st);
   }
-  if (track) return launch<MAX_DEG, kSpa, true>(p, grid, block, smem, st);
-  return launch<MAX_DEG, kSpa, false>(p, grid, block, smem, st);
+  if (track) return launch<MAX_DEG, kSpa, true, XOR>(p, grid, block, smem, st);
+  return launch<MAX_DEG, kSpa, false, XOR>(p, grid, block, smem, st);
+}
+
+template <bool XOR>
+cudaError_t launch_width(const Params& p, int dcb_max, int minstar, int track,
+                         dim3 grid, dim3 block, size_t smem, cudaStream_t st) {
+  if (dcb_max <= 8) return launch_rule<8, XOR>(p, minstar, track, grid, block, smem, st);
+  if (dcb_max <= 16) return launch_rule<16, XOR>(p, minstar, track, grid, block, smem, st);
+  return launch_rule<32, XOR>(p, minstar, track, grid, block, smem, st);
 }
 
 }  // namespace
@@ -300,13 +309,14 @@ extern "C" {
 
 // Decodes B frames in ceil(B / FT) tiles of FT = 8 frames (the arrays hold
 // whole tiles; lanes past B are left alone) with the spa (minstar = 0) or
-// minstar (minstar = 1) rule; returns a cudaError_t (0 on a successful
-// launch). dcb_max must be <= 32 and 8 * threads_z <= 512; the wrapper
-// checks both.
+// minstar (minstar = 1) rule on a circulant (xor_perm = 0) or an
+// XOR-permutation graph (xor_perm = 1); returns a cudaError_t (0 on a
+// successful launch). dcb_max must be <= 32 and 8 * threads_z <= 512; the
+// wrapper checks both.
 int layered_exact_decode(void* total, void* C, void* bits, void* ok,
                          void* iters, void* tab, int Z, int mb, int nb, int BE,
                          int B, int max_iters, int dcb_max, int minstar,
-                         int track, int threads_z, void* stream) {
+                         int track, int threads_z, int xor_perm, void* stream) {
   if (threads_z < 1 || FT * threads_z > 512 || dcb_max > 32 || B < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -322,9 +332,9 @@ int layered_exact_decode(void* total, void* C, void* bits, void* ok,
   const dim3 grid((B + FT - 1) / FT);
   const size_t smem = sizeof(int) * (size_t)(mb + 1 + 2 * BE);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dcb_max <= 8) return (int)launch_rule<8>(p, minstar, track, grid, block, smem, st);
-  if (dcb_max <= 16) return (int)launch_rule<16>(p, minstar, track, grid, block, smem, st);
-  return (int)launch_rule<32>(p, minstar, track, grid, block, smem, st);
+  if (xor_perm)
+    return (int)launch_width<true>(p, dcb_max, minstar, track, grid, block, smem, st);
+  return (int)launch_width<false>(p, dcb_max, minstar, track, grid, block, smem, st);
 }
 
 const char* layered_exact_error_string(int err) {

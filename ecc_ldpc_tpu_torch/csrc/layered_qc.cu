@@ -1,11 +1,13 @@
-// Layered normalized/offset min-sum on circulant QC graphs, for Hopper.
+// Layered normalized/offset min-sum on QC graphs, for Hopper.
 //
 // Replaces ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel in its
 // dup-free min-sum form (sweep_delta, syndrome_fail), in fixed-iteration
 // and in track (early-termination) mode, with scalar or per-iteration
-// alpha/beta. The caller is ecc_ldpc_tpu_torch/decode/layered_qc.py
-// (layered_decode_cuda); the plain PyTorch twin there is the reference
-// this kernel must match bit for bit.
+// alpha/beta; its XOR instantiation replaces
+// ecc_ldpc_tpu/decode/pallas/layered_xor.py::_kernel's layered `sweep`
+// (K4) on XOR-permutation graphs (IEEE 802.3an). The caller is
+// ecc_ldpc_tpu_torch/decode/layered_qc.py (layered_decode_cuda); the plain
+// PyTorch twin there is the reference this kernel must match bit for bit.
 //
 // Layout: frames are cut into tiles of FT = 8 frames (one 32-byte sector
 // of f32 per row), and each tile's state is contiguous, frames innermost,
@@ -19,9 +21,11 @@
 // bit j, exactly the float the reference stored (with a tied minimum
 // mag2 == mag1, so the slot chosen does not matter). It moves 12-16 bytes
 // per check where C moves 4 per edge.
-// Check z of block-edge (col, s) reads variable (z + s) % Z of
-// block-column col: a circulant is index arithmetic here, so the TPU's
-// rolls, delta-shift storage and replica packing are gone.
+// Check z of block-edge (col, s) reads variable qc::var_index<XOR>(z, s, Z)
+// of block-column col: (z + s) % Z on a circulant graph, z ^ s on an XOR
+// graph (qc_index.cuh). A block permutation is index arithmetic here, so
+// the TPU's rolls, one-hot permutation matmuls, delta-shift storage and
+// replica packing are gone.
 //
 // Parallelism: one block owns a tile of frames (threadIdx.x, coalesced
 // loads) and walks every check z of every layer (threadIdx.y strides z).
@@ -58,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "qc_index.cuh"
+
 namespace {
 
 // frames per block (blockDim.x): 8 beat 16 and 32 on every benchmark leg
@@ -85,6 +91,7 @@ __device__ __forceinline__ size_t at(size_t row) {
 
 // Parity failure of the hard decisions (x < 0) over the checks this thread
 // owns (its frame, z = threadIdx.y + k * blockDim.y) in every layer.
+template <bool XOR>
 __device__ bool syndrome_fail_part(const Params& p, const float* tot,
                                    const int* lptr, const int* scol,
                                    const int* sshift) {
@@ -94,8 +101,7 @@ __device__ bool syndrome_fail_part(const Params& p, const float* tot,
     for (int z = threadIdx.y; z < p.Z; z += blockDim.y) {
       bool par = false;
       for (int s = s0; s < s1; ++s) {
-        int zz = z + sshift[s];
-        if (zz >= p.Z) zz -= p.Z;
+        const int zz = qc::var_index<XOR>(z, sshift[s], p.Z);
         par ^= (tot[at(scol[s] * p.Z + zz)] < 0.f);
       }
       fail |= par;
@@ -104,7 +110,7 @@ __device__ bool syndrome_fail_part(const Params& p, const float* tot,
   return fail;
 }
 
-template <int MAX_DEG, bool TRACK, bool FAST_MAG>
+template <int MAX_DEG, bool TRACK, bool FAST_MAG, bool XOR>
 __global__ void __launch_bounds__(512)
 layered_qc_kernel(Params p) {
   // words per check: mag1, mag2, signs | slot << 16 (d <= 16), or
@@ -144,7 +150,7 @@ layered_qc_kernel(Params p) {
 
   if constexpr (TRACK) {
     // done_0: frames whose channel hard decisions already satisfy H
-    if (live && syndrome_fail_part(p, tot, lptr, scol, sshift))
+    if (live && syndrome_fail_part<XOR>(p, tot, lptr, scol, sshift))
       atomicOr(&fail_s[tx], 1);
     __syncthreads();
     if (threadIdx.y == 0) done_s[tx] = live ? !fail_s[tx] : 1;
@@ -188,8 +194,7 @@ layered_qc_kernel(Params p) {
 #pragma unroll
               for (int j = 0; j < MAX_DEG; ++j) {
                 if (j < d) {
-                  int zz = z + sshift[s0 + j];
-                  if (zz >= Z) zz -= Z;
+                  const int zz = qc::var_index<XOR>(z, sshift[s0 + j], Z);
                   rv[k][j] = tot[at(scol[s0 + j] * Z + zz)];
                 }
               }
@@ -223,9 +228,12 @@ layered_qc_kernel(Params p) {
             }
             float mag1, mag2;
             if constexpr (FAST_MAG) {
-              // beta == 0, no schedule, every row degree >= 2: min2 finite
-              mag1 = __fmul_rn(a, min1);
-              mag2 = __fmul_rn(a, min2);
+              // beta == 0 and alpha >= 0, no schedule, every row degree
+              // >= 2 (min2 finite): max(a*m - 0, 0) is a*m. The cap stays:
+              // without it a decoded frame's magnitudes grow by about
+              // alpha*(d - 1) a sweep, past 1e12 and toward f32 overflow
+              mag1 = __fmul_rn(a, fminf(min1, kMagCap));
+              mag2 = __fmul_rn(a, fminf(min2, kMagCap));
             } else {
               mag1 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min1, kMagCap)), bt), 0.f);
               mag2 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min2, kMagCap)), bt), 0.f);
@@ -247,8 +255,7 @@ layered_qc_kernel(Params p) {
                 const float nw = __fadd_rn(x, cn);
                 if constexpr (TRACK)
                   flip |= (__float_as_uint(nw) ^ __float_as_uint(rv[k][j])) & kSign;
-                int zz = z + sshift[s0 + j];
-                if (zz >= Z) zz -= Z;
+                const int zz = qc::var_index<XOR>(z, sshift[s0 + j], Z);
                 tot[at(scol[s0 + j] * Z + zz)] = nw;
               }
             }
@@ -279,7 +286,8 @@ layered_qc_kernel(Params p) {
   if (threadIdx.y == 0) fail_s[tx] = 0;
   __syncthreads();
   if (live) {
-    if (syndrome_fail_part(p, tot, lptr, scol, sshift)) atomicOr(&fail_s[tx], 1);
+    if (syndrome_fail_part<XOR>(p, tot, lptr, scol, sshift))
+      atomicOr(&fail_s[tx], 1);
     uint8_t* bits = p.bits + tile * p.nb * Z * FT;
     for (int i = threadIdx.y; i < p.nb * Z; i += blockDim.y)
       bits[at(i)] = tot[at(i)] < 0.f ? 1 : 0;
@@ -291,10 +299,10 @@ layered_qc_kernel(Params p) {
   }
 }
 
-template <int MAX_DEG, bool TRACK, bool FAST_MAG>
+template <int MAX_DEG, bool TRACK, bool FAST_MAG, bool XOR>
 cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
                    cudaStream_t stream) {
-  auto kern = layered_qc_kernel<MAX_DEG, TRACK, FAST_MAG>;
+  auto kern = layered_qc_kernel<MAX_DEG, TRACK, FAST_MAG, XOR>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -304,12 +312,20 @@ cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
   return cudaGetLastError();
 }
 
-template <int MAX_DEG>
+template <int MAX_DEG, bool XOR>
 cudaError_t launch_mode(const Params& p, int track, int fast_mag, dim3 grid,
                         dim3 block, size_t smem, cudaStream_t stream) {
-  if (track) return launch<MAX_DEG, true, false>(p, grid, block, smem, stream);
-  if (fast_mag) return launch<MAX_DEG, false, true>(p, grid, block, smem, stream);
-  return launch<MAX_DEG, false, false>(p, grid, block, smem, stream);
+  if (track) return launch<MAX_DEG, true, false, XOR>(p, grid, block, smem, stream);
+  if (fast_mag) return launch<MAX_DEG, false, true, XOR>(p, grid, block, smem, stream);
+  return launch<MAX_DEG, false, false, XOR>(p, grid, block, smem, stream);
+}
+
+template <bool XOR>
+cudaError_t launch_width(const Params& p, int dcb_max, int track, int fast_mag,
+                         dim3 grid, dim3 block, size_t smem, cudaStream_t st) {
+  if (dcb_max <= 8) return launch_mode<8, XOR>(p, track, fast_mag, grid, block, smem, st);
+  if (dcb_max <= 16) return launch_mode<16, XOR>(p, track, fast_mag, grid, block, smem, st);
+  return launch_mode<32, XOR>(p, track, fast_mag, grid, block, smem, st);
 }
 
 }  // namespace
@@ -317,14 +333,15 @@ cudaError_t launch_mode(const Params& p, int track, int fast_mag, dim3 grid,
 extern "C" {
 
 // Decodes B frames in ceil(B / FT) tiles of FT = 8 frames (the arrays
-// hold whole tiles; lanes past B are left alone); returns a cudaError_t (0
-// on a successful launch). dcb_max must be <= 32 and 8 * threads_z <= 512;
-// the wrapper checks both.
+// hold whole tiles; lanes past B are left alone) on a circulant graph
+// (xor_perm = 0) or an XOR-permutation graph (xor_perm = 1, power-of-two
+// Z); returns a cudaError_t (0 on a successful launch). dcb_max must be
+// <= 32 and 8 * threads_z <= 512; the wrapper checks both.
 int layered_qc_decode(void* total, void* cs, void* bits, void* ok, void* iters,
                       void* tab, void* ab, int Z, int mb, int nb, int BE,
                       int B, int max_iters, int dcb_max, float alpha,
                       float beta, int track, int fast_mag, int threads_z,
-                      void* stream) {
+                      int xor_perm, void* stream) {
   if (threads_z < 1 || FT * threads_z > 512 || dcb_max > 32 || B < 1)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -341,9 +358,9 @@ int layered_qc_decode(void* total, void* cs, void* bits, void* ok, void* iters,
   const dim3 grid((B + FT - 1) / FT);
   const size_t smem = sizeof(int) * (size_t)(mb + 1 + 2 * BE);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dcb_max <= 8) return (int)launch_mode<8>(p, track, fast_mag, grid, block, smem, st);
-  if (dcb_max <= 16) return (int)launch_mode<16>(p, track, fast_mag, grid, block, smem, st);
-  return (int)launch_mode<32>(p, track, fast_mag, grid, block, smem, st);
+  if (xor_perm)
+    return (int)launch_width<true>(p, dcb_max, track, fast_mag, grid, block, smem, st);
+  return (int)launch_width<false>(p, dcb_max, track, fast_mag, grid, block, smem, st);
 }
 
 const char* layered_qc_error_string(int err) {

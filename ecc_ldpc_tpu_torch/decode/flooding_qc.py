@@ -1,5 +1,7 @@
-"""Flooding BP on circulant QC graphs: the plain PyTorch version and the
-wrapper of its CUDA kernel (csrc/flooding_qc.cu, K3).
+"""Flooding BP on QC graphs: the plain PyTorch version and the wrapper of
+its CUDA kernel (csrc/flooding_qc.cu, K3). Check z of a block reads
+variable graph/qc.var_index(z, s, Z, perm): (z + s) % Z on circulant
+graphs, z ^ s on XOR-permutation graphs, the kernel's xor instantiation.
 
 `flooding_qc_decode_plain` ports ecc_ldpc_tpu/decode/xla/flooding_qc.py::
 decode_flooding_qc for the kinds minsum, spa and minstar: every block-row
@@ -12,8 +14,10 @@ PRE-sweep posteriors, and a frame that passes keeps that verified state
 CPU path and the card's yardstick.
 
 `flooding_qc_decode_cuda` launches the kernel that replaces
-ecc_ldpc_tpu/decode/pallas/flooding_qc.py::_kernel, the same operations in
-the same order: bit-identical with the plain version on the card.
+ecc_ldpc_tpu/decode/pallas/flooding_qc.py::_kernel (and, on XOR graphs,
+ecc_ldpc_tpu/decode/pallas/layered_xor.py::_kernel's flooding mode, K4),
+the same operations in the same order: bit-identical with the plain
+version on the card.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..graph.qc import QCGraph
+from ..graph.qc import PERMS, QCGraph, check_index, var_index
 from .cn_ops import CN_KINDS, get_rule
 from .layered_qc import (
     _check_llr,
@@ -40,7 +44,7 @@ MAX_DEG = 32     # the kernel's largest row degree
 _THREADS_Y = 64  # rows of threads per block (8 frames each)
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
 _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def check_args(graph: QCGraph, kind: str, alpha, beta) -> None:
@@ -62,14 +66,14 @@ def _plain_tables(graph: QCGraph, device):
     has bool [n, 1]) — the k-th message each variable adds, as a flat index
     into C [BE*Z], in sweep order (rows in layer_order, edges in edge-id
     order)."""
-    Z = graph.Z
+    Z, perm = graph.Z, graph.perm
     z = np.arange(Z)
     groups = []
     for d, rows in graph.layer_groups:
         edges = [graph.layer_edges(i) for i in rows]
         eids = np.array([[e for e, _, _ in r] for r in edges]).T.copy()
-        vidx = np.stack([np.concatenate([c * Z + (z + s) % Z for _, c, s in
-                                         (r[j] for r in edges)])
+        vidx = np.stack([np.concatenate([c * Z + var_index(z, s, Z, perm)
+                                         for _, c, s in (r[j] for r in edges)])
                          for j in range(d)])
         groups.append((d, torch.as_tensor(eids, device=device),
                        torch.as_tensor(vidx.ravel(), device=device)))
@@ -84,7 +88,7 @@ def _plain_tables(graph: QCGraph, device):
         for c, lst in enumerate(cols):
             if k < len(lst):
                 e, s = lst[k]
-                idx[c] = e * Z + (z - s) % Z
+                idx[c] = e * Z + check_index(z, s, Z, perm)
                 has[c] = True
         gathers.append((torch.as_tensor(idx.ravel(), device=device),
                         torch.as_tensor(has.reshape(-1, 1), device=device)))
@@ -172,7 +176,7 @@ def flooding_qc_decode_plain(graph: QCGraph, llr: torch.Tensor, *,
 def _flooding_table(graph: QCGraph, device):
     """int32: K1a's sweep table (row pointers in layer_order, each slot's
     column and shift), then per block-column the pointer, slot and shift
-    of its edges in the same sweep order."""
+    of its edges in the same sweep order (shifts read by graph.perm)."""
     cols = [[] for _ in range(graph.nb)]
     p = 0
     for i in graph.layer_order:
@@ -215,13 +219,15 @@ def _launch(graph: QCGraph, llr: torch.Tensor, kind: str, alpha, beta,
             bits.data_ptr(), ok.data_ptr(), iters.data_ptr(), tab.data_ptr(),
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             graph.dcb_max, _RULE_IDS[kind], float(alpha), float(beta),
-            int(early_term), _THREADS_Y,
+            int(early_term), _THREADS_Y, int(graph.perm == "xor"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         _raise_launch(lib, "flooding_qc", rc)
     flooding_qc_decode_cuda.launches += 1
     flooding_qc_decode_cuda.frames += B
+    flooding_qc_decode_cuda.launches_by_perm[graph.perm] += 1
+    flooding_qc_decode_cuda.frames_by_perm[graph.perm] += B
     res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
                        iterations=iters)
     return res, total
@@ -249,6 +255,9 @@ def flooding_qc_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
 
 flooding_qc_decode_cuda.launches = 0
 flooding_qc_decode_cuda.frames = 0  # frames decoded: the retry fallback's load
+# per block permutation: the roll and xor instantiations are kernels apart
+flooding_qc_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
+flooding_qc_decode_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
 
 
 def make_flooding_qc_decoder(graph: QCGraph, *, kind: str = "minsum",

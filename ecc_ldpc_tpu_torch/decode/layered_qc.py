@@ -1,7 +1,10 @@
-"""Layered decoding on circulant QC graphs: the plain PyTorch version and
-the wrappers of its three CUDA kernels (csrc/layered_qc.cu, min-sum;
+"""Layered decoding on QC graphs: the plain PyTorch version and the
+wrappers of its three CUDA kernels (csrc/layered_qc.cu, min-sum;
 csrc/layered_exact.cu, exact BP; csrc/layered_classic.cu, every rule on
-graphs that repeat a block-column in a layer).
+graphs that repeat a block-column in a layer). Check z of a block reads
+variable graph/qc.var_index(z, s, Z, perm): (z + s) % Z on circulant graphs,
+z ^ s on XOR-permutation graphs (IEEE 802.3an), which the first two kernels
+take as their XOR instantiations and the classic kernel refuses.
 
 `layered_decode_plain` ports ecc_ldpc_tpu/decode/xla/layered.py::
 decode_layered: fixed-iteration mode (`early_term=False`, exactly
@@ -21,7 +24,10 @@ the card's yardstick.
 `layered_classic_cuda` (all three, multi-edge graphs) launch the kernels
 that replace ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel's
 `sweep_delta`, `sweep_exact`, and `sweep_classic` with
-`sweep_exact_classic`; `make_layered_decoder` picks one by graph and rule.
+`sweep_exact_classic`; on XOR graphs the min-sum kernel replaces
+ecc_ldpc_tpu/decode/pallas/layered_xor.py::_kernel's layered `sweep` (K4),
+scalar or per-iteration alpha/beta. `make_layered_decoder` picks one by
+graph and rule.
 Min-sum is bit-identical with the plain version in f32 (same operations in
 the same order, no fused multiply-add, no reduction across frames); the
 exact rules are too wherever the card's expf, logf, tanhf and log1pf are
@@ -38,7 +44,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..graph.qc import QCGraph
+from ..graph.qc import PERMS, QCGraph, var_index
 from .types import DecodeResult
 
 _MAG_CAP = 1e12
@@ -76,6 +82,11 @@ def check_graph(graph: QCGraph) -> None:
     if graph.dcb_max > MAX_DEG:
         raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
                          f"the layered kernel's limit {MAX_DEG}")
+    if graph.perm == "xor" and not graph.intra_layer_dup_free:
+        raise ValueError(
+            f"{graph.name}: a layer of this xor-permutation graph repeats a "
+            f"block-column; the accumulate form (csrc/layered_classic.cu) "
+            f"serves circulant graphs only")
 
 
 def _device_tables(graph: QCGraph, device: torch.device, kind: str, build):
@@ -97,7 +108,8 @@ def _plain_layers(graph: QCGraph, device):
     layers = []
     for i in graph.layer_order:
         edges = graph.layer_edges(i)
-        idx = np.concatenate([col * Z + (z + s) % Z for _, col, s in edges])
+        idx = np.concatenate([col * Z + var_index(z, s, Z, graph.perm)
+                              for _, col, s in edges])
         eids = np.asarray([e for e, _, _ in edges], np.int64)
         layers.append((torch.as_tensor(idx, dtype=torch.long, device=device),
                        torch.as_tensor(eids, device=device), len(edges)))
@@ -303,7 +315,8 @@ def layered_decode_plain(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
 
 def _kernel_table(graph: QCGraph, device):
     """int32 [mb+1 + 2*BE]: layer_ptr, then the column and shift of every
-    sweep slot (layer_order, then layer_edges order)."""
+    sweep slot (layer_order, then layer_edges order). The kernels read a
+    shift by the graph's perm: add mod Z (roll) or xor (xor)."""
     ptr, col, shift = [0], [], []
     for i in graph.layer_order:
         for _, c, s in graph.layer_edges(i):
@@ -341,8 +354,8 @@ def _lib(name: str, entry: str, argtypes):
 
 
 _QC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-_EXACT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_EXACT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 _CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
@@ -403,14 +416,10 @@ def _raise_launch(lib, name: str, rc: int) -> None:
     raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} ({err})")
 
 
-def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
-                        beta=0.0, max_iters: int = 25,
-                        early_term: bool = True,
-                        cn: str = "minsum") -> DecodeResult:
-    """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
-    the layered min-sum kernel on the current stream (the exact rules are
-    layered_exact_cuda's). Raises on anything the kernel does not take;
-    never falls back to the plain version."""
+def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
+                   max_iters: int, early_term: bool, cn: str):
+    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
+    layered min-sum kernel on the current stream."""
     if cn != "minsum":
         raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
                          f"spa and minstar are layered_exact_cuda's")
@@ -421,7 +430,7 @@ def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     tiles = -(-B // _FT)
     min_deg = min(d for d, _ in graph.layer_groups)
     fast_mag = not per_iter and float(betas[0]) == 0.0 and not early_term \
-        and min_deg >= 2
+        and min_deg >= 2 and float(alphas[0]) >= 0.0
     tab = _device_tables(graph, dev, "kernel", _kernel_table)
     ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
           if per_iter else None)
@@ -441,16 +450,44 @@ def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             graph.dcb_max, float(alphas[0]), float(betas[0]),
             int(early_term), int(fast_mag), threads_z(Z),
+            int(graph.perm == "xor"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         _raise_launch(lib, "layered_qc", rc)
     layered_decode_cuda.launches += 1
-    return DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
-                        iterations=iters)
+    layered_decode_cuda.launches_by_perm[graph.perm] += 1
+    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
+                       iterations=iters)
+    return res, total
+
+
+def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
+                        beta=0.0, max_iters: int = 25,
+                        early_term: bool = True,
+                        cn: str = "minsum") -> DecodeResult:
+    """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
+    the layered min-sum kernel on the current stream (the exact rules are
+    layered_exact_cuda's), its roll or xor instantiation by graph.perm.
+    Raises on anything the kernel does not take; never falls back to the
+    plain version."""
+    return _launch_minsum(graph, llr, alpha, beta, max_iters, early_term,
+                          cn)[0]
+
+
+def minsum_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
+                                alpha=1.0, beta=0.0, max_iters: int = 25,
+                                early_term: bool = True, cn: str = "minsum"):
+    """(DecodeResult, posteriors f32 [B, n]) of one launch of the layered
+    min-sum kernel, for holding it against plain_with_posteriors."""
+    res, total = _launch_minsum(graph, llr, alpha, beta, max_iters,
+                                early_term, cn)
+    return res, _from_tiles(total, llr.shape[0])
 
 
 layered_decode_cuda.launches = 0
+# per block permutation: the roll and xor instantiations are kernels apart
+layered_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 
 
 def _message_buffers(graph: QCGraph, llr: torch.Tensor):
@@ -484,12 +521,15 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
             iters.data_ptr(), tab.data_ptr(),
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             graph.dcb_max, int(cn == "minstar"), int(early_term),
-            threads_z(Z), torch.cuda.current_stream(dev).cuda_stream,
+            threads_z(Z), int(graph.perm == "xor"),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         _raise_launch(lib, "layered_exact", rc)
     layered_exact_cuda.launches += 1
     layered_exact_cuda.frames += B
+    layered_exact_cuda.launches_by_perm[graph.perm] += 1
+    layered_exact_cuda.frames_by_perm[graph.perm] += B
     res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
                        iterations=iters)
     return res, total
@@ -517,6 +557,8 @@ def exact_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
 
 layered_exact_cuda.launches = 0
 layered_exact_cuda.frames = 0  # frames decoded: the retry fallback's load
+layered_exact_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
+layered_exact_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
 
 
 def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
@@ -524,6 +566,11 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
     """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
     layered kernel for graphs that repeat a block-column in a layer."""
     alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
+    if graph.perm != "roll":
+        raise ValueError(
+            f"{graph.name}: layered_classic_cuda's accumulate form reads "
+            f"circulant blocks only, not {graph.perm!r} blocks; a dup-free "
+            f"xor graph is layered_decode_cuda's and layered_exact_cuda's")
     _check_cuda_input(graph, llr, max_iters, "layered_classic_cuda",
                       classic=True)
     dev, B, Z = llr.device, llr.shape[0], graph.Z
@@ -592,7 +639,9 @@ def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
     """decode(llr [B, n]) -> DecodeResult. The decoder runs the plain
     version on CPU tensors and a CUDA kernel on CUDA tensors: on graphs
     that repeat a block-column in a layer the classic kernel for every
-    rule, otherwise the min-sum or the exact-BP kernel by rule `cn`.
+    rule, otherwise the min-sum or the exact-BP kernel by rule `cn`, each
+    in its roll or xor instantiation by graph.perm (a xor graph that
+    repeats a block-column in a layer raises, on every device).
     `device` (default "cuda", which raises when CUDA is absent) is where
     its tables are built up front. Exact rules ignore alpha/beta."""
     check_graph(graph)

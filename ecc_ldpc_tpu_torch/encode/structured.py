@@ -14,6 +14,8 @@ info blocks without any generator matrix:
 The DVB-S2 surrogate (codes/dvbs2.py) has this dual-diagonal shape. Each
 encoder is a chain of torch.roll/XOR on [Z, B] slabs on the device of its
 input, with a NumPy twin (`encode_numpy`) that validates it against H.
+Both roll, so both refuse codes whose blocks are XOR permutations
+(QCXorCode, IEEE 802.3an), which take the dense generator.
 """
 from __future__ import annotations
 
@@ -28,6 +30,21 @@ from ..codes.spec import CodeSpec
 def _roll(x: torch.Tensor, s: int) -> torch.Tensor:
     """np.roll semantics along axis 0 (static shift)."""
     return torch.roll(x, s, dims=0) if s % x.shape[0] else x
+
+
+def _circulant_base(spec: CodeSpec) -> np.ndarray:
+    """The base matrix of a QC code with circulant blocks; ValueError
+    otherwise (these encoders roll)."""
+    qc = spec.qc
+    if qc is None:
+        raise ValueError(f"{spec.name}: not a QC code")
+    if getattr(qc, "perm", "roll") != "roll":
+        raise ValueError(f"{spec.name}: {qc.perm!r} blocks are not "
+                         f"circulants; the structured encoders roll")
+    base = getattr(qc, "base", None)
+    if base is None:
+        raise ValueError(f"{spec.name}: multi-edge QC, no base matrix")
+    return base
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,11 +62,7 @@ class DualDiagonalPlan:
     @staticmethod
     def from_spec(spec: CodeSpec) -> "DualDiagonalPlan":
         qc = spec.qc
-        if qc is None:
-            raise ValueError(f"{spec.name}: not a QC code")
-        base = getattr(qc, "base", None)
-        if base is None:
-            raise ValueError(f"{spec.name}: multi-edge QC, no base matrix")
+        base = _circulant_base(spec)
         mb, nb = base.shape
         kb = nb - mb
         pcol = base[:, kb]
@@ -158,11 +171,7 @@ class StaircaseEncoder:
 
     def __init__(self, spec: CodeSpec, validate: bool = True):
         qc = spec.qc
-        if qc is None:
-            raise ValueError(f"{spec.name}: not a QC code")
-        base = getattr(qc, "base", None)
-        if base is None:
-            raise ValueError(f"{spec.name}: multi-edge QC, no base matrix")
+        base = _circulant_base(spec)
         mb, nb = base.shape
         kb = nb - mb
         for d in range(mb):

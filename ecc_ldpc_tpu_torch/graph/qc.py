@@ -1,14 +1,17 @@
 """Compiled quasi-cyclic graph: block-edge tables (port of
-ecc_ldpc_tpu/graph/qc.py, circulant "roll" blocks only).
+ecc_ldpc_tpu/graph/qc.py).
 
 The tables are NumPy; `QCGraph.to(device)` gives their int32/bool tensors.
 Check r of block-edge e (block-row br[e], block-column bc[e], shift s[e])
-connects variable bc[e]*Z + (r + s[e]) % Z. The layered decoders visit the
+connects variable bc[e]*Z + var_index(r, s[e], Z, perm): (r + s) % Z on a
+circulant ("roll") graph, r ^ s on a XOR-permutation ("xor") graph such as
+IEEE 802.3an's. The layered decoders visit the
 block-rows in `layer_order` and the edges of a row in `layer_edges` order
 (edge-id order), the same order as the JAX package, so the two share fixed
 points. The block edges come from the code's `block_edges()`: a QCCode's
-base matrix, or a QCMultiCode's explicit list (CCSDS AR4JA), whose parallel
-edges put one block-column twice in a layer (`intra_layer_dup_free` False).
+or QCXorCode's base matrix, or a QCMultiCode's explicit list (CCSDS
+AR4JA), whose parallel edges put one block-column twice in a layer
+(`intra_layer_dup_free` False).
 """
 from __future__ import annotations
 
@@ -19,6 +22,21 @@ import numpy as np
 import torch
 
 from ..codes.spec import CodeSpec
+
+PERMS = ("roll", "xor")
+
+
+def var_index(z, s, Z: int, perm: str):
+    """The position in its block-column of the variable that check z of a
+    block with shift s reads: (z + s) % Z (roll) or z ^ s (xor)."""
+    return z ^ s if perm == "xor" else (z + s) % Z
+
+
+def check_index(zv, s, Z: int, perm: str):
+    """The inverse of var_index: the check of the block that reads variable
+    position zv, (zv - s) % Z (roll) or zv ^ s (xor permutations are
+    involutions)."""
+    return zv ^ s if perm == "xor" else (zv - s) % Z
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +71,7 @@ class QCGraph:
     row_mask: np.ndarray  # bool [mb, dcb_max]
     col_be: np.ndarray    # int32 [nb, dvb_max]
     col_mask: np.ndarray  # bool [nb, dvb_max]
+    perm: str = "roll"    # block permutation: "roll" or "xor" (var_index)
     # decoder tables derived from the above, per (kind, device); filled by
     # the decoders on first use (decode/layered_qc.py)
     device_cache: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -124,12 +143,19 @@ class QCGraph:
 
 def qc_graph_from_block_edges(
     Z: int, mb: int, nb: int, br, bc, sh, *, k: int, name: str = "qc",
+    perm: str = "roll",
 ) -> QCGraph:
-    """Build a QCGraph from explicit (block_row, block_col, shift) triples."""
+    """Build a QCGraph from explicit (block_row, block_col, shift) triples
+    whose blocks are circulants (perm "roll") or XOR permutations ("xor",
+    power-of-two Z)."""
     br = np.asarray(br, np.int32)
     bc = np.asarray(bc, np.int32)
     sh = np.asarray(sh, np.int32)
     BE = len(br)
+    if perm not in PERMS:
+        raise ValueError(f"perm must be 'roll' or 'xor', got {perm!r}")
+    if perm == "xor" and Z & (Z - 1):
+        raise ValueError(f"xor-perm blocks need power-of-two Z, got {Z}")
     if np.any(sh < 0) or np.any(sh >= Z):
         raise ValueError("shifts must lie in [0, Z)")
     if len(bc) != BE or len(sh) != BE:
@@ -162,16 +188,18 @@ def qc_graph_from_block_edges(
         dcb_max=dcb_max, dvb_max=dvb_max, k=k, name=name,
         be_row=br, be_col=bc, be_shift=sh,
         row_be=row_be, row_mask=row_mask, col_be=col_be, col_mask=col_mask,
+        perm=perm,
     )
 
 
 def compile_qc_graph(spec: CodeSpec) -> QCGraph:
-    """The QCGraph of a code with QC structure (QCCode or QCMultiCode),
-    block edges in the order `block_edges()` lists them."""
+    """The QCGraph of a code with QC structure (QCCode, QCXorCode or
+    QCMultiCode), block edges in the order `block_edges()` lists them."""
     qc = spec.qc
     if qc is None:
         raise ValueError(f"code {spec.name!r} has no QC structure")
     br, bc, sh = qc.block_edges()
     return qc_graph_from_block_edges(
         qc.Z, qc.mb, qc.nb, br, bc, sh, k=spec.k, name=spec.name,
+        perm=getattr(qc, "perm", "roll"),
     )
