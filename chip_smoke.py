@@ -119,12 +119,31 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      layered/norm:0.8125/50;retry=layered/spa/50 at 3.6 dB, 65536 frames
      in batches of 4096: both xor kernels launched, the fallback got
      frames, and the FER overlaps the reference's retry point.
+  23. K5 vs plain — the ring all-reduce (csrc/ring.cu) on D = 2 and D = 4
+     ranks (processes under torch.distributed.run, gloo between them) of
+     the one card, through bench/ring.py: f32 and int64 at the sweep
+     counters' shape [2, 4], at a ragged 1001 elements and at 16 MiB per
+     rank; K5's sum identical to the plain version's on every rank and the
+     ranks identical to each other; K5, the plain version and gloo's
+     all_reduce timed on the same CUDA tensors. The card's compute mode
+     is printed.
+  24. the sharded sweep at full width — bench/sharded.py on meshes 1x1,
+     2x1 and 2x2 (separate rank sets): dvbs2/64800/12,
+     layered/norm:0.8125/25, 1.0 and 1.1 dB, 4096 frames a point per step,
+     2 steps; the integer counters identical on every rank and mesh, K1a
+     and K5 launched on every rank of 2x1 and 2x2; frames/s per mesh, and
+     run_sweep's on the same points beside them.
+  25. the entry point — the CLI's sweep under torch.distributed.run on a
+     2x2 mesh (4 ranks), 100 frame errors or 32768 frames a point: every
+     rank exits 0 and rank 0's results overlap the golden curve.
 Then the kernels line, nvidia-smi's line, and the result line last.
 """
 from __future__ import annotations
 
 import json
+import os
 import pathlib
+import signal
 import subprocess
 import sys
 import tempfile
@@ -138,6 +157,8 @@ from ecc_ldpc_tpu_torch.bench.throughput import (
     CCSDS_LEGS,
     CCSDS_PRODUCTION_SWEEP,
     EXACT_LEGS,
+    SHARDED_MESHES,
+    SHARDED_SWEEP,
     FLOODING_LEGS,
     FLOODING_PRODUCTION_SWEEP,
     LEGS,
@@ -299,6 +320,12 @@ XOR_SWEEPS = {
 }
 XOR_SWEEP_FRAMES = 8192
 XOR_FER_MAX = 0.01
+RING_RANKS = (2, 4)
+# the integer counters a sharded sweep must reproduce on every mesh
+SHARDED_COUNTERS = ("frames", "bit_errors", "frame_errors", "iters_sum",
+                    "bit_errors_sq")
+CLI_MESH = "2x2"
+CLI_MESH_FRAMES = 32768
 
 
 def emit(phase: str, **kw) -> None:
@@ -834,6 +861,153 @@ def xor_path(dev) -> list:
     return kernels
 
 
+def run_ranks(nproc: int, args: list, timeout: float) -> str:
+    """`python -m torch.distributed.run --standalone` with nproc ranks of
+    the module args[0] (its arguments after it), in its own process group,
+    killed whole at the time limit; raises unless it exits 0 (which it
+    does only when every rank does). Returns its output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", "-m", *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            process_group=0)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{args[0]} on {nproc} ranks: no end after "
+                             f"{timeout} s\n{out[-4000:]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]} on {nproc} ranks: exit "
+                             f"{proc.returncode}\n{out[-4000:]}")
+    return out
+
+
+def rank_lines(out_dir: pathlib.Path, stem: str, nproc: int) -> list:
+    return [json.loads((out_dir / f"{stem}_rank{r}.json").read_text())
+            for r in range(nproc)]
+
+
+def dist_path(dev) -> list:
+    """Phases 23-25: K5 on several ranks of the one card against its plain
+    version, the sharded sweep at full width on three meshes, and the CLI
+    under torch.distributed.run; returns K5's entry of the kernels line."""
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True)
+    emit("ring_device", compute_mode=(mode.stdout or mode.stderr).strip())
+
+    # 23. K5 against its plain version on D ranks of the card
+    ring_cases = {}
+    for D in RING_RANKS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_ranks(D, ["ecc_ldpc_tpu_torch.bench.ring", tmp], 300)
+            lines = rank_lines(pathlib.Path(tmp), "ring", D)
+        for line in lines:
+            for c in line["cases"]:
+                if not (c["identical_to_plain"] and c["ranks_identical"]):
+                    raise AssertionError(f"K5 differs from its plain version "
+                                         f"or across ranks: rank "
+                                         f"{line['rank']}, {c}")
+                if c["launches"] != D + 1:
+                    raise AssertionError(f"K5 launched {c['launches']} "
+                                         f"kernels for D = {D}")
+        ring_cases[D] = lines[0]["cases"]
+        for c in ring_cases[D]:
+            emit("ring_vs_plain", **c)
+        emit("ring_vs_plain", D=D, ranks=D, seconds=time.perf_counter() - t0)
+
+    # 24. the sharded sweep on each mesh; counts from each rank's own run
+    sharded = {}
+    for mesh in SHARDED_MESHES:
+        b, s = (int(x) for x in mesh.split("x"))
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_ranks(b * s, ["ecc_ldpc_tpu_torch.bench.sharded", mesh, tmp],
+                      600)
+            lines = rank_lines(pathlib.Path(tmp), f"sharded_{mesh}", b * s)
+        for line in lines:
+            emit("sharded_sweep", **line)
+            if line["counters"] != lines[0]["counters"]:
+                raise AssertionError(f"{mesh}: ranks disagree on counters")
+            if line["launches"]["layered_qc"] <= 0:
+                raise AssertionError(f"{mesh} rank {line['rank']}: K1a never "
+                                     f"launched")
+            if b * s > 1 and line["launches"]["ring"] <= 0:
+                raise AssertionError(f"{mesh} rank {line['rank']}: K5 never "
+                                     f"launched")
+        emit("sharded_sweep", mesh=mesh, ranks=b * s,
+             frames_per_s=lines[0]["frames_per_s"],
+             seconds=time.perf_counter() - t0)
+        sharded[mesh] = lines
+    want = [{k: c[k] for k in SHARDED_COUNTERS}
+            for c in sharded[SHARDED_MESHES[0]][0]["counters"]]
+    for mesh, lines in sharded.items():
+        got = [{k: c[k] for k in SHARDED_COUNTERS} for c in lines[0]["counters"]]
+        if got != want:
+            raise AssertionError(f"mesh {mesh} counters {got} != 1x1's {want}")
+    frames = SHARDED_SWEEP["steps"] * SHARDED_SWEEP["batch"]
+    if any(c["frames"] != frames for c in want):
+        raise AssertionError(f"the sharded sweep ran {want}")
+    # run_sweep (one process, a step-seeded stream) on the same points
+    swept = run_sweep(SweepSpec(
+        code=SHARDED_SWEEP["code"], decoder=SHARDED_SWEEP["decoder"],
+        ebn0_db=SHARDED_SWEEP["ebn0_db"], batch=SHARDED_SWEEP["batch"],
+        stopping=StoppingRule(min_frame_errors=10 ** 9, max_frames=frames)),
+        device=dev)
+    emit("sharded_sweep", run_sweep_frames_per_s=sum(
+        pr.frames for pr in swept) / sum(pr.wall_s for pr in swept),
+        run_sweep=[point_line(pr) for pr in swept])
+
+    # 25. the entry point: the CLI's sweep on a 2x2 mesh of ranks
+    with open(GOLDEN) as f:
+        golden = [PointResult.from_json(d) for d in json.load(f)]
+    b, s = (int(x) for x in CLI_MESH.split("x"))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "sharded_cli.json"
+        t0 = time.perf_counter()
+        run_ranks(b * s, [
+            "ecc_ldpc_tpu_torch.cli", "sweep", "--code", SHARDED_SWEEP["code"],
+            "--decoder", SHARDED_SWEEP["decoder"],
+            "--ebn0", ",".join(map(str, SHARDED_SWEEP["ebn0_db"])),
+            "--batch", str(SHARDED_SWEEP["batch"]), "--mesh", CLI_MESH,
+            "--min-frame-errors", "100", "--max-frames", str(CLI_MESH_FRAMES),
+            "--out", str(out)], 900)
+        wall = time.perf_counter() - t0
+        cli = [PointResult.from_json(d) for d in json.loads(out.read_text())]
+    overlap = curves_overlap(cli, golden, "fer")
+    for pr in cli:
+        g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+        emit("sharded_cli", mesh=CLI_MESH, decoder=pr.decoder, **point_line(pr),
+             golden_fer=g.fer, golden_fer_ci=g.fer_ci)
+    emit("sharded_cli", mesh=CLI_MESH, overlap=overlap, seconds=wall)
+    if not overlap:
+        raise AssertionError("the sharded CLI sweep misses the golden curve")
+
+    # K5's numbers at the main path's shape: the counters (int64 [2, 4]) on
+    # the 2x2 mesh's 4 ranks; its launches are rank 0's in the 2x2 sweep
+    (main_case,) = [c for c in ring_cases[4]
+                    if c["case"] == "counters" and c["dtype"] == "int64"]
+    return [{
+        "name": "ring",
+        "route": "cuda",
+        "source": "ecc_ldpc_tpu_torch/csrc/ring.cu",
+        "replaces": "ecc_ldpc_tpu/dist/ring.py:27",
+        "launches": sharded["2x2"][0]["launches"]["ring"],
+        "max_abs_err": max(c["max_abs_err"] for cs in ring_cases.values()
+                           for c in cs),
+        "ms": main_case["ms"],
+        "plain_ms": main_case["plain_ms"],
+        "bound_ms": main_case["bound_ms"],
+        "bound_by": main_case["bound_by"],
+        "library_ms": main_case["gloo_all_reduce_ms"],
+    }]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on the card")
@@ -1204,6 +1378,7 @@ def main() -> int:
 
     kernels_ccsds = ccsds_path(dev, spec12, k3, flood_err)
     kernels_xor = xor_path(dev)
+    kernels_dist = dist_path(dev)
 
     hl = results["headline"]
     kernels = [{
@@ -1260,7 +1435,7 @@ def main() -> int:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
-    kernels += kernels_ccsds + kernels_xor
+    kernels += kernels_ccsds + kernels_xor + kernels_dist
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

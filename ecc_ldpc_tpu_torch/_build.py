@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("layered_qc", "layered_exact", "layered_classic", "flooding",
-                  "flooding_qc")
+                  "flooding_qc", "ring")
 
 
 def nvcc_path() -> str:

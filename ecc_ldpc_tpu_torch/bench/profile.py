@@ -4,16 +4,23 @@ by kernel name, and the device's idle share of the window. Needs one CUDA
 card:
 
     python -m ecc_ldpc_tpu_torch.bench.profile [LEG ...]
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m ecc_ldpc_tpu_torch.bench.profile sharded_sweep_step_2x2
 
 Prints one JSON line per leg (the three min-sum legs, the two exact-BP
 legs, the four flooding legs, the three CCSDS legs, the two 8023an legs of
 K4's modes) and one for each production sweep step (random message,
 encode, channel, the retry decoder with its layered and with its flooding
 fallback on DVB-S2, on CCSDS and on 8023an, tally); with LEG names, only
-those rows. The window is the host time of `steps`
-back-to-back calls ending in a synchronize, after a warm-up call; busy
-time is the sum of the device activities (kernels, copies, fills) the
-profiler recorded in it, so idle = 1 - busy / window. Run with tracing
+those rows. A row sharded_sweep_step_BxS (named only, one process per rank
+of a BxS mesh) profiles steps of the sharded sweep (bench.SHARDED_SWEEP)
+on each rank: its own kernels (K1a, the generator's elementwise kernels,
+K5) and its idle share; on a card that several ranks share, a kernel's
+span includes the slices the card gave the other ranks. The window is
+the host time of `steps` back-to-back calls ending in a synchronize,
+after a warm-up call; busy time is the sum of the device activities
+(kernels, copies, fills) the profiler recorded in it, so idle = 1 - busy
+/ window. Run with tracing
 off, the same decodes are timed by bench/throughput.py; the difference is
 the profiler's cost.
 """
@@ -50,17 +57,18 @@ def _profiled(fn, steps: int, dev: torch.device, top: int = 8) -> dict:
             fn()
         torch.cuda.synchronize(dev)
         window_ms = (time.perf_counter() - t0) * 1e3
+    # summed by the name's first 80 characters, the key printed
     by_name = collections.defaultdict(float)
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] += evt.time_range.elapsed_us() / 1e3
+            by_name[evt.name[:80]] += evt.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "window_ms": window_ms, "steps": steps,
         "device_busy_ms": busy if by_name else None,
         "idle_share": 1.0 - busy / window_ms if by_name else None,
-        "device_ms_by_name": {k[:80]: v for k, v in ranked},
+        "device_ms_by_name": dict(ranked),
     }
 
 
@@ -102,6 +110,26 @@ def profile_sweep_step(code: str, decoder: str, batch: int, ebn0_db: float,
     return out
 
 
+def profile_sharded_step(mesh_str: str, steps: int = 2) -> dict:
+    """`steps` steps of the sharded sweep (bench.SHARDED_SWEEP) on this
+    rank of a BxS mesh, run_sweep_sharded's own step, after a warm-up
+    step."""
+    from ..dist.mesh import MeshSpec, make_mesh, maybe_init_distributed
+    from ..sim.runner import sharded_step
+    from .sharded import sharded_spec
+
+    maybe_init_distributed()
+    b, s = (int(x) for x in mesh_str.split("x"))
+    mesh = make_mesh(MeshSpec(batch=b, snr=s), device="cuda")
+    spec = sharded_spec(steps + 1)
+    with sharded_step(spec, mesh) as (_, step):
+        index = iter(range(steps + 1))
+        out = _profiled(
+            lambda: step(spec.seed, spec.ebn0_db, next(index)).tolist(),
+            steps, mesh.device, top=40)
+    return {"mesh": mesh_str, "rank": mesh.rank, **out}
+
+
 def main(argv=None) -> int:
     import sys
 
@@ -116,6 +144,12 @@ def main(argv=None) -> int:
              "ccsds_production_sweep_step": CCSDS_PRODUCTION_SWEEP,
              "8023an_production_sweep_step": XOR_PRODUCTION_SWEEP}
     want = sys.argv[1:] if argv is None else argv
+    sharded = [w for w in want if w.startswith("sharded_sweep_step_")]
+    for leg in sharded:
+        out = profile_sharded_step(leg.removeprefix("sharded_sweep_step_"))
+        print(json.dumps({"leg": leg, **out, "device": name}), flush=True)
+    if sharded:
+        return 0
     unknown = set(want) - set(legs) - set(steps)
     if unknown:
         raise SystemExit(f"unknown legs {sorted(unknown)}; known: "

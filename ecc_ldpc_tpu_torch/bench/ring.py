@@ -1,0 +1,147 @@
+"""K5 (csrc/ring.cu) on D ranks of one card against its plain version, with
+gloo's all_reduce on the same CUDA tensors timed beside it as the library
+yardstick (the port never calls it). One process per rank, under
+torch.distributed.run:
+
+    python -m torch.distributed.run --standalone --nproc-per-node D \\
+        -m ecc_ldpc_tpu_torch.bench.ring OUT_DIR
+
+Each rank writes OUT_DIR/ring_rank{r}.json: for each case (f32 and int64
+at the sweep counters' shape [2, 4], at a ragged 1001 elements, and at
+16 MiB per rank) whether K5's sum is bit-identical to the plain version's
+and to every other rank's, K5's launches, and ms per call of K5, of the
+plain version and of gloo's all_reduce (host clock around back-to-back
+calls ending in a synchronize, after a warm-up), beside the bound
+(ring_bound) and K5's device time per call (its copy and sum kernels
+under torch.profiler): the rest of its ms is the host round trips.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import pathlib
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
+
+from ..dist.mesh import maybe_init_distributed, rank_device
+from ..dist.ring import Ring, ring_allreduce_cuda, ring_allreduce_plain
+from .throughput import H100_FP32_OPS_PER_S, H100_HBM_BYTES_PER_S
+
+# (name, dtype, shape per rank, timed calls)
+CASES = [
+    ("counters", torch.int64, (2, 4), 50),
+    ("counters", torch.float32, (2, 4), 50),
+    ("ragged", torch.float32, (1001,), 50),
+    ("ragged", torch.int64, (1001,), 50),
+    ("16MiB", torch.float32, (4 << 20,), 10),
+    ("16MiB", torch.int64, (2 << 20,), 10),
+]
+
+
+def ring_bound(D: int, nbytes: int, numel: int) -> tuple:
+    """(seconds, form): the least time one H100 could take for the sum of D
+    blocks of nbytes (numel elements) held by D ranks of the card, each rank
+    receiving the sum: every input read once and every output written once
+    (2 D nbytes over HBM), against D (D - 1) numel additions at the fp32
+    rate outside the tensor cores."""
+    t_bytes = 2 * D * nbytes / H100_HBM_BYTES_PER_S
+    t_ops = D * (D - 1) * numel / H100_FP32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _inputs(dtype, shape, D: int, rank: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(1000 * D + rank)
+    if dtype == torch.float32:
+        x = rng.standard_normal(shape).astype(np.float32)
+    else:
+        x = rng.integers(-(1 << 40), 1 << 40, size=shape, dtype=np.int64)
+    return torch.as_tensor(x, device=dev)
+
+
+def _ms(fn, reps: int, dev) -> float:
+    fn()
+    torch.cuda.synchronize(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _device_ms(fn, reps: int, dev) -> float:
+    """Device ms per call of the ring library's kernels in `reps` calls."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("namespace)::copy_kernel(int4" in e.name
+                  or "namespace)::sum_kernel<" in e.name))
+    return us / 1e3 / reps
+
+
+def _digest(x: torch.Tensor) -> str:
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+
+def run_cases(dev) -> list:
+    D, rank = dist.get_world_size(), dist.get_rank()
+    out = []
+    for name, dtype, shape, reps in CASES:
+        x = _inputs(dtype, shape, D, rank, dev)
+        nbytes = x.numel() * x.element_size()
+        with Ring(None, dev, nbytes) as ring:
+            before = ring_allreduce_cuda.launches
+            got = ring_allreduce_cuda(x, ring)
+            launches = ring_allreduce_cuda.launches - before
+            want = ring_allreduce_plain(x)
+            same = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            digests = [None] * D
+            dist.all_gather_object(digests, _digest(got))
+            ms = _ms(lambda: ring_allreduce_cuda(x, ring), reps, dev)
+            device_ms = _device_ms(lambda: ring_allreduce_cuda(x, ring), 5,
+                                   dev)
+        plain_ms = _ms(lambda: ring_allreduce_plain(x), reps, dev)
+        buf = x.clone()
+        gloo_ms = _ms(lambda: dist.all_reduce(buf), reps, dev)
+        bound_s, form = ring_bound(D, nbytes, x.numel())
+        err = (got.double() - want.double()).abs().max().item()
+        out.append(dict(case=name, dtype=str(dtype).split(".")[-1],
+                        shape=list(shape), bytes=nbytes, D=D,
+                        identical_to_plain=same,
+                        ranks_identical=len(set(digests)) == 1,
+                        max_abs_err=err, launches=launches, ms=ms,
+                        device_ms=device_ms,
+                        plain_ms=plain_ms, gloo_all_reduce_ms=gloo_ms,
+                        bound_ms=bound_s * 1e3, bound_by=form))
+    return out
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        raise SystemExit("bench.ring needs a CUDA card")
+    out_dir = pathlib.Path(args[0])
+    maybe_init_distributed()
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    rank = dist.get_rank()
+    line = {"rank": rank, "device": str(dev),
+            "card": torch.cuda.get_device_name(dev), "cases": run_cases(dev)}
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / f"ring_rank{rank}.json").write_text(json.dumps(line))
+    print(json.dumps(line), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

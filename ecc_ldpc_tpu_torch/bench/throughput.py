@@ -111,6 +111,13 @@ FLOODING_PRODUCTION_SWEEP = dict(
 # converges to another codeword), so the fallback gets no frames there.
 CCSDS_PRODUCTION_SWEEP = dict(PRODUCTION_SWEEP, code="ccsds/4096/12",
                               ebn0_db=1.5)
+# The sharded sweep (sim/runner.run_sweep_sharded): the golden curve's
+# decoder and two of its waterfall points at the headline's code and
+# batch, 4096 frames a point per step for 2 steps, on each (batch x snr)
+# mesh of ranks.
+SHARDED_SWEEP = dict(code="dvbs2/64800/12", decoder="layered/norm:0.8125/25",
+                     ebn0_db=(1.0, 1.1), batch=4096, steps=2)
+SHARDED_MESHES = ("1x1", "2x1", "2x2")
 
 
 @dataclasses.dataclass

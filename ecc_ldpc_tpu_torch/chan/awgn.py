@@ -30,12 +30,15 @@ def llr_from_channel(y: torch.Tensor, sigma) -> torch.Tensor:
     return 2.0 * y / (sigma * sigma)
 
 
-def awgn_llr(gen: torch.Generator, bits: torch.Tensor, ebn0_db, rate
-             ) -> torch.Tensor:
-    """Transmit `bits` over BPSK/AWGN; return channel LLRs (same shape)."""
+def awgn_llr(gen: torch.Generator, bits: torch.Tensor, ebn0_db, rate,
+             noise=None) -> torch.Tensor:
+    """Transmit `bits` over BPSK/AWGN; return channel LLRs (same shape).
+    The unit normals are drawn from `gen`, or given as `noise` (f32, the
+    bits' shape), as the sharded sweep's per-frame generator gives them."""
     sigma = noise_sigma(ebn0_db, rate).to(bits.device)
-    noise = torch.randn(bits.shape, generator=gen, dtype=torch.float32,
-                        device=bits.device)
+    if noise is None:
+        noise = torch.randn(bits.shape, generator=gen, dtype=torch.float32,
+                            device=bits.device)
     return llr_from_channel(bpsk(bits) + sigma * noise, sigma)
 
 
@@ -55,14 +58,15 @@ def channel_masks(spec):
 
 def make_channel(spec):
     """Channel function honoring a code's punctured/shortened positions.
-    Returns f(gen, cw, ebn0_db) -> llr. Eb/N0 is referenced to spec.rate =
+    Returns f(gen, cw, ebn0_db, noise=None) -> llr (noise: the unit
+    normals, when not drawn from gen). Eb/N0 is referenced to spec.rate =
     k / transmitted bits."""
     keep_np, add_np = channel_masks(spec)
     rate = spec.rate
     masked = bool(len(spec.punctured_cols) or len(spec.shortened_cols))
 
-    def channel(gen, cw, ebn0_db):
-        llr = awgn_llr(gen, cw, ebn0_db, rate)
+    def channel(gen, cw, ebn0_db, noise=None):
+        llr = awgn_llr(gen, cw, ebn0_db, rate, noise)
         if masked:
             keep = torch.as_tensor(keep_np, device=cw.device)
             add = torch.as_tensor(add_np, device=cw.device)

@@ -86,8 +86,9 @@ def parse_channel_spec(spec: str) -> dict:
 
 
 def build_channel(code_spec, channel: str = "bpsk") -> Callable:
-    """Channel function f(gen, codeword_bits, ebn0_db) -> llr for a code
-    (gen: a torch.Generator on the codeword's device)."""
+    """Channel function f(gen, codeword_bits, ebn0_db, noise=None) -> llr
+    for a code (gen: a torch.Generator on the codeword's device; noise: the
+    unit normals instead, when the caller draws them)."""
     kind = parse_channel_spec(channel)["kind"]
     if kind != "bpsk":
         raise NotImplementedError(

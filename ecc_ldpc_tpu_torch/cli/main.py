@@ -13,6 +13,16 @@ sweep, compare and plot subcommands). Usage:
 Sweeps run on the card (`--device cuda`, the default) or, with
 `--device cpu`, through the plain PyTorch path. Result files are the JAX
 package's (PointResult JSON), so either package's compare reads them.
+
+The sharded sweep runs one process per rank on a BATCHxSNR mesh:
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m ecc_ldpc_tpu_torch.cli sweep --code dvbs2/64800/12 \
+      --decoder layered/norm:0.8125/25 --ebn0 1.0,1.1 --batch 4096 --mesh 2x2
+
+(add `--device cpu` for the plain path over gloo on the host). Ranks
+beyond the host's cards share a card, by time-slicing. Rank 0 prints the
+table and writes --out.
 """
 from __future__ import annotations
 
@@ -64,13 +74,18 @@ def cmd_sweep(args) -> int:
             if k in ("code", "decoder") and isinstance(v, str):
                 v = [v]
             setattr(args, k, v)
+    mesh, joined = None, False
     if args.mesh:
-        raise NotImplementedError(
-            "--mesh (the sharded sweep) is not ported yet; it waits for "
-            "ROADMAP.md Queue 1 step 13 (dist/)")
+        from ..dist import MeshSpec, make_mesh, maybe_init_distributed
+        from ..sim.runner import run_sweep_sharded
+
+        joined = maybe_init_distributed()
+        b, s = (int(x) for x in args.mesh.split("x"))
+        mesh = make_mesh(MeshSpec(batch=b, snr=s), device=args.device)
+    lead = mesh is None or mesh.rank == 0  # the rank that prints and writes
 
     def progress(pr):
-        if args.verbose:
+        if args.verbose and lead:
             print(format_table([pr]).splitlines()[-1], flush=True)
 
     all_results = []
@@ -88,9 +103,19 @@ def cmd_sweep(args) -> int:
                 ),
                 channel=args.channel,
             )
-            all_results += run_sweep(spec, device=args.device,
-                                     resume_path=args.resume,
-                                     progress=progress)
+            if mesh is not None:
+                all_results += run_sweep_sharded(
+                    spec, mesh, resume_path=args.resume, progress=progress)
+            else:
+                all_results += run_sweep(spec, device=args.device,
+                                         resume_path=args.resume,
+                                         progress=progress)
+    if joined:
+        import torch.distributed
+
+        torch.distributed.destroy_process_group()
+    if not lead:
+        return 0
     print(format_table(all_results))
     if args.out:
         save_results(all_results, args.out)
@@ -164,8 +189,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--config", default=None,
                     help="JSON config file whose keys mirror these flags")
     sp.add_argument("--mesh", default=None,
-                    help="sharded sweep over a BATCHxSNR mesh (not ported "
-                         "yet: ROADMAP.md Queue 1 step 13)")
+                    help="sharded sweep over a BATCHxSNR mesh of ranks "
+                         "(one process each, under torch.distributed.run)")
     sp.set_defaults(fn=cmd_sweep)
 
     sp = sub.add_parser(

@@ -1,5 +1,4 @@
-"""Monte-Carlo sweep loop (port of ecc_ldpc_tpu/sim/runner.py:35-335,
-446-457).
+"""Monte-Carlo sweep loops (port of ecc_ldpc_tpu/sim/runner.py:35-457).
 
 For each (code, decoder, Eb/N0) grid point, run batches of frames until the
 stopping rule fires, tallying message-bit errors and frame errors. One
@@ -15,11 +14,15 @@ sweep continues the stream exactly where it stopped. The numbers differ
 from JAX's threefry, so curves are compared statistically
 (report.curves_overlap), not bit for bit.
 
+The sharded sweep (run_sweep_sharded) draws its noise per frame instead
+(dist/montecarlo.py), so that its counters do not depend on the mesh.
+
 Resume states and result files keep the JAX package's keys and fields, so
 either package can read the other's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -139,39 +142,71 @@ class PointResult:
         return PointResult(**{k: v for k, v in d.items() if k in fields})
 
 
-def tally(msg: torch.Tensor, msg_hat: torch.Tensor, iterations: torch.Tensor):
-    """(bit_errors, frame_errors, iters_sum, bit_errors_sq) of one batch as
-    Python numbers, from one device-to-host copy. A frame error is a wrong
-    message bit; bit_errors_sq sums the squared per-frame error counts in
-    f32, as the JAX package does."""
+def tally_counts(msg: torch.Tensor, msg_hat: torch.Tensor,
+                 iterations: torch.Tensor) -> torch.Tensor:
+    """int64 [4] (bit_errors, frame_errors, iters_sum, bit_errors_sq) of one
+    batch, on its device. A frame error is a wrong message bit. The squared
+    per-frame bit errors are summed exactly in int64 (the JAX package sums
+    them in f32): a sum over ranks is then the same whatever the mesh."""
     diff = msg_hat != msg
-    w = diff.sum(1, dtype=torch.int32)
-    vals = torch.stack([
-        w.sum(dtype=torch.int64).double(),
-        diff.any(1).sum().double(),
-        iterations.sum(dtype=torch.int64).double(),
-        w.float().square().sum().double(),
-    ]).tolist()
-    return int(vals[0]), int(vals[1]), int(vals[2]), vals[3]
+    w = diff.sum(1, dtype=torch.int64)
+    return torch.stack([w.sum(), diff.any(1).sum(dtype=torch.int64),
+                        iterations.sum(dtype=torch.int64), (w * w).sum()])
+
+
+def tally(msg: torch.Tensor, msg_hat: torch.Tensor, iterations: torch.Tensor):
+    """tally_counts as Python numbers, from one device-to-host copy
+    (bit_errors_sq a float, as PointResult keeps it)."""
+    be, fe, it, be2 = tally_counts(msg, msg_hat, iterations).tolist()
+    return be, fe, it, float(be2)
 
 
 class Pipeline:
     """message -> encode -> channel -> decode -> tally for one (code,
     decoder) pair on one device.
 
+    The message bits and the unit normals of the channel are the caller's:
+    counts(msg, noise, ebn0_db) -> int64 [4] (tally_counts) decodes them,
+    as the sharded sweep does with its per-frame draws
+    (dist/montecarlo.py). run_sweep draws them from a torch.Generator:
     frames(gen, ebn0_db) -> (message, channel LLRs) of one batch, and
-    step(gen, ebn0_db) -> (bit_errors, frame_errors, iters_sum,
-    bit_errors_sq) of the same batch decoded, both drawing the message and
-    the noise from `gen`."""
+    step(gen, ebn0_db) -> tally of the same batch decoded."""
 
-    def __init__(self, k: int, rate: float, frames_fn: Callable,
-                 step_fn: Callable, batch: int, device: torch.device):
+    def __init__(self, k: int, n: int, rate: float, encode: Callable,
+                 channel: Callable, decode: Callable, batch: int,
+                 device: torch.device):
         self.k = k
+        self.n = n
         self.rate = rate
-        self.frames = frames_fn
-        self.step = step_fn
+        self.encode = encode  # msg -> codeword bits
+        self.channel = channel  # build_channel's f(gen, cw, ebn0_db, noise)
+        self.decode = decode  # llr -> (message estimate, iterations)
         self.batch = batch
         self.device = device
+
+    def draw(self, gen: torch.Generator) -> tuple:
+        """(message bits uint8 [batch, k], unit normals f32 [batch, n])
+        from gen, in that order."""
+        msg = torch.randint(0, 2, (self.batch, self.k), generator=gen,
+                            device=self.device, dtype=torch.uint8)
+        noise = torch.randn((self.batch, self.n), generator=gen,
+                            dtype=torch.float32, device=self.device)
+        return msg, noise
+
+    def llr(self, msg, noise, ebn0_db) -> torch.Tensor:
+        return self.channel(None, self.encode(msg), ebn0_db, noise)
+
+    def counts(self, msg, noise, ebn0_db) -> torch.Tensor:
+        msg_hat, iterations = self.decode(self.llr(msg, noise, ebn0_db))
+        return tally_counts(msg, msg_hat, iterations)
+
+    def frames(self, gen, ebn0_db) -> tuple:
+        msg, noise = self.draw(gen)
+        return msg, self.llr(msg, noise, ebn0_db)
+
+    def step(self, gen, ebn0_db) -> tuple:
+        be, fe, it, be2 = self.counts(*self.draw(gen), ebn0_db).tolist()
+        return be, fe, it, float(be2)
 
     @staticmethod
     def build(spec: SweepSpec, device) -> "Pipeline":
@@ -184,24 +219,18 @@ def _ldpc_pipeline(spec: SweepSpec, dev: torch.device) -> Pipeline:
     from ..encode.structured import build_encoder
 
     code = get_code(spec.code)
+    channel = build_channel(code, spec.channel)
     graph = choose_graph(code, spec.decoder)
     enc = build_encoder(code)
     dec = get_decoder(graph, spec.decoder, device=dev)
-    channel = build_channel(code, spec.channel)
-    B, k = spec.batch, code.k
 
-    def frames(gen, ebn0_db):
-        msg = torch.randint(0, 2, (B, k), generator=gen, device=dev,
-                            dtype=torch.uint8)
-        return msg, channel(gen, enc(msg), ebn0_db)
-
-    def step(gen, ebn0_db):
-        msg, llr = frames(gen, ebn0_db)
+    def decode(llr):
         res = dec(llr)
-        return tally(msg, enc.extract_message(res.bits), res.iterations)
+        return enc.extract_message(res.bits), res.iterations
 
-    return Pipeline(k=k, rate=code.rate, frames_fn=frames, step_fn=step,
-                    batch=B, device=dev)
+    return Pipeline(k=code.k, n=code.n, rate=code.rate, encode=enc,
+                    channel=channel, decode=decode, batch=spec.batch,
+                    device=dev)
 
 
 def _bpsk_pipeline(spec: SweepSpec, dev: torch.device) -> Pipeline:
@@ -217,18 +246,12 @@ def _bpsk_pipeline(spec: SweepSpec, dev: torch.device) -> Pipeline:
     identity = CodeSpec(name="uncoded", n=n, m=0, row_cols=(), k=n)
     channel = build_channel(identity, spec.channel)
 
-    def frames(gen, ebn0_db):
-        msg = torch.randint(0, 2, (B, n), generator=gen, device=dev,
-                            dtype=torch.uint8)
-        return msg, channel(gen, msg, ebn0_db)
+    def decode(llr):
+        return ((llr < 0).to(torch.uint8),
+                torch.zeros(llr.shape[0], dtype=torch.int32, device=dev))
 
-    def step(gen, ebn0_db):
-        msg, llr = frames(gen, ebn0_db)
-        hard = (llr < 0).to(torch.uint8)
-        return tally(msg, hard, torch.zeros(B, dtype=torch.int32, device=dev))
-
-    return Pipeline(k=n, rate=1.0, frames_fn=frames, step_fn=step, batch=B,
-                    device=dev)
+    return Pipeline(k=n, n=n, rate=1.0, encode=lambda msg: msg,
+                    channel=channel, decode=decode, batch=B, device=dev)
 
 
 def run_sweep(
@@ -277,6 +300,110 @@ def run_sweep(
         if progress:
             progress(pr)
         results.append(pr)
+    return results
+
+
+@contextlib.contextmanager
+def sharded_step(spec: SweepSpec, mesh):
+    """The step of the sharded sweep on this rank, within its Ring: yields
+    (pipeline, step), step(seed, ebn0_grid, step_index) -> int64 [n_points,
+    4] counters, the same on every rank (dist.montecarlo.make_sharded_step).
+    The reference's checks come first (runner.py:362-376): a ';retry='
+    decoder, a grid or batch that does not divide over the mesh raise
+    ValueError; a channel other than bpsk raises as build_channel does. On
+    a card with several ranks, rank 0 builds the kernels before the others
+    load them, so that one nvcc runs per source, not one per rank."""
+    from .. import _build
+    from ..dist.montecarlo import COUNTERS, make_sharded_step
+    from ..dist.ring import Ring
+
+    if ";retry=" in spec.decoder:
+        raise ValueError(
+            "';retry=' decoders are host-level and cannot run inside the "
+            "sharded step — sweep with the primary, re-decode failures "
+            "with run_sweep (its step supports retry), or offline"
+        )
+    if len(spec.ebn0_db) % mesh.snr:
+        raise ValueError(
+            f"{len(spec.ebn0_db)} grid points do not divide over "
+            f"snr={mesh.snr}")
+    if spec.batch % mesh.batch:
+        raise ValueError(f"batch {spec.batch} does not divide over "
+                         f"{mesh.batch}")
+    if mesh.device.type == "cuda" and mesh.group is not None:
+        if mesh.rank == 0:
+            _build.build_all()
+        torch.distributed.barrier(group=mesh.group)
+    pipeline = _ldpc_pipeline(spec, mesh.device)
+    nbytes = len(spec.ebn0_db) * len(COUNTERS) * 8
+    with Ring(mesh.group, mesh.device, nbytes) as ring:
+        yield pipeline, make_sharded_step(pipeline, mesh,
+                                          spec.batch // mesh.batch, ring=ring)
+
+
+def run_sweep_sharded(
+    spec: SweepSpec,
+    mesh,
+    *,
+    resume_path: Optional[str] = None,
+    progress: Optional[Callable[[PointResult], None]] = None,
+) -> list:
+    """The sharded sweep (port of ecc_ldpc_tpu/sim/runner.py:338-443): the
+    whole Eb/N0 grid advances together, codewords sharded over the mesh's
+    'batch' axis and grid points over its 'snr' axis (dist.Mesh, one per
+    rank), the counters summed over the ranks by the ring all-reduce (K5
+    on the card). Running "finished" points costs nothing extra (their
+    ranks would otherwise idle), so the loop continues until EVERY point
+    satisfies the stopping rule. Every rank returns the same results;
+    rank 0 writes the resume state.
+
+    Every frame's noise depends only on (seed, point, step, global frame
+    index) (dist/montecarlo.py), so the counters are identical on every
+    mesh shape with the same total batch."""
+    state = [_load_state(resume_path) if mesh.rank == 0 else None]
+    if mesh.group is not None:
+        torch.distributed.broadcast_object_list(state, src=0, group=mesh.group)
+    state = state[0]
+    with sharded_step(spec, mesh) as (pipeline, step):
+        results = [
+            PointResult(code=spec.code, decoder=spec.decoder,
+                        ebn0_db=float(e), channel=spec.channel,
+                        message_bits_per_frame=pipeline.k)
+            for e in spec.ebn0_db
+        ]
+        for pr, e in zip(results, spec.ebn0_db):
+            saved = state.get(spec.point_key(e))
+            if saved:
+                for f in _STATE_FIELDS:
+                    setattr(pr, f, saved.get(f, getattr(pr, f)))
+        step_idx = min(pr.steps for pr in results)
+        while not all(
+            spec.stopping.done(pr.frame_errors, pr.frames) for pr in results
+        ):
+            t0 = time.perf_counter()
+            counters = step(spec.seed, spec.ebn0_db, step_idx).tolist()
+            dt = time.perf_counter() - t0
+            for pr, (be, fe, it, be2) in zip(results, counters):
+                if pr.steps > step_idx:  # already counted (resume overlap)
+                    continue
+                pr.frames += spec.batch
+                pr.bit_errors += be
+                pr.frame_errors += fe
+                pr.iters_sum += it
+                pr.bit_errors_sq += float(be2)
+                pr.steps += 1
+                # every point advances concurrently on its own ranks, so the
+                # wall time THIS point experienced is the full step dt
+                pr.wall_s += dt
+            step_idx += 1
+            if resume_path and mesh.rank == 0:
+                for pr, e in zip(results, spec.ebn0_db):
+                    state[spec.point_key(e)] = {
+                        f: getattr(pr, f) for f in _STATE_FIELDS}
+                _save_state(resume_path, state)
+    if progress:
+        for pr in results:
+            progress(pr)
     return results
 
 

@@ -46,8 +46,12 @@ def test_compare_and_plot(results_file, capsys):
 
 
 def test_not_ported_yet_names_its_roadmap_step(tmp_path, capsys):
-    with pytest.raises(NotImplementedError, match="step 13"):
+    # --mesh is ported: one process is a 1x1 mesh, so 2x1 needs two ranks,
+    # and the sharded step refuses a ';retry=' decoder, as the reference does
+    with pytest.raises(ValueError, match="mesh 2x1"):
         main(SWEEP + ["--mesh", "2x1"])
+    with pytest.raises(ValueError, match="host-level"):
+        main(SWEEP + ["--mesh", "1x1"])
     for cmd in ("findsnr", "trap", "bench", "learn", "codes"):
         assert main([cmd, "--code", "dvbs2/64800/12"]) == 2
         assert "ROADMAP.md Queue 1 step" in capsys.readouterr().err

@@ -57,7 +57,8 @@ def test_port_imports_no_jax():
     for m in ("codes.alist", "codes.mackay", "encode.gf2", "encode.dense",
               "graph.compile", "decode.cn_ops", "decode.flooding",
               "decode.flooding_qc", "codes.ccsds", "codes.girth",
-              "codes.qc"):
+              "codes.qc", "dist", "dist.mesh", "dist.montecarlo",
+              "dist.ring", "bench.ring", "bench.sharded"):
         assert f"ecc_ldpc_tpu_torch.{m}" in mods, m
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -115,6 +116,7 @@ def test_build_paths():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.KERNEL_SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
+    assert "ring" in _build.KERNEL_SOURCES
 
 
 def test_spec_parsing_limits():
