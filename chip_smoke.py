@@ -13,7 +13,14 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      3/4 and 9/10 — row
      degrees 7-8, 14-15 and 30-31, one build of the kernel each — scalar
      and offset alpha/beta, the learned schedule, the stored trap batch,
-     and each main-path leg's shapes).
+     and each main-path leg's shapes), and the tile plans
+     (decode/layered_qc.tile_plan): the 32-frame cases take clusters of 4
+     (DSMEM), 13 frames the fallback's plan (one frame to a cluster of 8),
+     8023an at 601 frames a cluster of one with a ragged last tile, and
+     the leg shapes a cluster of one a frame with the lowest-degree
+     block-columns in the L2 scratch. Each case prints its plan and the
+     clusters resident (cudaOccupancyMaxActiveClusters); the cases must
+     include a plan with CS > 1 and one with CS = 1.
   4. main path — the three benchmark legs through bench.run_benchmark
      (headline dvbs2/64800/12 fixed-25 at batch 4096; rate 3/4; the
      production leg with early termination and the learned schedule),
@@ -26,9 +33,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      rate 1/2 fixed at 1.0 dB and track at 1.2 dB (32 frames, and 13
      for a ragged last tile), rate 3/4 fixed at 3.0 dB, rate 9/10 fixed
      at 4.0 dB and track at 3.8 dB (its 8-, 16- and 32-wide builds), the
-     stored trap batch with layered/spa/50, and each rule at the timed
-     shape (4096 frames). Bits, ok and iterations must be identical, and the
-     posteriors after one sweep within EXACT_MAX_ULPS.
+     stored trap batch with layered/spa/50, each rule at the timed
+     shape (4096 frames), and 8023an at 601 frames (CS = 1, ragged).
+     Bits, ok and iterations must be identical, and the posteriors after
+     one sweep within EXACT_MAX_ULPS; plans printed and gated as in 3.
   7. exact kernel timed — run_benchmark on dvbs2/64800/12 with
      layered/spa/25/noet and layered/minstar/25/noet at 4096 frames,
      1.5 dB: ms, launches, bound, plain ms, FER <= 0.01.
@@ -40,7 +48,7 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      kernel and its plain version with the primary layered/norm:0.8125/50
      (track mode); the rows it failed through the exact kernel and its
      plain version with the fallback layered/spa/50; criteria as in 3
-     and 6.
+     and 6, plans printed.
   10. production path — the CLI's sweep with the production retry decoder
      layered/norm:0.8125/50;retry=layered/spa/50 at 1.5 dB, 65536 frames
      in batches of 4096: FER <= 1.5e-4, the fallback fired, the exact
@@ -99,8 +107,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      csrc/layered_exact.cu against their plain versions on 8023an (Z = 64
      XOR-permutation blocks, row degree 32): each rule, layered and
      flooding, fixed at 3.6 dB and track at 3.4 dB (32 frames, and 13 for
-     a ragged last tile); layered min-sum also with offset:0.15 and the
-     per-iteration schedule dvbs2_64800_12_T25; the toy Z = 16 xor code
+     a ragged last tile); layered min-sum and spa also at 601 frames
+     (CS = 1, a ragged last tile of F); layered min-sum also with
+     offset:0.15 and the per-iteration schedule dvbs2_64800_12_T25; the
+     toy Z = 16 xor code
      (the 8-wide builds), min-sum layered and flooding, fixed and track;
      each XOR_LEGS shape (2048 frames). Bits, ok and iterations identical;
      posteriors after one sweep within EXACT_MAX_ULPS, and min-sum's final
@@ -226,6 +236,16 @@ PARITY_CASES = [
      "layered/norm:0.8125/offset:0.15/25/noet", 4.0),
     ("r910_track_3.8dB", "dvbs2/64800/910", "layered/norm:0.8125/25", 3.8),
 ]
+# K1a's tile plans (decode/layered_qc.tile_plan) at their own batch sizes:
+# (name, code, decoder spec, Eb/N0 dB, B). 13 frames is the fallback's
+# plan (one frame to a cluster of 8 blocks); 8023an at 601 frames takes
+# CS = 1 and ends in a ragged tile
+PLAN_CASES = [
+    ("r12_track_1.05dB_13frames", "dvbs2/64800/12", "layered/norm:0.8125/25",
+     1.05, 13),
+    ("8023an_track_3.4dB_601frames", "8023an", "layered/norm:0.8125/25",
+     3.4, 601),
+]
 # waterfall bands around the golden curve (0.79 at 0.95 dB, 0.0011 at 1.2)
 WATERFALL = [(0.95, ">=", 0.5), (1.2, "<=", 0.02)]
 WATERFALL_DECODER = "layered/norm:0.8125/25"
@@ -241,6 +261,8 @@ EXACT_CASES = [
     ("r34_fixed_3.0dB", "dvbs2/64800/34", "layered/{cn}/25/noet", 3.0, 32),
     ("r910_fixed_4.0dB", "dvbs2/64800/910", "layered/{cn}/25/noet", 4.0, 32),
     ("r910_track_3.8dB", "dvbs2/64800/910", "layered/{cn}/25", 3.8, 32),
+    ("8023an_track_3.4dB_601frames", "8023an", "layered/{cn}/25", 3.4,
+     601),
 ]
 # Posteriors after one fixed sweep may differ from the plain version's by
 # at most this many f32 ulps; bits, ok and iterations must be identical.
@@ -302,6 +324,8 @@ XOR_CASES = [
     ("track_3.4dB", "{r}/25", 3.4, 32),
     ("track_3.4dB_13frames", "{r}/25", 3.4, 13),
 ]
+# the xor tile kernels (K1a, K1c) at CS = 1 with a ragged last tile
+XOR_PLAN_CASES = [("track_3.4dB_601frames", "{r}/25", 3.4, 601)]
 XOR_MINSUM_CASES = [
     ("fixed_offset_3.6dB", "layered/norm:0.8125/offset:0.15/25/noet", 3.6),
     ("track_sched_3.4dB", "layered/sched:dvbs2_64800_12_T25", 3.4),
@@ -328,8 +352,14 @@ CLI_MESH = "2x2"
 CLI_MESH_FRAMES = 32768
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for a phase, with the script's elapsed seconds."""
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter()
+                                                - T_START, 1), **kw}),
+          flush=True)
 
 
 def smi_sample() -> str:
@@ -358,6 +388,20 @@ def same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
                        b.contiguous().view(torch.int32))
 
 
+def tile_line(wrapper, B: int) -> dict:
+    """The tile plan of a K1a or K1c wrapper's last launch (its cluster
+    size, frames a tile, tiles, and the clusters resident at most by
+    cudaOccupancyMaxActiveClusters), and whether the last tile is ragged."""
+    plan, resident = wrapper.last_plan
+    return dict(plan=dict(plan.as_dict(), resident=resident),
+                ragged=B % plan.frames != 0)
+
+
+def frozen(res, max_iters: int) -> int:
+    """Frames that stopped before max_iters (track mode's freeze)."""
+    return int((res.iterations < max_iters).sum().item())
+
+
 def compare(graph, llr, kw):
     """Kernel and plain version on the same LLRs; raises unless bits, ok,
     iterations and the final posteriors are identical. Returns (the
@@ -380,7 +424,9 @@ def compare(graph, llr, kw):
         raise AssertionError(f"kernel and plain version differ (max abs err {err})")
     return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=float(err),
                 frames=llr.shape[0], ok_frames=int(kern.ok.sum().item()),
-                mean_iters=kern.iterations.float().mean().item()), kern
+                mean_iters=kern.iterations.float().mean().item(),
+                frozen_frames=frozen(kern, dkw.get("max_iters", 25)),
+                **tile_line(layered_decode_cuda, llr.shape[0])), kern
 
 
 def _ordered(x: torch.Tensor) -> torch.Tensor:
@@ -395,13 +441,16 @@ def _first(x):
 
 
 def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw,
-                       final_exact: bool = False) -> dict:
+                       final_exact: bool = False, tiles=None) -> dict:
     """A kernel's with-posteriors wrapper and its plain version on the same
     LLRs with decoder arguments dkw: raises unless bits, ok and iterations
     are identical and, after one fixed iteration (a schedule's first
     alpha/beta), the posteriors are within EXACT_MAX_ULPS; with
-    final_exact (min-sum) also unless the final posteriors are identical."""
+    final_exact (min-sum) also unless the final posteriors are identical.
+    With `tiles` (K1a's or K1c's wrapper) the line carries the decode's
+    tile plan."""
     (kern, ktot), kern_ms = timed(kernel_fn, graph, llr, **dkw)
+    plan = {} if tiles is None else tile_line(tiles, llr.shape[0])
     (plain, ptot), plain_ms = timed(plain_fn, graph, llr, **dkw)
     same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
             and torch.equal(kern.iterations, plain.iterations))
@@ -426,7 +475,8 @@ def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw,
     return dict(kernel_ms=kern_ms, plain_ms=plain_ms, max_abs_err=max_abs,
                 one_sweep_max_ulps=ulps1, frames=llr.shape[0],
                 ok_frames=int(kern.ok.sum().item()),
-                mean_iters=kern.iterations.float().mean().item())
+                mean_iters=kern.iterations.float().mean().item(),
+                frozen_frames=frozen(kern, dkw.get("max_iters", 25)), **plan)
 
 
 def compare_exact(graph, llr, kw) -> dict:
@@ -434,7 +484,17 @@ def compare_exact(graph, llr, kw) -> dict:
     dkw = dict(max_iters=kw.get("max_iters", 25),
                early_term=kw.get("early_term", True), cn=kw["cn"])
     return compare_posteriors(exact_with_posteriors_cuda,
-                              plain_with_posteriors, graph, llr, dkw)
+                              plain_with_posteriors, graph, llr, dkw,
+                              tiles=layered_exact_cuda)
+
+
+def check_plans(kernel: str, lines) -> None:
+    """Raise unless a kernel's cases launched a plan with CS > 1 and one
+    with CS = 1."""
+    cs = {r["plan"]["cluster"] for r in lines}
+    if 1 not in cs or max(cs) <= 1:
+        raise AssertionError(f"{kernel}: cases launched cluster sizes {cs}, "
+                             f"not both 1 and > 1")
 
 
 def compare_classic(graph, llr, kw) -> dict:
@@ -645,7 +705,7 @@ def compare_xor(schedule: str, graph, llr, kw) -> dict:
            if k in kw}
     return compare_posteriors(minsum_with_posteriors_cuda,
                               plain_with_posteriors, graph, llr, dkw,
-                              final_exact=True)
+                              final_exact=True, tiles=layered_decode_cuda)
 
 
 def xor_toy(dev):
@@ -685,6 +745,9 @@ def xor_path(dev) -> list:
         if schedule == "layered":
             cases += [(f"minsum_{name}", spec_str, ebn0, 32)
                       for name, spec_str, ebn0 in XOR_MINSUM_CASES]
+            cases += [(f"{k}_{name}", spec_str.format(r=rules[k]), ebn0, B)
+                      for k in ("minsum", "spa")
+                      for name, spec_str, ebn0, B in XOR_PLAN_CASES]
         for name, spec_str, ebn0, B in cases:
             x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
             r = compare_xor(schedule, x.graph, x.llr, x.kw)
@@ -725,7 +788,7 @@ def xor_path(dev) -> list:
     timed_legs = {**XOR_LEGS,
                   "spa": dict(XOR_LEGS["layered"], decoder="layered/spa/25/noet")}
     kernel_of = {"layered": "layered", "flooding": "flooding", "spa": "exact"}
-    xor_bench, xor_launches = {}, {}
+    xor_bench, xor_launches, xor_plans = {}, {}, {}
     for leg, cfg in timed_legs.items():
         x = make_inputs(**cfg, device=dev, seed=0)
         if leg == "spa":
@@ -739,7 +802,10 @@ def xor_path(dev) -> list:
         smi_before = smi_sample()
         res = run_benchmark(**cfg, device=dev)
         xor_launches[leg] = dict(w.launches_by_perm)
+        xor_plans[leg] = (tile_line(w, res.batch)["plan"]
+                          if hasattr(w, "last_plan") else None)
         emit("xor_bench", leg=leg, code=res.code, decoder=res.decoder,
+             plan=xor_plans[leg],
              plain_ms=xor_parity[leg]["plain_ms"],
              launches_by_perm=xor_launches[leg],
              **bench_line(res, xor_launches[leg]["xor"], smi_before))
@@ -858,6 +924,8 @@ def xor_path(dev) -> list:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
+        if xor_plans[leg] is not None:  # the tile kernels, K1a and K1c
+            kernels[-1]["plan"] = xor_plans[leg]
     return kernels
 
 
@@ -1028,11 +1096,15 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     max_err = 0.0
-    for name, code, spec_str, ebn0 in PARITY_CASES:
-        x = make_inputs(code, spec_str, 32, ebn0, dev, seed=1)
+    k1a_lines = []
+    cases = [(name, code, spec_str, ebn0, 32)
+             for name, code, spec_str, ebn0 in PARITY_CASES] + PLAN_CASES
+    for name, code, spec_str, ebn0, B in cases:
+        x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
         r, _ = compare(x.graph, x.llr, x.kw)
         max_err = max(max_err, r["max_abs_err"])
-        emit("kernel_vs_plain", case=name, **r)
+        k1a_lines.append(r)
+        emit("kernel_vs_plain", case=name, code=code, **r)
     trap = np.load(TRAP_FILE)
     spec12 = get_code("dvbs2/64800/12")
     trap_spec = "layered/sched:dvbs2_64800_12_T25_op2"
@@ -1048,16 +1120,19 @@ def main() -> int:
         r, _ = compare(x.graph, x.llr, x.kw)
         leg_parity[leg] = r
         max_err = max(max_err, r["max_abs_err"])
+        k1a_lines.append(r)
         emit("kernel_vs_plain", case=f"{leg}_shape", **r)
         del x
+    check_plans("layered_qc", k1a_lines)
 
     # the main path: counts from these three legs only
     layered_decode_cuda.launches = 0
-    results = {}
+    results, leg_plans = {}, {}
     for leg, cfg in LEGS.items():
         before = layered_decode_cuda.launches
         smi_before = smi_sample()
         res = run_benchmark(**cfg, device=dev)
+        leg_plans[leg] = tile_line(layered_decode_cuda, res.batch)["plan"]
         fer = res.frame_errors / res.batch
         emit("main_path", leg=leg, smi_before=smi_before,
              smi_after=smi_sample(), mbps=res.throughput_mbps,
@@ -1068,6 +1143,7 @@ def main() -> int:
              bound_ms=res.bound_ms, bound_by=res.roofline_form,
              bound_mbps=res.roofline_mbps,
              launches=layered_decode_cuda.launches - before,
+             plan=leg_plans[leg],
              line=json.loads(res.json_line()))
         if not fer <= FER_MAX[leg]:
             raise AssertionError(f"{leg}: FER {fer} above {FER_MAX[leg]}")
@@ -1091,13 +1167,17 @@ def main() -> int:
 
     # 6. the exact-BP kernel against its plain version
     exact_err = {"spa": 0.0, "minstar": 0.0}
+    k1c_lines = []
     for cn in ("spa", "minstar"):
         for name, code, spec_str, ebn0, B in EXACT_CASES:
             spec_str = spec_str.format(cn=cn)
             x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
             r = compare_exact(x.graph, x.llr, x.kw)
             exact_err[cn] = max(exact_err[cn], r["max_abs_err"])
-            emit("exact_vs_plain", case=f"{cn}_{name}", decoder=spec_str, **r)
+            k1c_lines.append(r)
+            emit("exact_vs_plain", case=f"{cn}_{name}", code=code,
+                 decoder=spec_str, **r)
+    check_plans("layered_exact", k1c_lines)
     trap_spa = "layered/spa/50"
     r = compare_exact(choose_graph(spec12, trap_spa),
                       torch.as_tensor(trap["llr"], device=dev),
@@ -1114,12 +1194,13 @@ def main() -> int:
 
     # 7. the exact kernel timed at full width; each rule's count is read
     # around its own run
-    exact_bench, exact_bench_launches = {}, {}
+    exact_bench, exact_bench_launches, exact_plans = {}, {}, {}
     for cn in ("spa", "minstar"):
         layered_exact_cuda.launches = 0
         smi_before = smi_sample()
         res = run_benchmark(**EXACT_LEGS[cn], device=dev)
         exact_bench_launches[cn] = layered_exact_cuda.launches
+        exact_plans[cn] = tile_line(layered_exact_cuda, res.batch)["plan"]
         fer = res.frame_errors / res.batch
         emit("exact_bench", cn=cn, smi_before=smi_before,
              smi_after=smi_sample(), ms=res.wall_s_per_batch * 1e3,
@@ -1127,7 +1208,8 @@ def main() -> int:
              tries_ms=[t * 1e3 for t in res.tries_s],
              launches=exact_bench_launches[cn], bound_ms=res.bound_ms,
              bound_by=res.roofline_form,
-             plain_ms=exact_parity[cn]["plain_ms"], frame_errors=res.frame_errors,
+             plain_ms=exact_parity[cn]["plain_ms"], plan=exact_plans[cn],
+             frame_errors=res.frame_errors,
              frames=res.batch, fer=fer,
              codeword_frame_errors=res.codeword_frame_errors)
         if not fer <= EXACT_FER_MAX:
@@ -1393,6 +1475,7 @@ def main() -> int:
         "bound_ms": hl.bound_ms,
         "bound_by": hl.roofline_form,
         "library_ms": None,
+        "plan": leg_plans["headline"],
     }]
     for cn in ("spa", "minstar"):
         res = exact_bench[cn]
@@ -1411,6 +1494,7 @@ def main() -> int:
             "bound_ms": res.bound_ms,
             "bound_by": res.roofline_form,
             "library_ms": None,
+            "plan": exact_plans[cn],
         })
     # K2's minsum count is its leg's (the benchmark's mackay1008 path), spa's
     # the spa/50 golden sweep's, minstar's its own timed run's; K3's spa

@@ -7,17 +7,19 @@
 // (layered_exact_cuda); the plain PyTorch twin there (_cn_spa,
 // _cn_minstar) is the reference this kernel must match.
 //
-// Layout and launch are those of csrc/layered_qc.cu (K1a): frames in tiles
-// of FT = 8, each tile's state contiguous with frames innermost,
-//   posteriors total f32 [tiles, nb*Z, FT]
-//   messages   C     f32 [tiles, BE*Z, FT], one row per (sweep slot, check)
-// one block per tile, threads over (frame, z), the layers walked in
-// layer_order with one __syncthreads() per layer. Check z of slot (col, s)
-// reads variable qc::var_index<XOR>(z, s, Z) of block-column col: (z + s)
-// % Z on a circulant graph, z ^ s on an XOR graph (IEEE 802.3an, where the
-// JAX package serves these rules on its XLA tier). Exact BP sends a
-// different magnitude on every edge, so unlike K1a the check state is the
-// full message array.
+// Design: csrc/cluster_tile.cuh, shared with csrc/layered_qc.cu (K1a): a
+// tile of F frames keeps its f32 posteriors in the shared memory of a
+// thread-block cluster for the whole decode (decode/layered_qc.tile_plan
+// picks the cluster size CS and F), checks reach them through distributed
+// shared memory with one cluster barrier per layer, a persistent grid of
+// clusters takes tiles from an atomic counter, and LLRs, bits and
+// posteriors move straight between llr [B, n] and the tile. Check z of
+// slot (col, s) reads variable qc::var_index<XOR>(z, s, Z) of block-column
+// col: (z + s) % Z on a circulant graph, z ^ s on an XOR graph (IEEE
+// 802.3an, where the JAX package serves these rules on its XLA tier).
+// Exact BP sends a different magnitude on every edge, so unlike K1a the
+// check state is every message: f32, one word per edge, in HBM, prefetched
+// a layer ahead with cp.async (d words per check).
 //
 // Per check, the d rolled posteriors and d old messages go to registers:
 //   spa      pass 1: v = r - Cold; lt = logf(tanhf(clip(|v|, 1e-10, 40)/2));
@@ -48,20 +50,26 @@
 // the special-function rate (16 per clock per SM x 132 SMs x 1.98 GHz),
 // which outlasts the arithmetic at 67 TFLOP/s issued beside it: about
 // 28 ms (spa) and 48 ms (minstar) for 4096 frames x 25 iterations of
-// dvbs2/64800/12
-// (bench/throughput.decode_bound). This simple design moves 16 B per edge
-// visit through HBM instead (posterior and message, each read and
-// written), about 372 GB for that batch, so it is bound by memory traffic
-// (PERF.md has the timings). Keeping messages in 16 bits and a tile's
-// posteriors on chip is the way toward the bound, and work for a later
-// change.
+// dvbs2/64800/12 (bench/throughput.decode_bound). The earlier design moved
+// 16 B per edge visit through HBM (posterior and message, each read and
+// written), ~372 GB for that batch. Here the posteriors stay on chip (a
+// frame an SM, its lowest-traffic columns in L2) and the messages move
+// 8 B per edge visit (~186 GB, ~56 ms at 3.35 TB/s). Measured (PERF.md)
+// the time stays near the earlier design's for spa and falls ~27% for
+// minstar: each accurate transcendental is a sequence of tens of
+// instructions, five or more per edge visit, and 12 warps an SM issue
+// them with long dependent chains, so instruction issue and latency bound
+// it, not bytes. On the production fallback's ~13 frames the plan spreads
+// one frame over a cluster of 8 blocks, so ~100 SMs work where the
+// earlier design had 2.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "bp_rules.cuh"
-#include "qc_index.cuh"
+#include "cluster_tile.cuh"
+#include "qc_index.cuh"  // the XOR template parameter's permutation
 
 namespace {
 
@@ -71,270 +79,162 @@ using bp::kMagCap;
 using bp::kTanhClip;
 using bp::log_tanh_half;
 
-constexpr int FT = 8;
 constexpr unsigned kSign = 0x80000000u;
 enum Rule { kSpa = 0, kMinstar = 1 };
 
-struct Params {
-  float* total;          // [tiles, nb*Z, FT] in: channel LLRs; out: posteriors
-  float* C;              // [tiles, BE*Z, FT] scratch: check-to-variable messages
-  uint8_t* bits;         // [tiles, nb*Z, FT] out: hard decisions
-  uint8_t* ok;           // [B] out: final syndrome satisfied
-  int32_t* iters;        // [B] out: iterations used
-  const int32_t* tab;    // [mb+1 | BE | BE] layer_ptr, column, shift
-  int Z, mb, nb, BE, B, max_iters;
-};
+struct NoParams {};
 
-__device__ __forceinline__ size_t at(size_t row) {
-  return row * FT + threadIdx.x;
-}
+// Exact BP on one check; its state is its d f32 messages.
+template <int DEG, int RULE>
+struct Exact {
+  static constexpr int MAX_DEG = DEG;
 
-// Parity failure of the hard decisions (x < 0) over the checks this thread
-// owns (its frame, z = threadIdx.y + k * blockDim.y) in every layer.
-template <bool XOR>
-__device__ bool syndrome_fail_part(const Params& p, const float* tot,
-                                   const int* lptr, const int* scol,
-                                   const int* sshift) {
-  bool fail = false;
-  for (int L = 0; L < p.mb; ++L) {
-    const int s0 = lptr[L], s1 = lptr[L + 1];
-    for (int z = threadIdx.y; z < p.Z; z += blockDim.y) {
-      bool par = false;
-      for (int s = s0; s < s1; ++s) {
-        const int zz = qc::var_index<XOR>(z, sshift[s], p.Z);
-        par ^= (tot[at(scol[s] * p.Z + zz)] < 0.f);
-      }
-      fail |= par;
-    }
-  }
-  return fail;
-}
+  __device__ void begin(int) {}
 
-template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
-__global__ void __launch_bounds__(512)
-layered_exact_kernel(Params p) {
-  extern __shared__ int smem[];
-  int* lptr = smem;
-  int* scol = lptr + p.mb + 1;
-  int* sshift = scol + p.BE;
-  __shared__ int fail_s[FT];
-  __shared__ int done_s[FT];
-
-  const int nthreads = blockDim.x * blockDim.y;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int ntab = p.mb + 1 + 2 * p.BE;
-  for (int i = tid; i < ntab; i += nthreads) smem[i] = p.tab[i];
-
-  const int Z = p.Z;
-  const int tx = threadIdx.x;
-  const int b = blockIdx.x * FT + tx;
-  const bool live = b < p.B;
-  const size_t tile = blockIdx.x;
-  float* tot = p.total + tile * p.nb * Z * FT;
-  float* C = p.C + tile * (size_t)p.BE * Z * FT;
-
-  // zero the messages this thread owns in the sweep below
-  if (live)
-    for (int s = 0; s < p.BE; ++s)
-      for (int z = threadIdx.y; z < Z; z += blockDim.y)
-        C[at((size_t)s * Z + z)] = 0.f;
-  if (threadIdx.y == 0) fail_s[tx] = 0;
-  __syncthreads();
-
-  if constexpr (TRACK) {
-    // done_0: frames whose channel hard decisions already satisfy H
-    if (live && syndrome_fail_part<XOR>(p, tot, lptr, scol, sshift))
-      atomicOr(&fail_s[tx], 1);
-    __syncthreads();
-    if (threadIdx.y == 0) done_s[tx] = live ? !fail_s[tx] : 1;
-  }
-  int used = 0;  // iterations of frame b, kept by the threadIdx.y == 0 row
-
-  for (int t = 0; t < p.max_iters; ++t) {
-    if constexpr (TRACK) {
-      // the tile stops once every frame in it is done (per-frame results
-      // are those of a decode that ran all frames to the global stop)
-      if (__syncthreads_and(threadIdx.y == 0 ? done_s[tx] : 1)) break;
-      if (threadIdx.y == 0) fail_s[tx] = 0;
-    }
-    const bool active = live && (!TRACK || !done_s[tx]);
-    bool fail = false;   // some layer parity failed (track mode)
-    unsigned flip = 0;   // some posterior changed sign (track mode)
-
-    for (int L = 0; L < p.mb; ++L) {
-      const int s0 = lptr[L];
-      const int d = lptr[L + 1] - s0;
-      if (active) {
-        for (int z = threadIdx.y; z < Z; z += blockDim.y) {
-          float v[MAX_DEG];  // extrinsic inputs r - Cold
-          float w[MAX_DEG];  // spa: log|tanh(v/2)|; minstar: forward prefixes
-          unsigned rneg = 0;  // sign bits of the rolled posteriors
-          bool par = false;
-          float acc = 0.f;    // spa: running log|tanh| sum
-          unsigned sg = 0;    // spa: XOR of the extrinsic sign bits
-          // pass 1
+  __device__ void update(float (&r)[DEG], int d, const uint32_t* old,
+                         bool zero, uint32_t* out, int ws) const {
+    float w[DEG];     // spa: log|tanh(v/2)|; minstar: forward prefixes
+    float acc = 0.f;  // spa: running log|tanh| sum
+    unsigned sg = 0;  // spa: XOR of the extrinsic sign bits
+    // pass 1: v = r - Cold in place
 #pragma unroll
-          for (int j = 0; j < MAX_DEG; ++j) {
-            if (j < d) {
-              const int zz = qc::var_index<XOR>(z, sshift[s0 + j], Z);
-              const float r = tot[at(scol[s0 + j] * Z + zz)];
-              const float x = __fsub_rn(r, C[at((size_t)(s0 + j) * Z + z)]);
-              v[j] = x;
-              if constexpr (TRACK) {
-                par ^= (r < 0.f);
-                rneg |= (__float_as_uint(r) >> 31) << j;
-              }
-              if constexpr (RULE == kSpa) {
-                const float lt = log_tanh_half(x);
-                w[j] = lt;
-                acc = j == 0 ? lt : __fadd_rn(acc, lt);
-                sg ^= __float_as_uint(x);
-              } else {
-                // fwd[j] for j <= d-3 (fwd[d-2] is read as slot d-1's
-                // message; fwd[d-1] is never read)
-                if (j == 0) {
-                  w[0] = x;
-                } else if (j < d - 1) {
-                  w[j] = boxplus(w[j - 1], x);
-                }
-              }
-            }
-          }
-          if constexpr (TRACK) fail |= par;
-          // pass 2: messages out, posteriors written back as v + Cnew
-          // (spa forward, minstar backward with its running suffix)
-          float bwd = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < MAX_DEG; ++jj) {
-            const int j = RULE == kSpa ? jj : MAX_DEG - 1 - jj;
-            if (j < d) {
-              float cn;
-              if constexpr (RULE == kSpa) {
-                const float tt = fminf(expf(__fsub_rn(acc, w[j])), kTanhClip);
-                const float mag = __fsub_rn(log1pf(tt), log1pf(-tt));
-                const unsigned neg = (sg ^ __float_as_uint(v[j])) & kSign;
-                cn = __uint_as_float(__float_as_uint(mag) | neg);
-              } else {
-                float out;
-                if (d == 1) {
-                  out = kIdentity;
-                } else if (j == d - 1) {
-                  out = j >= 1 ? w[j - 1] : 0.f;  // fwd[d-2]
-                } else if (j == 0) {
-                  out = bwd;
-                } else {
-                  out = boxplus(j >= 1 ? w[j - 1] : 0.f, bwd);
-                }
-                cn = fminf(fmaxf(out, -kMagCap), kMagCap);
-                if (j == d - 1) {
-                  bwd = v[j];
-                } else if (j > 0) {
-                  bwd = boxplus(bwd, v[j]);
-                }
-              }
-              const float nw = __fadd_rn(v[j], cn);
-              if constexpr (TRACK)
-                flip |= (__float_as_uint(nw) >> 31) ^ ((rneg >> j) & 1u);
-              const int zz = qc::var_index<XOR>(z, sshift[s0 + j], Z);
-              tot[at(scol[s0 + j] * Z + zz)] = nw;
-              C[at((size_t)(s0 + j) * Z + z)] = cn;
-            }
+    for (int j = 0; j < DEG; ++j) {
+      if (j < d) {
+        const float cold = zero ? 0.f : __uint_as_float(old[j * ws]);
+        const float x = __fsub_rn(r[j], cold);
+        r[j] = x;
+        if constexpr (RULE == kSpa) {
+          const float lt = log_tanh_half(x);
+          w[j] = lt;
+          acc = j == 0 ? lt : __fadd_rn(acc, lt);
+          sg ^= __float_as_uint(x);
+        } else {
+          // fwd[j] for j <= d-3 (fwd[d-2] is read as slot d-1's message;
+          // fwd[d-1] is never read)
+          if (j == 0) {
+            w[0] = x;
+          } else if (j < d - 1) {
+            w[j] = boxplus(w[j - 1], x);
           }
         }
       }
-      __syncthreads();
     }
-    if constexpr (TRACK) {
-      if (active && (fail || flip)) atomicOr(&fail_s[tx], 1);
-      __syncthreads();
-      if (threadIdx.y == 0 && active) {
-        ++used;
-        if (!fail_s[tx]) done_s[tx] = 1;
+    // pass 2: messages out, posteriors as v + Cnew (spa forward, minstar
+    // backward with its running suffix)
+    float bwd = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < DEG; ++jj) {
+      const int j = RULE == kSpa ? jj : DEG - 1 - jj;
+      if (j < d) {
+        float cn;
+        if constexpr (RULE == kSpa) {
+          const float tt = fminf(expf(__fsub_rn(acc, w[j])), kTanhClip);
+          const float mag = __fsub_rn(log1pf(tt), log1pf(-tt));
+          const unsigned neg = (sg ^ __float_as_uint(r[j])) & kSign;
+          cn = __uint_as_float(__float_as_uint(mag) | neg);
+        } else {
+          float o;
+          if (d == 1) {
+            o = kIdentity;
+          } else if (j == d - 1) {
+            o = j >= 1 ? w[j - 1] : 0.f;  // fwd[d-2]
+          } else if (j == 0) {
+            o = bwd;
+          } else {
+            o = boxplus(j >= 1 ? w[j - 1] : 0.f, bwd);
+          }
+          cn = fminf(fmaxf(o, -kMagCap), kMagCap);
+          if (j == d - 1) {
+            bwd = r[j];
+          } else if (j > 0) {
+            bwd = boxplus(bwd, r[j]);
+          }
+        }
+        out[j * ws] = __float_as_uint(cn);
+        r[j] = __fadd_rn(r[j], cn);
       }
     }
   }
+};
 
-  // truthful ok: one final syndrome over the emitted hard decisions
-  if (threadIdx.y == 0) fail_s[tx] = 0;
-  __syncthreads();
-  if (live) {
-    if (syndrome_fail_part<XOR>(p, tot, lptr, scol, sshift))
-      atomicOr(&fail_s[tx], 1);
-    uint8_t* bits = p.bits + tile * p.nb * Z * FT;
-    for (int i = threadIdx.y; i < p.nb * Z; i += blockDim.y)
-      bits[at(i)] = tot[at(i)] < 0.f ? 1 : 0;
-  }
-  __syncthreads();
-  if (threadIdx.y == 0 && live) {
-    p.ok[b] = fail_s[tx] ? 0 : 1;
-    p.iters[b] = TRACK ? used : p.max_iters;
-  }
+template <int DEG, int RULE, bool TRACK, bool XOR>
+__global__ void __launch_bounds__(512, 1)
+layered_exact_kernel(ct::Args a, NoParams) {
+  Exact<DEG, RULE> rule;
+  ct::decode_tiles<TRACK, XOR>(a, rule);
 }
 
-template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
-cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
-                   cudaStream_t stream) {
-  auto kern = layered_exact_kernel<MAX_DEG, RULE, TRACK, XOR>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<grid, block, smem, stream>>>(p);
-  return cudaGetLastError();
-}
+using Kern = void (*)(ct::Args, NoParams);
 
-template <int MAX_DEG, bool XOR>
-cudaError_t launch_rule(const Params& p, int minstar, int track, dim3 grid,
-                        dim3 block, size_t smem, cudaStream_t st) {
-  if (minstar) {
-    if (track) return launch<MAX_DEG, kMinstar, true, XOR>(p, grid, block, smem, st);
-    return launch<MAX_DEG, kMinstar, false, XOR>(p, grid, block, smem, st);
-  }
-  if (track) return launch<MAX_DEG, kSpa, true, XOR>(p, grid, block, smem, st);
-  return launch<MAX_DEG, kSpa, false, XOR>(p, grid, block, smem, st);
+template <int DEG, bool XOR>
+Kern pick_rule(int minstar, int track) {
+  if (minstar)
+    return track ? layered_exact_kernel<DEG, kMinstar, true, XOR>
+                 : layered_exact_kernel<DEG, kMinstar, false, XOR>;
+  return track ? layered_exact_kernel<DEG, kSpa, true, XOR>
+               : layered_exact_kernel<DEG, kSpa, false, XOR>;
 }
 
 template <bool XOR>
-cudaError_t launch_width(const Params& p, int dcb_max, int minstar, int track,
-                         dim3 grid, dim3 block, size_t smem, cudaStream_t st) {
-  if (dcb_max <= 8) return launch_rule<8, XOR>(p, minstar, track, grid, block, smem, st);
-  if (dcb_max <= 16) return launch_rule<16, XOR>(p, minstar, track, grid, block, smem, st);
-  return launch_rule<32, XOR>(p, minstar, track, grid, block, smem, st);
+Kern pick_width(int dcb_max, int minstar, int track) {
+  if (dcb_max <= 8) return pick_rule<8, XOR>(minstar, track);
+  if (dcb_max <= 16) return pick_rule<16, XOR>(minstar, track);
+  return pick_rule<32, XOR>(minstar, track);
+}
+
+Kern pick(int dcb_max, int minstar, int track, int xor_perm) {
+  return xor_perm ? pick_width<true>(dcb_max, minstar, track)
+                  : pick_width<false>(dcb_max, minstar, track);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decodes B frames in ceil(B / FT) tiles of FT = 8 frames (the arrays hold
-// whole tiles; lanes past B are left alone) with the spa (minstar = 0) or
-// minstar (minstar = 1) rule on a circulant (xor_perm = 0) or an
-// XOR-permutation graph (xor_perm = 1); returns a cudaError_t (0 on a
-// successful launch). dcb_max must be <= 32 and 8 * threads_z <= 512; the
-// wrapper checks both.
-int layered_exact_decode(void* total, void* C, void* bits, void* ok,
-                         void* iters, void* tab, int Z, int mb, int nb, int BE,
-                         int B, int max_iters, int dcb_max, int minstar,
-                         int track, int threads_z, int xor_perm, void* stream) {
-  if (threads_z < 1 || FT * threads_z > 512 || dcb_max > 32 || B < 1)
+// The number of clusters of `cs` blocks of `threads` threads and `smem`
+// bytes of dynamic shared memory that can be resident at once, for the
+// kernel instance the other arguments pick (0: the plan does not fit).
+int layered_exact_clusters(int dcb_max, int minstar, int track, int xor_perm,
+                           int cs, int threads, int smem, void* out) {
+  if (dcb_max > 32 || dcb_max < 1) return (int)cudaErrorInvalidValue;
+  return (int)ct::max_clusters(pick(dcb_max, minstar, track, xor_perm), cs,
+                               threads, (size_t)smem, static_cast<int*>(out));
+}
+
+// Decodes llr [B, n] with the spa (minstar = 0) or minstar (minstar = 1)
+// rule on a circulant (xor_perm = 0) or an XOR-permutation graph
+// (xor_perm = 1) by the tile plan (cs, F, tiles, stride, threads, smem;
+// decode/layered_qc.tile_plan) on `clusters` resident clusters; state holds
+// clusters * cs * mb * stride words, spill clusters * (nb - nchip) * Z * F
+// floats, home the plan's column homes, counter one int (the launch zeroes it). post may
+// be null. Returns a cudaError_t (0 on a successful launch).
+int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
+                         void* iters, void* state, void* spill, void* home,
+                         void* counter, void* tab,
+                         int Z, int mb, int nb, int BE, int B, int max_iters,
+                         int dcb_max, int minstar, int track, int xor_perm,
+                         int cs, int lg_cs, int F, int tiles, int stride,
+                         int nchip, int threads, int smem, int clusters,
+                         void* stream) {
+  if (dcb_max > 32 || dcb_max < 1 || B < 1 || max_iters < 1)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.total = static_cast<float*>(total);
-  p.C = static_cast<float*>(C);
-  p.bits = static_cast<uint8_t*>(bits);
-  p.ok = static_cast<uint8_t*>(ok);
-  p.iters = static_cast<int32_t*>(iters);
-  p.tab = static_cast<const int32_t*>(tab);
-  p.Z = Z; p.mb = mb; p.nb = nb; p.BE = BE; p.B = B;
-  p.max_iters = max_iters;
-  const dim3 block(FT, threads_z);
-  const dim3 grid((B + FT - 1) / FT);
-  const size_t smem = sizeof(int) * (size_t)(mb + 1 + 2 * BE);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xor_perm)
-    return (int)launch_width<true>(p, dcb_max, minstar, track, grid, block, smem, st);
-  return (int)launch_width<false>(p, dcb_max, minstar, track, grid, block, smem, st);
+  ct::Args a;
+  a.llr = static_cast<const float*>(llr);
+  a.bits = static_cast<uint8_t*>(bits);
+  a.post = static_cast<float*>(post);
+  a.ok = static_cast<uint8_t*>(ok);
+  a.iters = static_cast<int32_t*>(iters);
+  a.state = static_cast<uint32_t*>(state);
+  a.spill = static_cast<float*>(spill);
+  a.home = static_cast<const int32_t*>(home);
+  a.counter = static_cast<int*>(counter);
+  a.tab = static_cast<const int32_t*>(tab);
+  a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
+  a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
+  a.tiles = tiles; a.stride = stride; a.nchip = nchip;
+  return (int)ct::launch(pick(dcb_max, minstar, track, xor_perm), a,
+                         NoParams{}, clusters, threads, (size_t)smem,
+                         static_cast<cudaStream_t>(stream));
 }
 
 const char* layered_exact_error_string(int err) {

@@ -27,7 +27,10 @@ that replace ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel's
 `sweep_exact_classic`; on XOR graphs the min-sum kernel replaces
 ecc_ldpc_tpu/decode/pallas/layered_xor.py::_kernel's layered `sweep` (K4),
 scalar or per-iteration alpha/beta. `make_layered_decoder` picks one by
-graph and rule.
+graph and rule. The min-sum and exact-BP kernels hold a tile of frames'
+posteriors on chip (csrc/cluster_tile.cuh) by the plan `tile_plan`
+gives, and read llr [B, n] directly; the classic kernel and the flooding
+kernels take frames in tiles of 8 (`_to_tiles`).
 Min-sum is bit-identical with the plain version in f32 (same operations in
 the same order, no fused multiply-add, no reduction across frames); the
 exact rules are too wherever the card's expf, logf, tanhf and log1pf are
@@ -39,6 +42,8 @@ layer_edges order, as the JAX package does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -53,8 +58,21 @@ _MINSTAR_IDENTITY = 1e9      # box-plus identity: a degree-1 row's message
 _SIGN = -(1 << 31)           # the f32 sign bit as an int32
 CN_RULES = ("minsum", "spa", "minstar")
 MAX_DEG = 32    # the kernels' largest row degree (csrc/*.cu)
-_FT = 8         # frames per CUDA block, the kernels' FT
+_FT = 8         # frames per CUDA block of the classic and flooding kernels
 _THREADS = 512  # threads per CUDA block at most (__launch_bounds__)
+# csrc/cluster_tile.cuh: shared memory a block may use on an H100, the
+# kernels' static shared arrays (rounded up), frames per tile at most; the
+# posteriors of block-columns a cluster of one cannot hold on chip that may
+# be in flight in the L2 scratch (of its 50 MB, beside the check state)
+_SMEM_BLOCK = 232_448
+_SMEM_STATIC = 2304
+_MAX_FRAMES = 64
+SPILL_BUDGET = 24 << 20
+# track mode: tiles for at least this many waves, where the batch allows,
+# so clusters whose frames stop early take more tiles from the counter
+TRACK_WAVES = 4
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+H100_SMS = 132
 
 
 def _schedule(alpha, beta, max_iters: int, cn: str = "minsum"):
@@ -338,6 +356,165 @@ def threads_z(Z: int) -> int:
     return best if 2 * best > cap else cap
 
 
+def _round4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the min-sum and exact-BP kernels (csrc/cluster_tile.cuh) cut a
+    batch: tiles of `frames` frames, each held for the whole decode by a
+    cluster of `cluster` blocks. Rank r of a cluster owns rows z = r (mod
+    cluster) of every block-column (`rows` of each) and the checks of the
+    same rows. `chip` block-columns live in the ranks' shared memory, the
+    rest (a cluster of one only) in the tile's L2 scratch, as `home` says
+    (column_homes); `slot` is the index map."""
+
+    cluster: int    # CS: blocks per cluster, a power of two dividing Z
+    frames: int     # F: frames per tile
+    rows: int       # R = Z / CS: rows of every block-column a rank owns
+    tiles: int      # ceil(B / F)
+    stride: int     # words of one layer's check-state slab per rank
+    threads: int    # threads per block
+    smem: int       # dynamic shared bytes per block
+    clusters: int   # clusters the plan expects resident (sms // CS)
+    chip: int       # block-columns held in shared memory
+    home: tuple = dataclasses.field(repr=False)  # [nb] column -> k or -1-j
+
+    @property
+    def lg_cluster(self) -> int:
+        return self.cluster.bit_length() - 1
+
+    @property
+    def spill(self) -> int:
+        """Block-columns in the L2 scratch."""
+        return len(self.home) - self.chip
+
+    def slot(self, col, z, f):
+        """(rank, f32 word in that rank's posterior buffer) of row z of
+        block-column col, frame f of the tile; rank -1 for the tile's L2
+        scratch, [spill, Z, F] (numpy arrays welcome)."""
+        h = np.asarray(self.home)[col]
+        Z = self.rows * self.cluster
+        on = h >= 0
+        rank = np.where(on, z % self.cluster, -1)
+        word = np.where(on, (h * self.rows + z // self.cluster) * self.frames,
+                        ((-1 - h) * Z + z) * self.frames) + f
+        return rank, word
+
+    def as_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        del d["home"]
+        return dict(d, spill=self.spill)
+
+
+def column_homes(graph: QCGraph, chip: int) -> tuple:
+    """[nb]: the on-chip slot k of each block-column, or -1 - j for the
+    j-th one left in the L2 scratch. A layer step waits for its slowest
+    check, so a layer that reads a spilled column pays the L2 latency: the
+    nb - chip spilled columns are picked one at a time, each the one that
+    brings the fewest new layers into that set, then the lowest degree,
+    then the lowest index (on a DVB-S2 table, a run of adjacent degree-2
+    parity columns)."""
+    layers = [set() for _ in range(graph.nb)]
+    for r, c in zip(graph.be_row, graph.be_col):
+        layers[c].add(int(r))
+    spilled, tainted = [], set()
+    left = set(range(graph.nb))
+    for _ in range(graph.nb - chip):
+        c = min(left, key=lambda c: (len(layers[c] - tainted),
+                                     len(layers[c]), c))
+        spilled.append(c)
+        tainted |= layers[c]
+        left.remove(c)
+    home = [0] * graph.nb
+    for k, c in enumerate(sorted(left)):
+        home[c] = k
+    for j, c in enumerate(spilled):
+        home[c] = -1 - j
+    return tuple(home)
+
+
+def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
+                    sms: int = H100_SMS, track: bool = False) -> list:
+    """[(waves, SMs busy, TilePlan)] for each cluster size that fits
+    `batch` frames of `graph` on a card of `sms` SMs, for the min-sum
+    (cn="minsum") or exact-BP kernel. Per block: the posteriors held on
+    chip (F x R f32 a block-column), two layers of check state (NW = 3-4
+    words a check for min-sum, d for exact BP) and the tables fit
+    _SMEM_BLOCK. A cluster of several blocks holds every block-column; a
+    cluster of one whose single frame does not fit leaves some in the L2
+    scratch (column_homes), up to SPILL_BUDGET bytes in flight. The waves
+    of tiles at sms // CS clusters resident are the fewest the largest F
+    that fits allows (in track mode, where a tile runs until its slowest
+    frame stops, at least TRACK_WAVES where the batch allows), and F the
+    smallest that fills them, so a small batch spreads over the card and
+    waves end even."""
+    if batch < 1:
+        raise ValueError(f"batch must be >= 1, got {batch}")
+    if graph.mb < 2:
+        raise ValueError(f"{graph.name}: the tile kernels need >= 2 layers")
+    Z, nb = graph.Z, graph.nb
+    words = ((3 if graph.dcb_max <= 16 else 4) if cn == "minsum"
+             else graph.dcb_max)
+    tab = (12 * graph.num_block_edges + 4 * (graph.mb + 1) + 4 * nb)
+    plans = []
+    for cs in CLUSTER_SIZES:
+        clusters = sms // cs
+        if Z % cs or clusters < 1:
+            continue
+        R = Z // cs
+
+        def fit(F):
+            """(block-columns on chip, dynamic shared bytes), or None."""
+            rest = 8 * _round4(words * R * F) + tab
+            room = _SMEM_BLOCK - _SMEM_STATIC - rest
+            if room < 0:
+                return None
+            chip = min(nb, room // (4 * R * F))
+            while chip and 4 * _round4(chip * R * F) > room:
+                chip -= 1
+            spilled = (nb - chip) * Z * F * 4 * clusters
+            if chip < nb and (cs > 1 or F > 1 or spilled > SPILL_BUDGET):
+                return None
+            return chip, 4 * _round4(chip * R * F) + rest
+
+        fits = [F for F in range(1, _MAX_FRAMES + 1) if fit(F)]
+        if not fits:
+            continue
+        waves = -(-batch // (clusters * max(fits)))
+        if track:
+            waves = max(waves, min(TRACK_WAVES, -(-batch // clusters)))
+        F = -(-batch // (clusters * waves))
+        chip, smem = fit(F)
+        tiles = -(-batch // F)
+        threads = min(_THREADS, max(32, -(-R * F // 32) * 32))
+        plans.append((-(-tiles // clusters), min(tiles, clusters) * cs,
+                      TilePlan(cs, F, R, tiles, _round4(words * R * F),
+                               threads, smem, clusters, chip,
+                               column_homes(graph, chip))))
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(graph: QCGraph, batch: int, cn: str = "minsum",
+              sms: int = H100_SMS, track: bool = False) -> TilePlan:
+    """The tile plan of the min-sum or exact-BP kernel: of
+    candidate_plans, the smallest cluster among those with the fewest
+    waves that keep at least 90% as many SMs busy as the busiest of them.
+    Raises ValueError when no plan fits. Cached: the wrappers ask for it
+    on every launch, and working it out takes milliseconds of host time."""
+    plans = candidate_plans(graph, batch, cn, sms, track)
+    if not plans:
+        raise ValueError(
+            f"{graph.name}: no tile plan fits: {graph.n} posteriors a frame "
+            f"on at most {max(c for c in CLUSTER_SIZES if graph.Z % c == 0)}"
+            f" blocks of {_SMEM_BLOCK} B")
+    waves = min(w for w, _, _ in plans)
+    busy = max(u for w, u, _ in plans if w == waves)
+    return next(p for w, u, p in plans if w == waves and 10 * u >= 9 * busy)
+
+
 def _lib(name: str, entry: str, argtypes):
     """The built library for csrc/<name>.cu with `entry`'s signature set."""
     from .. import _build
@@ -353,11 +530,68 @@ def _lib(name: str, entry: str, argtypes):
     return lib
 
 
-_QC_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_EXACT_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_QC_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+_EXACT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+_CLUSTERS_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_RESIDENT = {}  # (library, kernel instance, plan shape, card) -> clusters
+_SMS = {}       # card -> its SM count
+
+
+def resident_clusters(name: str, inst: tuple, plan: TilePlan,
+                      device: torch.device) -> int:
+    """cudaOccupancyMaxActiveClusters for the kernel instance `inst` of
+    csrc/<name>.cu launched by `plan` on `device` (queried once). Raises
+    when no cluster of the plan fits."""
+    key = (name, inst, plan.cluster, plan.threads, plan.smem, str(device))
+    if key not in _RESIDENT:
+        lib = _lib(name, f"{name}_clusters", _CLUSTERS_ARGS)
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = getattr(lib, f"{name}_clusters")(
+                *inst, plan.cluster, plan.threads, plan.smem,
+                ctypes.addressof(out))
+        if rc != 0:
+            _raise_launch(lib, name, rc)
+        if out.value < 1:
+            raise ValueError(f"{name}: no cluster of the plan {plan} fits "
+                             f"the card")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
+def _plan_launch(name: str, inst: tuple, graph: QCGraph, llr: torch.Tensor,
+                 cn: str, track: bool, with_posteriors: bool):
+    """(plan, resident clusters, the addresses of the check state, the L2
+    scratch, the column homes and the tile counter, then bits, posteriors
+    or None, ok, iters) of one tile-kernel launch. The three scratch
+    buffers are one allocation: the host work before a launch is time the
+    card waits."""
+    dev, B, n = llr.device, llr.shape[0], graph.n
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = tile_plan(graph, B, cn, _SMS[dev], track)
+    clusters = min(plan.tiles, resident_clusters(name, inst, plan, dev))
+    words = clusters * plan.cluster * graph.mb * plan.stride  # a multiple of 4
+    spilled = clusters * plan.spill * graph.Z * plan.frames
+    scratch = torch.empty(words + spilled + 1, dtype=torch.int32, device=dev)
+    at = scratch.data_ptr()
+    home = _device_tables(graph, dev, ("home", plan.home),
+                          lambda g, d: torch.as_tensor(
+                              plan.home, dtype=torch.int32, device=d))
+    bits = torch.empty((B, n), dtype=torch.uint8, device=dev)
+    post = (torch.empty((B, n), dtype=torch.float32, device=dev)
+            if with_posteriors else None)
+    ok = torch.empty(B, dtype=torch.uint8, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    ptrs = (at, at + 4 * words, home.data_ptr(), at + 4 * (words + spilled))
+    return plan, clusters, scratch, ptrs, bits, post, ok, iters
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_llr(llr: torch.Tensor, n: int, max_iters: int, who: str,
@@ -416,50 +650,64 @@ def _raise_launch(lib, name: str, rc: int) -> None:
     raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} ({err})")
 
 
+def _minsum_args(graph: QCGraph, alpha, beta, max_iters: int,
+                 early_term: bool, dev):
+    """(alpha_t/beta_t table [2, T] on dev or None, alpha, beta, fast_mag)
+    of the min-sum kernel; kept per graph for scalar alpha and beta, the
+    host work before a launch being time the card waits."""
+    scalar = np.ndim(alpha) == 0 and np.ndim(beta) == 0
+    key = (("minsum", float(alpha), float(beta), max_iters, early_term),
+           str(dev)) if scalar else None
+    if key in graph.device_cache:
+        return graph.device_cache[key]
+    alphas, betas, per_iter = _schedule(alpha, beta, max_iters, "minsum")
+    # beta == 0 and alpha >= 0, no schedule, every row degree >= 2
+    fast_mag = not per_iter and float(betas[0]) == 0.0 and not early_term \
+        and min(d for d, _ in graph.layer_groups) >= 2 \
+        and float(alphas[0]) >= 0.0
+    ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
+          if per_iter else None)
+    out = ab, float(alphas[0]), float(betas[0]), fast_mag
+    if scalar:
+        graph.device_cache[key] = out
+    return out
+
+
 def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
-                   max_iters: int, early_term: bool, cn: str):
-    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
+                   max_iters: int, early_term: bool, cn: str,
+                   with_posteriors: bool = False):
+    """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     layered min-sum kernel on the current stream."""
     if cn != "minsum":
         raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
                          f"spa and minstar are layered_exact_cuda's")
-    alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
     _check_cuda_input(graph, llr, max_iters, "layered_decode_cuda")
-    dev = llr.device
-    B, Z, n = llr.shape[0], graph.Z, graph.n
-    tiles = -(-B // _FT)
-    min_deg = min(d for d, _ in graph.layer_groups)
-    fast_mag = not per_iter and float(betas[0]) == 0.0 and not early_term \
-        and min_deg >= 2 and float(alphas[0]) >= 0.0
+    dev, B, Z = llr.device, llr.shape[0], graph.Z
+    ab, a0, b0, fast_mag = _minsum_args(graph, alpha, beta, max_iters,
+                                        early_term, dev)
     tab = _device_tables(graph, dev, "kernel", _kernel_table)
-    ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
-          if per_iter else None)
-    total = _to_tiles(llr)  # in: LLRs; out: posteriors
-    # per check: mag1, mag2, sign bits, min slot (csrc/layered_qc.cu)
-    cs = torch.empty((tiles, graph.m * 4, _FT), dtype=torch.int32,
-                     device=dev)
-    bits = torch.empty((tiles, n, _FT), dtype=torch.uint8, device=dev)
-    ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    inst = (graph.dcb_max, int(early_term), int(fast_mag),
+            int(graph.perm == "xor"))
+    plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
+        "layered_qc", inst, graph, llr, cn, early_term, with_posteriors)
     lib = _lib("layered_qc", "layered_qc_decode", _QC_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_qc_decode(
-            total.data_ptr(), cs.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-            iters.data_ptr(), tab.data_ptr(),
-            None if ab is None else ab.data_ptr(),
+            llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
+            iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(ab),
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
-            graph.dcb_max, float(alphas[0]), float(betas[0]),
-            int(early_term), int(fast_mag), threads_z(Z),
-            int(graph.perm == "xor"),
+            graph.dcb_max, a0, b0,
+            *inst[1:], plan.cluster, plan.lg_cluster, plan.frames,
+            plan.tiles, plan.stride, plan.chip, plan.threads, plan.smem,
+            clusters,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         _raise_launch(lib, "layered_qc", rc)
     layered_decode_cuda.launches += 1
     layered_decode_cuda.launches_by_perm[graph.perm] += 1
-    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
-                       iterations=iters)
-    return res, total
+    layered_decode_cuda.last_plan = plan, clusters
+    return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
@@ -480,18 +728,19 @@ def minsum_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                 early_term: bool = True, cn: str = "minsum"):
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the layered
     min-sum kernel, for holding it against plain_with_posteriors."""
-    res, total = _launch_minsum(graph, llr, alpha, beta, max_iters,
-                                early_term, cn)
-    return res, _from_tiles(total, llr.shape[0])
+    return _launch_minsum(graph, llr, alpha, beta, max_iters, early_term, cn,
+                          with_posteriors=True)
 
 
 layered_decode_cuda.launches = 0
 # per block permutation: the roll and xor instantiations are kernels apart
 layered_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
+# the last launch's (TilePlan, clusters resident), for printing
+layered_decode_cuda.last_plan = None
 
 
 def _message_buffers(graph: QCGraph, llr: torch.Tensor):
-    """Tile buffers of the kernels that keep every message:
+    """Tile buffers of the classic kernel, which keeps every message:
     (slot table, total, C, bits, ok, iters); total holds the LLRs in and
     the posteriors out, C one row per sweep slot and check."""
     dev = llr.device
@@ -506,22 +755,26 @@ def _message_buffers(graph: QCGraph, llr: torch.Tensor):
 
 
 def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
-                  early_term: bool, cn: str):
-    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
+                  early_term: bool, cn: str, with_posteriors: bool = False):
+    """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     exact-BP layered kernel on the current stream."""
     if cn not in ("spa", "minstar"):
         raise ValueError(f"the exact-BP kernel runs spa or minstar, not {cn!r}")
     _check_cuda_input(graph, llr, max_iters, "layered_exact_cuda")
     dev, B, Z = llr.device, llr.shape[0], graph.Z
-    tab, total, C, bits, ok, iters = _message_buffers(graph, llr)
+    tab = _device_tables(graph, dev, "kernel", _kernel_table)
+    inst = (graph.dcb_max, int(cn == "minstar"), int(early_term),
+            int(graph.perm == "xor"))
+    plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
+        "layered_exact", inst, graph, llr, cn, early_term, with_posteriors)
     lib = _lib("layered_exact", "layered_exact_decode", _EXACT_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_exact_decode(
-            total.data_ptr(), C.data_ptr(), bits.data_ptr(), ok.data_ptr(),
-            iters.data_ptr(), tab.data_ptr(),
+            llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
+            iters.data_ptr(), *ptrs, tab.data_ptr(),
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
-            graph.dcb_max, int(cn == "minstar"), int(early_term),
-            threads_z(Z), int(graph.perm == "xor"),
+            *inst, plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
+            plan.stride, plan.chip, plan.threads, plan.smem, clusters,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -530,9 +783,8 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
     layered_exact_cuda.frames += B
     layered_exact_cuda.launches_by_perm[graph.perm] += 1
     layered_exact_cuda.frames_by_perm[graph.perm] += B
-    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
-                       iterations=iters)
-    return res, total
+    layered_exact_cuda.last_plan = plan, clusters
+    return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def layered_exact_cuda(graph: QCGraph, llr: torch.Tensor, *,
@@ -551,14 +803,15 @@ def exact_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the
     exact-BP layered kernel: layered_exact_cuda plus the posteriors it
     leaves, for holding the kernel against plain_with_posteriors."""
-    res, total = _launch_exact(graph, llr, max_iters, early_term, cn)
-    return res, _from_tiles(total, llr.shape[0])
+    return _launch_exact(graph, llr, max_iters, early_term, cn,
+                         with_posteriors=True)
 
 
 layered_exact_cuda.launches = 0
 layered_exact_cuda.frames = 0  # frames decoded: the retry fallback's load
 layered_exact_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 layered_exact_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
+layered_exact_cuda.last_plan = None
 
 
 def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
