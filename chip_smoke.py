@@ -64,7 +64,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      way on dvbs2/64800/12, each rule: fixed at 1.5 dB and track at 1.2
      dB (32 and 13 frames), r=3/4 fixed at 3.0 dB and r=9/10 fixed at 4.0
      dB (its 16- and 32-wide builds), the stored trap batch with spa/50,
-     and each timed leg's shape (4096 frames).
+     and each timed leg's shape (4096 frames). Each case prints the tile
+     plan (decode/layered_qc.tile_plan, form "flooding": a dvbs2/64800
+     frame over a cluster of 8, its whole decoder state on chip) and the
+     clusters resident.
   13. flooding legs timed — bench.FLOODING_LEGS through run_benchmark
      (mackay1008 minsum, and spa and minstar on the same shape; the three
      dvbs2/64800/12 flooding legs): ms, Mbit/s, launches, bound, plain ms,
@@ -85,11 +88,18 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      32-wide builds), each rule fixed and track (32 frames, and 13 for a
      ragged last tile) at an Eb/N0 where some of 32 frames fail; min-sum
      also with offset:0.15 and the per-iteration schedule
-     dvbs2_64800_12_T25; each rule at the timed shape (4096 frames); two
-     K3 cases (spa fixed and track) on the multi-edge ccsds/4096/12. Bits,
-     ok and iterations identical; posteriors after one sweep within
-     EXACT_MAX_ULPS. The other layered kernels refuse a multi-edge graph
-     and the classic kernel a graph without one.
+     dvbs2_64800_12_T25; each rule at the timed shape (4096 frames, a
+     frame an SM); each rule in track mode on ccsds/1024/12 at 601 frames
+     (several frames a tile, a ragged last tile) and on ccsds/16384/12 at
+     16 frames (a frame over a cluster of 8; the all-zero codeword's LLRs,
+     since the port cannot encode k = 16384 yet); two K3 cases (spa fixed
+     and track) on the multi-edge ccsds/4096/12 and one on ccsds/4096/45 at
+     601 frames (its LLRs read from [B, n], not held on chip). Bits, ok and
+     iterations identical; posteriors after one sweep within
+     EXACT_MAX_ULPS; each case prints its tile plan (form "classic") and
+     the clusters resident, and the cases must include a plan with
+     F >= 2 and one with CS > 1. The other layered kernels refuse a
+     multi-edge graph and the classic kernel a graph without one.
   17. CCSDS legs timed — bench.CCSDS_LEGS through run_benchmark
      (ccsds/4096/12, 2.5 dB, 4096 frames, layered/{norm:0.8125,spa,minstar}
      /25/noet): ms, Mbit/s, launches, bound, plain ms, FER < 0.5.
@@ -107,14 +117,16 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      csrc/layered_exact.cu against their plain versions on 8023an (Z = 64
      XOR-permutation blocks, row degree 32): each rule, layered and
      flooding, fixed at 3.6 dB and track at 3.4 dB (32 frames, and 13 for
-     a ragged last tile); layered min-sum and spa also at 601 frames
-     (CS = 1, a ragged last tile of F); layered min-sum also with
+     a ragged last tile); layered and flooding min-sum and spa also at 601
+     frames (CS = 1, a ragged last tile of F); layered min-sum also with
      offset:0.15 and the per-iteration schedule dvbs2_64800_12_T25; the
      toy Z = 16 xor code
      (the 8-wide builds), min-sum layered and flooding, fixed and track;
      each XOR_LEGS shape (2048 frames). Bits, ok and iterations identical;
      posteriors after one sweep within EXACT_MAX_ULPS, and min-sum's final
-     posteriors identical. The classic kernel
+     posteriors identical. The K3 cases of phases 12, 16 and 20 must
+     include a plan with CS = 8 on dvbs2/64800 and one with CS = 1, F >= 2
+     and a ragged last tile. The classic kernel
      refuses a xor graph, and no roll instantiation launches in 20-22.
   21. xor legs timed — bench.XOR_LEGS through run_benchmark (8023an,
      4.0 dB, 2048 frames, layered/norm:0.8125/25/noet and
@@ -178,7 +190,7 @@ from ecc_ldpc_tpu_torch.bench.throughput import (
     make_inputs,
     run_benchmark,
 )
-from ecc_ldpc_tpu_torch.chan.awgn import awgn_llr
+from ecc_ldpc_tpu_torch.chan.awgn import awgn_llr, make_channel
 from ecc_ldpc_tpu_torch.cli.main import main as cli_main
 from ecc_ldpc_tpu_torch.codes.qc import QCXorCode, expand_qc_xor
 from ecc_ldpc_tpu_torch.codes.registry import get_code
@@ -311,6 +323,21 @@ CLASSIC_MINSUM_CASES = [
     ("fixed_offset", "layered/norm:0.8125/offset:0.15/25/noet", 32),
     ("track_sched", "layered/sched:dvbs2_64800_12_T25", 32),
 ]
+# the classic kernel's other plans, each rule in track mode: (name, code,
+# Eb/N0, B, whether the code has an encoder); several frames a tile with a
+# ragged last one, and a frame over a cluster of 8 (the all-zero
+# codeword's LLRs: the port cannot encode k = 16384 yet)
+CLASSIC_PLAN_CASES = [
+    ("track_601frames", "ccsds/1024/12", 1.5, 601, True),
+    ("track_16frames", "ccsds/16384/12", 1.2, 16, False),
+]
+# K3 on multi-edge graphs: (name, code, spec, B); the 601-frame plan keeps
+# its LLRs in [B, n]
+CLASSIC_FLOODING_CASES = [
+    ("spa_fixed", "ccsds/4096/12", "spa/25/noet", 32),
+    ("spa_track", "ccsds/4096/12", "spa/25", 32),
+    ("spa_track_601frames", "ccsds/4096/45", "spa/25", 601),
+]
 CCSDS_REFERENCE = (ROOT / "ecc_ldpc_tpu_torch" / "data"
                    / "ccsds_4096_12_jax_cpu.json")
 CCSDS_SWEEP_DECODER = "layered/norm:0.8125/50"
@@ -324,7 +351,7 @@ XOR_CASES = [
     ("track_3.4dB", "{r}/25", 3.4, 32),
     ("track_3.4dB_13frames", "{r}/25", 3.4, 13),
 ]
-# the xor tile kernels (K1a, K1c) at CS = 1 with a ragged last tile
+# the xor tile kernels (K1a, K1c, K3) at CS = 1 with a ragged last tile
 XOR_PLAN_CASES = [("track_3.4dB_601frames", "{r}/25", 3.4, 601)]
 XOR_MINSUM_CASES = [
     ("fixed_offset_3.6dB", "layered/norm:0.8125/offset:0.15/25/noet", 3.6),
@@ -389,9 +416,10 @@ def same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def tile_line(wrapper, B: int) -> dict:
-    """The tile plan of a K1a or K1c wrapper's last launch (its cluster
-    size, frames a tile, tiles, and the clusters resident at most by
-    cudaOccupancyMaxActiveClusters), and whether the last tile is ragged."""
+    """The tile plan of a tile kernel's wrapper's last launch (K1a, K1c,
+    K1b/K1c', K3: its cluster size, frames a tile, tiles, and the clusters
+    resident at most by cudaOccupancyMaxActiveClusters), and whether the
+    last tile is ragged."""
     plan, resident = wrapper.last_plan
     return dict(plan=dict(plan.as_dict(), resident=resident),
                 ragged=B % plan.frames != 0)
@@ -488,13 +516,20 @@ def compare_exact(graph, llr, kw) -> dict:
                               tiles=layered_exact_cuda)
 
 
+def need_plan(kernel: str, lines, what: str, pred) -> None:
+    """Raise unless one of a kernel's cases launched a plan that `pred`
+    (of the case line) accepts; `what` names it."""
+    if not any(pred(r) for r in lines):
+        raise AssertionError(f"{kernel}: no case launched {what}")
+
+
 def check_plans(kernel: str, lines) -> None:
     """Raise unless a kernel's cases launched a plan with CS > 1 and one
     with CS = 1."""
-    cs = {r["plan"]["cluster"] for r in lines}
-    if 1 not in cs or max(cs) <= 1:
-        raise AssertionError(f"{kernel}: cases launched cluster sizes {cs}, "
-                             f"not both 1 and > 1")
+    need_plan(kernel, lines, "a plan with CS = 1",
+              lambda r: r["plan"]["cluster"] == 1)
+    need_plan(kernel, lines, "a plan with CS > 1",
+              lambda r: r["plan"]["cluster"] > 1)
 
 
 def compare_classic(graph, llr, kw) -> dict:
@@ -505,15 +540,20 @@ def compare_classic(graph, llr, kw) -> dict:
                early_term=kw.get("early_term", True),
                cn=kw.get("cn", "minsum"))
     return compare_posteriors(classic_with_posteriors_cuda,
-                              plain_with_posteriors, graph, llr, dkw)
+                              plain_with_posteriors, graph, llr, dkw,
+                              tiles=layered_classic_cuda)
 
 
 def compare_flooding(graph, llr, kw, kernel_fn, plain_fn) -> dict:
-    """A flooding kernel (K2 or K3) against its plain version."""
+    """A flooding kernel (K2 or K3) against its plain version; K3's line
+    carries its tile plan."""
     dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
                beta=kw.get("beta", 0.0), max_iters=kw.get("max_iters", 25),
                early_term=kw.get("early_term", True))
-    return compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw)
+    tiles = (flooding_qc_decode_cuda
+             if kernel_fn is flooding_qc_with_posteriors_cuda else None)
+    return compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw,
+                              tiles=tiles)
 
 
 def bench_line(res, launches, smi_before) -> dict:
@@ -534,14 +574,25 @@ def point_line(pr: PointResult) -> dict:
                 mean_iters=pr.mean_iters, wall_s=pr.wall_s)
 
 
-def ccsds_path(dev, spec12, k3, flood_err) -> list:
+def ccsds_path(dev, spec12, k3, flood_err, k3_lines) -> list:
     """Phases 16-19: the classic kernel on multi-edge graphs (CCSDS
     AR4JA) against its plain version, timed, in a sweep and in the
     production retry decoder; returns its entries of the kernels line.
-    flood_err gains the K3 cases on the multi-edge graph."""
+    flood_err and k3_lines gain the K3 cases on the multi-edge graphs."""
     # 16. the classic kernel (K1b, K1c') against its plain version
     t0 = time.perf_counter()
     classic_err = dict.fromkeys(KINDS, 0.0)
+    classic_lines = []
+
+    def note(code, name, spec_str, ebn0, graph, llr, kw):
+        r = compare_classic(graph, llr, kw)
+        cn = kw.get("cn", "minsum")
+        classic_err[cn] = max(classic_err[cn], r["max_abs_err"])
+        classic_lines.append(r)
+        emit("classic_vs_plain", code=code, case=name, decoder=spec_str,
+             ebn0_db=ebn0, **r)
+        return r
+
     for code, ebn0 in CLASSIC_CODES.items():
         cases = [(f"{k}_{name}", spec_str.format(r=RULE[k]), B)
                  for k in KINDS for name, spec_str, B in CLASSIC_CASES]
@@ -549,27 +600,37 @@ def ccsds_path(dev, spec12, k3, flood_err) -> list:
                   for name, spec_str, B in CLASSIC_MINSUM_CASES]
         for name, spec_str, B in cases:
             x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
-            r = compare_classic(x.graph, x.llr, x.kw)
-            cn = x.kw.get("cn", "minsum")
-            classic_err[cn] = max(classic_err[cn], r["max_abs_err"])
-            emit("classic_vs_plain", code=code, case=name, decoder=spec_str,
-                 ebn0_db=ebn0, **r)
+            note(code, name, spec_str, ebn0, x.graph, x.llr, x.kw)
+    for name, code, ebn0, B, encodable in CLASSIC_PLAN_CASES:
+        for k in KINDS:
+            spec_str = f"layered/{RULE[k]}/25"
+            if encodable:
+                x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+                inputs = x.graph, x.llr, x.kw
+            else:
+                inputs = zero_codeword(code, spec_str, B, ebn0, dev)
+            note(code, f"{k}_{name}", spec_str, ebn0, *inputs)
     classic_parity = {}
     for cn in KINDS:
         x = make_inputs(**CCSDS_LEGS[cn], device=dev, seed=0)
-        classic_parity[cn] = r = compare_classic(x.graph, x.llr, x.kw)
-        classic_err[cn] = max(classic_err[cn], r["max_abs_err"])
-        emit("classic_vs_plain", code=CCSDS_LEGS[cn]["code"],
-             case=f"{cn}_bench_shape", decoder=CCSDS_LEGS[cn]["decoder"], **r)
+        classic_parity[cn] = note(CCSDS_LEGS[cn]["code"], f"{cn}_bench_shape",
+                                  CCSDS_LEGS[cn]["decoder"],
+                                  CCSDS_LEGS[cn]["ebn0_db"], x.graph, x.llr,
+                                  x.kw)
         del x
-    for name, spec_str in (("spa_fixed", "spa/25/noet"), ("spa_track", "spa/25")):
-        code = CCSDS_PRODUCTION_SWEEP["code"]
-        x = make_inputs(code, spec_str, 32, CLASSIC_CODES[code], dev, seed=1)
+    need_plan("layered_classic", classic_lines, "a plan with F >= 2",
+              lambda r: r["plan"]["frames"] >= 2)
+    need_plan("layered_classic", classic_lines, "a plan with CS > 1",
+              lambda r: r["plan"]["cluster"] > 1)
+    for name, code, spec_str, B in CLASSIC_FLOODING_CASES:
+        x = make_inputs(code, spec_str, B, CLASSIC_CODES[code], dev, seed=1)
         r = compare_flooding(x.graph, x.llr, x.kw, *k3)
         flood_err["flooding_qc:spa"] = max(flood_err["flooding_qc:spa"],
                                            r["max_abs_err"])
+        k3_lines.append(dict(r, code=code))
         emit("flooding_qc_vs_plain", code=code, case=name,
              decoder=spec_str, **r)
+        del x
     # each layered kernel takes only its own form of graph
     ccsds12 = choose_graph(get_code(CCSDS_PRODUCTION_SWEEP["code"]),
                            "layered/spa/2")
@@ -588,14 +649,15 @@ def ccsds_path(dev, spec12, k3, flood_err) -> list:
          seconds=time.perf_counter() - t0)
 
     # 17. the CCSDS legs timed; each rule's count read around its own run
-    classic_bench, classic_bench_launches = {}, {}
+    classic_bench, classic_bench_launches, classic_plans = {}, {}, {}
     for cn in KINDS:
         layered_classic_cuda.by_rule = dict.fromkeys(KINDS, 0)
         smi_before = smi_sample()
         res = run_benchmark(**CCSDS_LEGS[cn], device=dev)
         classic_bench_launches[cn] = layered_classic_cuda.by_rule[cn]
+        classic_plans[cn] = tile_line(layered_classic_cuda, res.batch)["plan"]
         emit("ccsds_bench", cn=cn, code=res.code, decoder=res.decoder,
-             plain_ms=classic_parity[cn]["plain_ms"],
+             plain_ms=classic_parity[cn]["plain_ms"], plan=classic_plans[cn],
              **bench_line(res, classic_bench_launches[cn], smi_before))
         if not res.frame_errors / res.batch < CCSDS_FER_MAX:
             raise AssertionError(f"ccsds {cn}: FER above {CCSDS_FER_MAX}")
@@ -685,6 +747,7 @@ def ccsds_path(dev, spec12, k3, flood_err) -> list:
             "bound_ms": res.bound_ms,
             "bound_by": res.roofline_form,
             "library_ms": None,
+            "plan": classic_plans[cn],
         })
     return kernels
 
@@ -698,7 +761,8 @@ def compare_xor(schedule: str, graph, llr, kw) -> dict:
                    early_term=kw.get("early_term", True))
         return compare_posteriors(
             flooding_qc_with_posteriors_cuda, flooding_qc_with_posteriors_plain,
-            graph, llr, dkw, final_exact=kw["kind"] == "minsum")
+            graph, llr, dkw, final_exact=kw["kind"] == "minsum",
+            tiles=flooding_qc_decode_cuda)
     if kw.get("cn", "minsum") != "minsum":
         return compare_exact(graph, llr, kw)
     dkw = {k: kw[k] for k in ("alpha", "beta", "max_iters", "early_term")
@@ -722,7 +786,31 @@ def xor_toy(dev):
     return compile_qc_graph(spec), awgn_llr(gen, cw, XOR_TOY_EBN0, 0.5)
 
 
-def xor_path(dev) -> list:
+def zero_codeword(code: str, spec_str: str, B: int, ebn0: float, dev,
+                  seed: int = 1):
+    """(graph, LLRs of B all-zero codewords through the code's channel at
+    ebn0, decoder arguments): for codes the port cannot encode yet."""
+    spec = get_code(code)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    cw = torch.zeros((B, spec.n), dtype=torch.uint8, device=dev)
+    return (choose_graph(spec, spec_str), make_channel(spec)(gen, cw, ebn0),
+            parse_decoder_spec(spec_str))
+
+
+def check_k3_plans(lines) -> None:
+    """Raise unless K3's cases (phases 12, 16, 20) launched a dvbs2/64800
+    frame over a cluster of 8 and several frames an SM with a ragged last
+    tile."""
+    need_plan("flooding_qc", lines, "a cluster of 8 on dvbs2/64800",
+              lambda r: r["plan"]["cluster"] == 8
+              and r["code"].startswith("dvbs2/64800"))
+    need_plan("flooding_qc", lines, "CS = 1, F >= 2 with a ragged last tile",
+              lambda r: r["plan"]["cluster"] == 1
+              and r["plan"]["frames"] >= 2 and r["ragged"])
+
+
+def xor_path(dev, k3_lines) -> list:
     """Phases 20-22: the xor instantiations of the QC kernels (K4's two
     modes, and exact BP) on IEEE 802.3an against their plain versions,
     timed, in sweeps and in the production retry decoder; returns their
@@ -745,13 +833,15 @@ def xor_path(dev) -> list:
         if schedule == "layered":
             cases += [(f"minsum_{name}", spec_str, ebn0, 32)
                       for name, spec_str, ebn0 in XOR_MINSUM_CASES]
-            cases += [(f"{k}_{name}", spec_str.format(r=rules[k]), ebn0, B)
-                      for k in ("minsum", "spa")
-                      for name, spec_str, ebn0, B in XOR_PLAN_CASES]
+        cases += [(f"{k}_{name}", spec_str.format(r=rules[k]), ebn0, B)
+                  for k in ("minsum", "spa")
+                  for name, spec_str, ebn0, B in XOR_PLAN_CASES]
         for name, spec_str, ebn0, B in cases:
             x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
             r = compare_xor(schedule, x.graph, x.llr, x.kw)
             note(f"{schedule}:{name.split('_')[0]}", r)
+            if schedule == "flooding":
+                k3_lines.append(dict(r, code=code))
             emit("xor_vs_plain", code=code, schedule=schedule, case=name,
                  decoder=spec_str, ebn0_db=ebn0, **r)
     toy, toy_llr = xor_toy(dev)
@@ -781,6 +871,7 @@ def xor_path(dev) -> list:
         else:
             raise AssertionError(f"layered_classic_cuda ({cn}) took a xor "
                                  f"graph")
+    check_k3_plans(k3_lines)
     emit("xor_vs_plain", refusals=2, seconds=time.perf_counter() - t0)
 
     # 21. the xor legs timed, and exact BP on the same shape; each count
@@ -924,7 +1015,7 @@ def xor_path(dev) -> list:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
-        if xor_plans[leg] is not None:  # the tile kernels, K1a and K1c
+        if xor_plans[leg] is not None:  # the tile kernels, K1a, K1c, K3
             kernels[-1]["plan"] = xor_plans[leg]
     return kernels
 
@@ -1334,7 +1425,9 @@ def main() -> int:
                                          r["max_abs_err"])
         emit("flooding_vs_plain", case=f"{k}_bench_shape", **r)
 
-    # 12. the QC flooding kernel (K3) against its plain version
+    # 12. the QC flooding kernel (K3) against its plain version; its case
+    # lines (with 16's and 20's) are held to the plans they must include
+    k3_lines = []
     for k in KINDS:
         for name, code, spec_str, ebn0, B in FLOODING_QC_CASES:
             spec_str = spec_str.format(r=RULE[k])
@@ -1342,8 +1435,9 @@ def main() -> int:
             r = compare_flooding(x.graph, x.llr, x.kw, *k3)
             flood_err[f"flooding_qc:{k}"] = max(flood_err[f"flooding_qc:{k}"],
                                                 r["max_abs_err"])
-            emit("flooding_qc_vs_plain", case=f"{k}_{name}", decoder=spec_str,
-                 **r)
+            k3_lines.append(dict(r, code=code))
+            emit("flooding_qc_vs_plain", code=code, case=f"{k}_{name}",
+                 decoder=spec_str, **r)
     r = compare_flooding(choose_graph(spec12, "spa/50"),
                          torch.as_tensor(trap["llr"], device=dev),
                          parse_decoder_spec("spa/50"), *k3)
@@ -1361,7 +1455,7 @@ def main() -> int:
         del x
 
     # 13. the flooding legs timed; each count read around its own run
-    flood_bench, flood_launches = {}, {}
+    flood_bench, flood_launches, flood_plans = {}, {}, {}
     timed_legs = [(f"flooding:{k}", mackay_legs[k], flooding_decode_cuda)
                   for k in KINDS]
     timed_legs += [(f"flooding_qc:{k}", FLOODING_LEGS[f"dvbs2_{k}"],
@@ -1371,8 +1465,11 @@ def main() -> int:
         smi_before = smi_sample()
         res = run_benchmark(**cfg, device=dev)
         flood_launches[key] = wrapper.launches
+        if wrapper is flooding_qc_decode_cuda:  # K3 holds tiles on chip
+            flood_plans[key] = tile_line(wrapper, res.batch)["plan"]
         emit("flooding_bench", kernel=key, code=cfg["code"],
              decoder=cfg["decoder"], plain_ms=flood_parity[key]["plain_ms"],
+             plan=flood_plans.get(key),
              **bench_line(res, flood_launches[key], smi_before))
         if flood_launches[key] <= 0:
             raise AssertionError(f"{key}: the kernel never launched")
@@ -1458,8 +1555,8 @@ def main() -> int:
     if not (bool(retried.ok.all()) and torch.equal(retried.bits, cw)):
         raise AssertionError("the flooding retry misses a trap codeword")
 
-    kernels_ccsds = ccsds_path(dev, spec12, k3, flood_err)
-    kernels_xor = xor_path(dev)
+    kernels_ccsds = ccsds_path(dev, spec12, k3, flood_err, k3_lines)
+    kernels_xor = xor_path(dev, k3_lines)
     kernels_dist = dist_path(dev)
 
     hl = results["headline"]
@@ -1519,6 +1616,8 @@ def main() -> int:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
+        if key in flood_plans:
+            kernels[-1]["plan"] = flood_plans[key]
     kernels += kernels_ccsds + kernels_xor + kernels_dist
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")

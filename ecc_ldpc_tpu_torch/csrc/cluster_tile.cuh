@@ -115,6 +115,72 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+// Static shared state of a tile's frame (within decode/layered_qc's
+// _SMEM_STATIC), csrc/state_tile.cuh's too.
+struct Shared {
+  float* peer[kMaxCluster];       // each rank's dynamic shared memory
+  int slots[3][kSlotWords];       // rank 0's: the cluster's reductions
+  int part[kMaxFrames];           // this block's share of one
+  int flag[kMaxFrames];           // its result
+  int done[kMaxFrames];           // track mode: frame frozen
+  int used[kMaxFrames];           // track mode: iterations run
+};
+
+// The cluster's reductions and tile counter, in rank 0's slots: reduction
+// q uses slots[q % 3]; rank 0 clears the slot two reductions ahead (every
+// rank read it before this barrier, and none writes it before the next).
+struct Frame {
+  Shared& s;
+  int* slots0;  // rank 0's slots, reached from every rank
+  int rank, cs, F, tid, nth;
+  int q = 0;
+
+  __device__ void retire() {
+    if (rank == 0)
+      for (int i = tid; i < kSlotWords; i += nth) s.slots[(q + 2) % 3][i] = 0;
+    ++q;
+  }
+  // flag[f] = OR over the cluster's part[f], f < F; part cleared. Its
+  // cluster barrier also orders every shared write before it.
+  __device__ void reduce() {
+    __syncthreads();
+    int* slot = slots0 + (q % 3) * kSlotWords;
+    if (tid < F) {
+      if (s.part[tid]) slot[tid] = 1;
+      s.part[tid] = 0;
+    }
+    sync_tile(cs);
+    if (tid < F) s.flag[tid] = slot[tid];
+    retire();
+    __syncthreads();
+  }
+  __device__ int next_tile(int* counter) {
+    if (rank == 0 && tid == 0)
+      s.slots[q % 3][kMaxFrames] = atomicAdd(counter, 1);
+    sync_tile(cs);
+    const int tile = slots0[(q % 3) * kSlotWords + kMaxFrames];
+    retire();
+    return tile;
+  }
+  // track mode: every frame of the tile is frozen
+  __device__ bool all_done() const {
+    bool all = true;
+    for (int f = 0; f < F; ++f) all &= s.done[f] != 0;
+    return all;
+  }
+};
+
+// Sets up the frame: the peer pointers, cleared slots and flags. The
+// caller fills its tables, then syncs the cluster before any remote access.
+__device__ __forceinline__ Frame begin(Shared& sh, float* dyn, int cs, int F) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nth = blockDim.x;
+  if (tid < cs) sh.peer[tid] = cluster.map_shared_rank(dyn, tid);
+  for (int i = tid; i < 3 * kSlotWords; i += nth) (&sh.slots[0][0])[i] = 0;
+  for (int i = tid; i < kMaxFrames; i += nth) sh.part[i] = 0;
+  return Frame{sh, cluster.map_shared_rank(&sh.slots[0][0], 0),
+               cluster_rank(), cs, F, tid, nth};
+}
 
 template <bool TRACK, bool XOR, class Rule>
 __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
@@ -133,26 +199,21 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
   int* soff = reinterpret_cast<int*>(sbase + BE);                  // [BE]
   int* lptr = soff + BE;                                           // [mb + 1]
   int* home = lptr + mb + 1;                                       // [nb]
-  __shared__ float* peer[kMaxCluster];  // each rank's posteriors
-  __shared__ int slots[3][kSlotWords];  // rank 0's: the cluster's reductions
-  __shared__ int part[kMaxFrames];      // this block's share of one
-  __shared__ int flag[kMaxFrames];      // its result
-  __shared__ int done[kMaxFrames];      // track mode: frame frozen
-  __shared__ int used[kMaxFrames];      // track mode: iterations run
+  __shared__ Shared sh;
 
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int rank = cluster_rank();
+  Frame fr = begin(sh, post, cs, F);
+  auto& peer = sh.peer;  // each rank's posteriors
+  auto& part = sh.part;
+  auto& flag = sh.flag;
+  auto& done = sh.done;
+  auto& used = sh.used;
+  const int tid = threadIdx.x, nth = blockDim.x, rank = fr.rank;
   const int n = nb * Z;
-  cg::cluster_group cluster = cg::this_cluster();
   uint32_t* state = a.state + (size_t)blockIdx.x * mb * a.stride;
   float* spill = a.spill + (size_t)(blockIdx.x / cs) * (nb - a.nchip) * Z * F;
-  int* slots0 = cluster.map_shared_rank(&slots[0][0], 0);
 
-  if (tid < cs) peer[tid] = cluster.map_shared_rank(post, tid);
   for (int i = tid; i <= mb; i += nth) lptr[i] = a.tab[i];
   for (int i = tid; i < nb; i += nth) home[i] = a.home[i];
-  for (int i = tid; i < 3 * kSlotWords; i += nth) (&slots[0][0])[i] = 0;
-  for (int i = tid; i < kMaxFrames; i += nth) part[i] = 0;
   __syncthreads();
   // check z = zl * CS + rank reads row zz = qc::var_index(z, s) of its
   // column: on rank zz % CS, row zz / CS. Z is a multiple of CS, so both
@@ -167,7 +228,6 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
     soff[i] = XOR ? ro : ro * F;
   }
   sync_tile(cs);
-  int q = 0;  // cluster reductions so far: the next uses slots[q % 3]
 
   // row zz of block-column col, frame f (the tile's loads and stores)
   auto var = [&](int col, int zz, int f) -> float* {
@@ -186,34 +246,6 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
       if (o >= RF) o -= RF;
     }
     return sbase[s] + o;
-  };
-  // rank 0 clears the slot two reductions ahead: every rank read it before
-  // this barrier, and none writes it before the next
-  auto retire = [&]() {
-    if (rank == 0)
-      for (int i = tid; i < kSlotWords; i += nth) slots[(q + 2) % 3][i] = 0;
-    ++q;
-  };
-  // flag[f] = OR over the cluster's part[f], f < F; part cleared
-  auto reduce = [&]() {
-    __syncthreads();
-    int* slot = slots0 + (q % 3) * kSlotWords;
-    if (tid < F) {
-      if (part[tid]) slot[tid] = 1;
-      part[tid] = 0;
-    }
-    sync_tile(cs);
-    if (tid < F) flag[tid] = slot[tid];
-    retire();
-    __syncthreads();
-  };
-  auto next_tile = [&]() -> int {
-    if (rank == 0 && tid == 0)
-      slots[q % 3][kMaxFrames] = atomicAdd(a.counter, 1);
-    sync_tile(cs);
-    const int tile = slots0[(q % 3) * kSlotWords + kMaxFrames];
-    retire();
-    return tile;
   };
   // item i is check zl = i / F, frame f = i % F: an f32 estimate, then
   // one correction (no integer division)
@@ -252,7 +284,7 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
 
   const int ncol = (nb - rank + cs - 1) / cs;  // block-columns this rank moves
   for (;;) {
-    const int tile = next_tile();
+    const int tile = fr.next_tile(a.counter);
     if (tile >= a.tiles) break;
     const int b0 = tile * F;
     const int nf = min(F, a.B - b0);  // live frames (the last tile is ragged)
@@ -265,7 +297,7 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
     if constexpr (TRACK) {
       // done_0: frames whose channel hard decisions already satisfy H
       syndrome(nf);
-      reduce();
+      fr.reduce();
       for (int f = tid; f < F; f += nth) {
         done[f] = f < nf ? !flag[f] : 1;
         used[f] = 0;
@@ -276,9 +308,7 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
       if constexpr (TRACK) {
         // the tile stops once every frame in it is done; a frozen frame
         // writes nothing, so per-frame results do not depend on the tile
-        bool all = true;
-        for (int f = 0; f < F; ++f) all &= done[f] != 0;
-        if (all) break;
+        if (fr.all_done()) break;
       }
       rule.begin(t);
       for (int L = 0; L < mb; ++L) {
@@ -349,7 +379,7 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
         sync_tile(cs);
       }
       if constexpr (TRACK) {
-        reduce();
+        fr.reduce();
         for (int f = tid; f < F; f += nth) {
           if (!done[f]) {
             ++used[f];
@@ -361,7 +391,7 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
     }
     // truthful ok: one final syndrome over the emitted hard decisions
     syndrome(nf);
-    reduce();
+    fr.reduce();
     if (rank == 0) {
       for (int f = tid; f < nf; f += nth) {
         a.ok[b0 + f] = flag[f] ? 0 : 1;

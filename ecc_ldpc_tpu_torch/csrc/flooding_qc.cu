@@ -13,283 +13,259 @@
 // The permutations are index arithmetic, so unlike the TPU kernels there is
 // no Z % 8 envelope, no bf16 fallback, no one-hot matmul and no VMEM cap.
 //
-// Layout: frames in tiles of FT = 8, each tile's state contiguous with
-// frames innermost,
-//   llr        f32 [tiles, nb*Z, FT]   channel LLRs (read only)
-//   total, nxt f32 [tiles, nb*Z, FT]   stale posteriors and the next ones
-//   C          f32 [tiles, BE*Z, FT]   messages, one row per (sweep slot, check)
-// one block per tile runs every iteration, threads over (frame, row).
-// Table (shared memory): per block-row in layer_order its slots' column and
-// shift (the sweep order of csrc/layered_qc.cu), and per block-column the
-// (slot, shift) of its edges in the same sweep order.
-//
-// Per iteration:
-//   CN phase  one thread per (check, frame) reads the d rolled stale
-//             posteriors r, forms v = r - C_old and C = rule(v)
-//             (csrc/bp_rules.cuh); in track mode the parity of the rolled
-//             hard decisions (r < 0) is the stale-posterior `fail`.
-//   VN phase  one thread per (variable, frame) rebuilds its posterior as
+// Design (csrc/state_tile.cuh): a tile of F frames keeps its whole decoder
+// state in shared memory for the whole decode, on one SM or spread over a
+// thread-block cluster of CS SMs: posteriors [nb][R][F], every message
+// [BE][R][F] and, where they fit, the LLRs [nb][R][F] (else the variable
+// phase reads them from llr [B, n], in L2). decode/layered_qc.tile_plan
+// (form "flooding") picks CS and F: a dvbs2/64800 frame over a cluster of
+// 8 (~174 KB a block at rate 1/2), dvbs2/16200 over 2, and several 802.3an
+// or CCSDS frames an SM. A persistent grid of clusters takes tiles from an
+// atomic counter; LLRs come straight from [B, n] and bits (and posteriors)
+// go straight to [B, n]. Rank r owns rows z = r (mod CS) of every
+// block-row and block-column. Per iteration:
+//   CN phase  each (check, frame) of the rank reads its d stale posteriors
+//             r (other ranks' through distributed shared memory), forms
+//             v = r - C_old (all zeros in iteration 0) and C = rule(v)
+//             (csrc/bp_rules.cuh) in its own shared memory; in track mode
+//             the parity of r < 0 is the stale-posterior `fail`.
+//   barrier   (the cluster's; in track mode the one of the reduction that
+//             makes `fail` the cluster's)
+//   VN phase  each (variable, frame) of the rank rebuilds its posterior as
 //             llr + C_1 + C_2 + ... in exactly the oracle's order: block-
-//             rows in layer_order, edges in edge-id order within a row. No
+//             rows in layer_order, edges in edge-id order within a row
+//             (other ranks' messages through distributed shared memory). No
 //             atomics, which would change the order of the sums.
-//   swap      each frame keeps the index of its current buffer.
-// Freeze (track mode, decode/xla/flooding_qc.py:159-172): a frame whose
-// pre-sweep state passed keeps that state (keep_end = done | ~fail); C is
-// frozen on the old `done`; `iters` counts the sweeps applied to the state
-// reported; `ok` is the syndrome of the reported state.
+//   barrier
+// One posterior copy suffices: the VN phase reads only LLRs and messages,
+// starts after every check has read the stale posteriors, and the next CN
+// phase after every posterior is written. Freeze (track mode,
+// decode/xla/flooding_qc.py:159-172): a frame whose pre-sweep state passed
+// keeps that state (its VN phase is skipped); C is frozen on the old
+// `done`; `iters` counts the sweeps applied to the state reported; `ok` is
+// the syndrome of the reported state.
 //
-// What bounds it on an H100: 16 B per edge visit (the rolled posterior,
-// the old message and the new one in the CN phase; the message again in
-// the VN phase) and 8 B per variable (LLR read, posterior written): 4.15 MB
-// per frame-iteration at dvbs2/64800/12, 425 GB for 4096 frames x 25
-// iterations, so minsum is bound by memory traffic; spa (4
-// transcendentals per edge) and minstar (~8.6) by the accurate
-// transcendentals' instruction count as K1c is. 16-bit messages and the
-// retry fallback's tiny batches spread over more blocks are later work.
+// What bounds it on an H100: the bytes bound is the LLRs in and the bits
+// out (0.33 GB at dvbs2/64800/12, B = 4096); the operations bound, about
+// 12 fp32 operations per edge visit for minsum and 4 (spa) or ~8.6
+// (minstar) accurate transcendentals at the special-function rate, is the
+// larger (bench/throughput.decode_bound). The earlier design moved 16 B
+// per edge visit through HBM (425 GB for that batch) and memory traffic
+// bounded it. Here what bounds it is instruction issue and the latency of
+// distributed shared-memory loads (7 of 8 of a frame's are remote on a
+// cluster of 8), behind two cluster barriers an iteration.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bp_rules.cuh"
-#include "qc_index.cuh"
+#include "qc_index.cuh"  // the XOR template parameter's permutation
+#include "state_tile.cuh"
 
 namespace {
 
-constexpr int FT = 8;
-
-struct Params {
-  const float* llr;      // [tiles, nb*Z, FT]
-  float* total;          // [tiles, nb*Z, FT] out: posteriors
-  float* nxt;            // [tiles, nb*Z, FT] scratch: the other buffer
-  float* C;              // [tiles, BE*Z, FT] scratch: messages
-  uint8_t* bits;         // [tiles, nb*Z, FT] out: hard decisions
-  uint8_t* ok;           // [B] out: final syndrome satisfied
-  int32_t* iters;        // [B] out: iterations used
-  const int32_t* tab;    // [mb+1 | BE | BE | nb+1 | BE | BE]
-  int Z, mb, nb, BE, B, max_iters;
+struct FloodParams {
   float alpha, beta;
+  int llr_chip;  // the LLRs have a region of shared memory
 };
-
-struct Tab {
-  const int *rptr, *scol, *sshift, *cptr, *cslot, *cshift;
-};
-
-__device__ __forceinline__ size_t at(size_t row) { return row * FT + threadIdx.x; }
-
-// Parity failure of (tot < 0) over the checks this thread owns.
-template <bool XOR>
-__device__ __forceinline__ bool syndrome_fail_part(const Params& p, Tab t,
-                                                   const float* tot) {
-  bool fail = false;
-  const int Z = p.Z;
-  for (int q = threadIdx.y; q < p.mb * Z; q += blockDim.y) {
-    const int L = q / Z, z = q - L * Z;
-    bool par = false;
-    for (int s = t.rptr[L]; s < t.rptr[L + 1]; ++s) {
-      const int zz = qc::var_index<XOR>(z, t.sshift[s], Z);
-      par ^= (tot[at(t.scol[s] * Z + zz)] < 0.f);
-    }
-    fail |= par;
-  }
-  return fail;
-}
 
 template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
-__global__ void __launch_bounds__(512) flooding_qc_kernel(Params p) {
-  extern __shared__ int smem[];
-  Tab t;
-  t.rptr = smem;
-  t.scol = t.rptr + p.mb + 1;
-  t.sshift = t.scol + p.BE;
-  t.cptr = t.sshift + p.BE;
-  t.cslot = t.cptr + p.nb + 1;
-  t.cshift = t.cslot + p.BE;
-  __shared__ int fail_s[FT];
-  __shared__ int done_s[FT];
+__global__ void __launch_bounds__(st::max_threads(MAX_DEG), 1)
+flooding_qc_kernel(st::Args a, FloodParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ st::Shared sh;
+  const int F = a.F, RF = a.R * F, cs = a.cs, mb = a.mb, nb = a.nb;
+  const int BE = a.BE, Z = a.Z, n = nb * Z;
+  // table: rptr [mb+1], column [BE], shift [BE] (sweep order), then per
+  // block-column cptr [nb+1], slot [BE], shift [BE] (the same order)
+  const int32_t* tcol = a.tab + mb + 1;
+  const int32_t* tshift = tcol + BE;
+  const int32_t* tcptr = tshift + BE;
+  const int32_t* tslot = tcptr + nb + 1;
+  const int32_t* tcshift = tslot + BE;
+  float* post = reinterpret_cast<float*>(smem);  // [nb][R][F]
+  float* C = post + nb * RF;                      // [BE][R][F]
+  float* llrs = C + BE * RF;                      // [nb][R][F] if llr_chip
+  const int words = (nb + BE + (p.llr_chip ? nb : 0)) * RF;
+  float** cbase = reinterpret_cast<float**>(post + ((words + 3) & ~3));
+  float** vbase = cbase + BE;                       // [BE]
+  int* coff = reinterpret_cast<int*>(vbase + BE);   // [BE]
+  int* voff = coff + BE;                            // [BE]
+  int* rptr = voff + BE;                            // [mb + 1]
+  int* cptr = rptr + mb + 1;                        // [nb + 1]
 
-  const int nthreads = blockDim.x * blockDim.y;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int ntab = p.mb + 1 + p.nb + 1 + 4 * p.BE;
-  for (int i = tid; i < ntab; i += nthreads) smem[i] = p.tab[i];
-
-  const int Z = p.Z, n = p.nb * Z;
-  const int tx = threadIdx.x;
-  const int b = blockIdx.x * FT + tx;
-  const bool live = b < p.B;
-  const size_t tile = blockIdx.x;
-  const float* L = p.llr + tile * n * FT;
-  // the two posterior buffers, chosen by a select on `cur` (an array
-  // indexed at run time would go to local memory)
-  float* const buf0 = p.total + tile * n * FT;
-  float* const buf1 = p.nxt + tile * n * FT;
-  float* C = p.C + tile * (size_t)p.BE * Z * FT;
-  int cur = 0;  // this frame's current posterior buffer
-
-  for (int v = threadIdx.y; v < n; v += blockDim.y) buf0[at(v)] = L[at(v)];
-  for (int e = threadIdx.y; e < p.BE * Z; e += blockDim.y) C[at(e)] = 0.f;
-  if (threadIdx.y == 0) fail_s[tx] = 0;
+  st::Frame fr = st::begin(sh, post, cs, F);
+  const int tid = threadIdx.x, nth = blockDim.x, rank = fr.rank;
+  for (int i = tid; i <= mb; i += nth) rptr[i] = a.tab[i];
+  for (int i = tid; i <= nb; i += nth) cptr[i] = tcptr[i];
   __syncthreads();
-  if constexpr (TRACK) {
-    if (live && syndrome_fail_part<XOR>(p, t, buf0)) atomicOr(&fail_s[tx], 1);
-    __syncthreads();
-    if (threadIdx.y == 0) {
-      done_s[tx] = live ? !fail_s[tx] : 1;
-      fail_s[tx] = 0;
-    }
-  }
-  int used = 0;  // sweeps applied to frame b's state (threadIdx.y == 0 row)
+  // a check's posteriors; a variable's messages (the checks that read it)
+  st::edges<XOR>(a, sh, rank, tcol, tshift, BE, 0, false, cbase, coff);
+  st::edges<XOR>(a, sh, rank, tslot, tcshift, BE, nb * RF, true, vbase,
+                 voff);
+  ct::sync_tile(cs);
 
-  for (int it = 0; it < p.max_iters; ++it) {
+  for (;;) {
+    const int tile = fr.next_tile(a.counter);
+    if (tile >= a.tiles) break;
+    const int b0 = tile * F;
+    const int nf = min(F, a.B - b0);  // live frames (the last tile is ragged)
+    st::move<true>(a, sh, rank, b0, nf, p.llr_chip ? (nb + BE) * RF : 0);
+    ct::sync_tile(cs);
     if constexpr (TRACK) {
-      if (__syncthreads_and(threadIdx.y == 0 ? done_s[tx] : 1)) break;
+      st::syndrome<XOR, MAX_DEG>(a, sh, rptr, cbase, coff, nf);
+      fr.reduce();
+      for (int f = tid; f < F; f += nth) {
+        sh.done[f] = f < nf ? !sh.flag[f] : 1;
+        sh.used[f] = 0;
+      }
+      __syncthreads();
     }
-    const bool active = live && (!TRACK || !done_s[tx]);
-    const float* tot = cur ? buf1 : buf0;
-    bool fail = false;
-    if (active) {
-      for (int q = threadIdx.y; q < p.mb * Z; q += blockDim.y) {
-        const int Lr = q / Z, z = q - Lr * Z;
-        const int s0 = t.rptr[Lr];
-        const int d = t.rptr[Lr + 1] - s0;
+    for (int t = 0; t < a.max_iters; ++t) {
+      if (TRACK && fr.all_done()) break;
+      // CN phase
+      for (st::Walk w(tid, nth, a.R, F); w.a < mb; w.next()) {
+        const int f = w.f, zf = w.zf();
+        if (f >= nf || (TRACK && sh.done[f])) continue;
+        const int s0 = rptr[w.a], d = rptr[w.a + 1] - s0;
         float v[MAX_DEG];
         bool par = false;
 #pragma unroll
         for (int j = 0; j < MAX_DEG; ++j) {
           if (j < d) {
-            const int zz = qc::var_index<XOR>(z, t.sshift[s0 + j], Z);
-            const float r = tot[at(t.scol[s0 + j] * Z + zz)];
+            const float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl,
+                                         zf, RF, F);
             if constexpr (TRACK) par ^= (r < 0.f);
-            v[j] = __fsub_rn(r, C[at((size_t)(s0 + j) * Z + z)]);
+            v[j] = __fsub_rn(r, t == 0 ? 0.f : C[(s0 + j) * RF + zf]);
           }
         }
-        if constexpr (TRACK) fail |= par;
         bp::check_rule<MAX_DEG, RULE>(v, d, p.alpha, p.beta);
 #pragma unroll
         for (int j = 0; j < MAX_DEG; ++j)
-          if (j < d) C[at((size_t)(s0 + j) * Z + z)] = v[j];
+          if (j < d) C[(s0 + j) * RF + zf] = v[j];
+        if (TRACK && par) sh.part[f] = 1;
       }
-    }
-    if constexpr (TRACK) {
-      if (active && fail) atomicOr(&fail_s[tx], 1);
-    }
-    __syncthreads();
-    // the frame advances unless its pre-sweep state passed (or it is done)
-    const bool adv = active && (!TRACK || fail_s[tx]);
-    if (adv) {
-      float* out = cur ? buf0 : buf1;
-      for (int q = threadIdx.y; q < n; q += blockDim.y) {
-        const int col = q / Z, zv = q - col * Z;
-        float acc = L[at(q)];
-        for (int k = t.cptr[col]; k < t.cptr[col + 1]; ++k) {
-          const int z = qc::check_index<XOR>(zv, t.cshift[k], Z);
-          acc = __fadd_rn(acc, C[at((size_t)t.cslot[k] * Z + z)]);
+      // the frame advances unless its pre-sweep state passed (or it is
+      // done): flag[f] is the cluster's `fail`
+      if constexpr (TRACK) {
+        fr.reduce();
+      } else {
+        ct::sync_tile(cs);
+      }
+      // VN phase
+      for (st::Walk w(tid, nth, a.R, F); w.a < nb; w.next()) {
+        const int f = w.f, zf = w.zf(), col = w.a;
+        if (f >= nf || (TRACK && (sh.done[f] || !sh.flag[f]))) continue;
+        float acc = p.llr_chip
+                        ? llrs[col * RF + zf]
+                        : a.llr[(size_t)(b0 + f) * n + col * Z +
+                                w.zl * cs + rank];
+        // (loading a variable's messages 8 at a time before the adds
+        // measured slower on the DVB-S2 legs)
+        const int k1 = cptr[col + 1];
+        for (int k = cptr[col]; k < k1; ++k)
+          acc = __fadd_rn(acc, *st::at<XOR>(vbase[k], voff[k], w.zl, zf,
+                                            RF, F));
+        post[col * RF + zf] = acc;
+      }
+      if constexpr (TRACK) {
+        __syncthreads();
+        for (int f = tid; f < F; f += nth) {
+          if (!sh.done[f]) {
+            if (sh.flag[f]) {
+              ++sh.used[f];
+            } else {
+              sh.done[f] = 1;
+            }
+          }
         }
-        out[at(q)] = acc;
       }
-      cur ^= 1;
+      ct::sync_tile(cs);
     }
-    __syncthreads();
-    if constexpr (TRACK) {
-      if (threadIdx.y == 0) {
-        if (adv) ++used;
-        if (active && !fail_s[tx]) done_s[tx] = 1;
-        fail_s[tx] = 0;
-      }
-    }
+    // truthful ok: one final syndrome over the reported state
+    st::syndrome<XOR, MAX_DEG>(a, sh, rptr, cbase, coff, nf);
+    fr.reduce();
+    st::results(a, sh, rank, b0, nf, TRACK);
+    st::move<false>(a, sh, rank, b0, nf, 0);
   }
-
-  // truthful ok: one final syndrome over the reported state, which then
-  // goes to `total` (buffer 0) as the posteriors
-  __syncthreads();
-  if (live) {
-    const float* tot = cur ? buf1 : buf0;
-    if (syndrome_fail_part<XOR>(p, t, tot)) atomicOr(&fail_s[tx], 1);
-    uint8_t* bits = p.bits + tile * n * FT;
-    for (int q = threadIdx.y; q < n; q += blockDim.y) {
-      const float x = tot[at(q)];
-      bits[at(q)] = x < 0.f ? 1 : 0;
-      if (cur) buf0[at(q)] = x;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.y == 0 && live) {
-    p.ok[b] = fail_s[tx] ? 0 : 1;
-    p.iters[b] = TRACK ? used : p.max_iters;
-  }
+  // no block leaves while a peer may still read its shared memory
+  ct::sync_tile(cs);
 }
 
-template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
-cudaError_t launch(const Params& p, dim3 grid, dim3 block, size_t smem,
-                   cudaStream_t stream) {
-  auto kern = flooding_qc_kernel<MAX_DEG, RULE, TRACK, XOR>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  kern<<<grid, block, smem, stream>>>(p);
-  return cudaGetLastError();
+using Kern = void (*)(st::Args, FloodParams);
+
+template <int MAX_DEG, int RULE, bool XOR>
+Kern pick_mode(int track) {
+  if (track) return flooding_qc_kernel<MAX_DEG, RULE, true, XOR>;
+  return flooding_qc_kernel<MAX_DEG, RULE, false, XOR>;
 }
 
 template <int MAX_DEG, bool XOR>
-cudaError_t launch_rule(const Params& p, int rule, int track, dim3 grid,
-                        dim3 block, size_t smem, cudaStream_t st) {
-  switch (rule) {
-    case bp::kMinsum:
-      return track ? launch<MAX_DEG, bp::kMinsum, true, XOR>(p, grid, block, smem, st)
-                   : launch<MAX_DEG, bp::kMinsum, false, XOR>(p, grid, block, smem, st);
-    case bp::kSpa:
-      return track ? launch<MAX_DEG, bp::kSpa, true, XOR>(p, grid, block, smem, st)
-                   : launch<MAX_DEG, bp::kSpa, false, XOR>(p, grid, block, smem, st);
-    default:
-      return track ? launch<MAX_DEG, bp::kMinstar, true, XOR>(p, grid, block, smem, st)
-                   : launch<MAX_DEG, bp::kMinstar, false, XOR>(p, grid, block, smem, st);
-  }
+Kern pick_rule(int rule, int track) {
+  if (rule == bp::kSpa) return pick_mode<MAX_DEG, bp::kSpa, XOR>(track);
+  if (rule == bp::kMinstar) return pick_mode<MAX_DEG, bp::kMinstar, XOR>(track);
+  return pick_mode<MAX_DEG, bp::kMinsum, XOR>(track);
 }
 
 template <bool XOR>
-cudaError_t launch_width(const Params& p, int dcb_max, int rule, int track,
-                         dim3 grid, dim3 block, size_t smem, cudaStream_t st) {
-  if (dcb_max <= 8) return launch_rule<8, XOR>(p, rule, track, grid, block, smem, st);
-  if (dcb_max <= 16) return launch_rule<16, XOR>(p, rule, track, grid, block, smem, st);
-  return launch_rule<32, XOR>(p, rule, track, grid, block, smem, st);
+Kern pick_width(int dcb_max, int rule, int track) {
+  if (dcb_max <= 8) return pick_rule<8, XOR>(rule, track);
+  if (dcb_max <= 16) return pick_rule<16, XOR>(rule, track);
+  return pick_rule<32, XOR>(rule, track);
+}
+
+Kern pick(int dcb_max, int rule, int track, int xor_perm) {
+  return xor_perm ? pick_width<true>(dcb_max, rule, track)
+                  : pick_width<false>(dcb_max, rule, track);
+}
+
+bool bad(int dcb_max, int rule) {
+  return dcb_max > 32 || dcb_max < 1 || rule < 0 || rule > 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decodes B frames in ceil(B / FT) tiles of FT = 8 frames (the arrays hold
-// whole tiles; lanes past B are left alone) with rule 0 (minsum), 1 (spa)
-// or 2 (minstar) on a circulant (xor_perm = 0) or an XOR-permutation graph
-// (xor_perm = 1); returns a cudaError_t (0 on a successful launch).
-// dcb_max must be <= 32 and 8 * threads_y <= 512; the wrapper checks both.
-int flooding_qc_decode(void* llr, void* total, void* nxt, void* C, void* bits,
-                       void* ok, void* iters, void* tab, int Z, int mb, int nb,
-                       int BE, int B, int max_iters, int dcb_max, int rule,
-                       float alpha, float beta, int track, int threads_y,
-                       int xor_perm, void* stream) {
-  if (threads_y < 1 || FT * threads_y > 512 || dcb_max > 32 || B < 1 ||
-      rule < 0 || rule > 2)
-    return (int)cudaErrorInvalidValue;
-  Params p;
-  p.llr = static_cast<const float*>(llr);
-  p.total = static_cast<float*>(total);
-  p.nxt = static_cast<float*>(nxt);
-  p.C = static_cast<float*>(C);
-  p.bits = static_cast<uint8_t*>(bits);
-  p.ok = static_cast<uint8_t*>(ok);
-  p.iters = static_cast<int32_t*>(iters);
-  p.tab = static_cast<const int32_t*>(tab);
-  p.Z = Z; p.mb = mb; p.nb = nb; p.BE = BE; p.B = B;
-  p.max_iters = max_iters; p.alpha = alpha; p.beta = beta;
-  const dim3 block(FT, threads_y);
-  const dim3 grid((B + FT - 1) / FT);
-  const size_t smem = sizeof(int) * (size_t)(mb + 1 + nb + 1 + 4 * BE);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (xor_perm)
-    return (int)launch_width<true>(p, dcb_max, rule, track, grid, block, smem, st);
-  return (int)launch_width<false>(p, dcb_max, rule, track, grid, block, smem, st);
+// The number of clusters of `cs` blocks of `threads` threads and `smem`
+// bytes of dynamic shared memory that can be resident at once, for the
+// kernel instance the other arguments pick (0: the plan does not fit).
+int flooding_qc_clusters(int dcb_max, int rule, int track, int xor_perm,
+                         int cs, int threads, int smem, void* out) {
+  if (bad(dcb_max, rule)) return (int)cudaErrorInvalidValue;
+  return (int)ct::max_clusters(pick(dcb_max, rule, track, xor_perm), cs,
+                               threads, (size_t)smem, static_cast<int*>(out));
+}
+
+// Decodes llr [B, n] with rule 0 (minsum), 1 (spa) or 2 (minstar) on a
+// circulant (xor_perm = 0) or an XOR-permutation graph (xor_perm = 1) by
+// the plan (cs, F, tiles, llr_chip, threads, smem; decode/layered_qc.
+// tile_plan, form "flooding") on `clusters` resident clusters; counter one
+// int (the launch zeroes it). post may be null. Returns a cudaError_t (0 on
+// a successful launch).
+int flooding_qc_decode(void* llr, void* bits, void* post, void* ok,
+                       void* iters, void* counter, void* tab, int Z, int mb,
+                       int nb, int BE, int B, int max_iters, int dcb_max,
+                       int rule, float alpha, float beta, int track,
+                       int xor_perm, int cs, int lg_cs, int F, int tiles,
+                       int llr_chip, int threads, int smem, int clusters,
+                       void* stream) {
+  if (bad(dcb_max, rule)) return (int)cudaErrorInvalidValue;
+  st::Args a;
+  a.llr = static_cast<const float*>(llr);
+  a.bits = static_cast<uint8_t*>(bits);
+  a.post = static_cast<float*>(post);
+  a.ok = static_cast<uint8_t*>(ok);
+  a.iters = static_cast<int32_t*>(iters);
+  a.counter = static_cast<int*>(counter);
+  a.tab = static_cast<const int32_t*>(tab);
+  a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
+  a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
+  a.tiles = tiles;
+  FloodParams p{alpha, beta, llr_chip};
+  return (int)st::launch(pick(dcb_max, rule, track, xor_perm), a, p,
+                         clusters, threads, (size_t)smem,
+                         static_cast<cudaStream_t>(stream));
 }
 
 const char* flooding_qc_error_string(int err) {

@@ -25,17 +25,11 @@ import torch
 from ..device import resolve_device
 from ..graph.compile import CompiledGraph
 from .cn_ops import CN_KINDS, get_rule
-from .layered_qc import (
-    _check_llr,
-    _device_tables,
-    _from_tiles,
-    _lib,
-    _raise_launch,
-    _to_tiles,
-)
+from .layered_qc import _check_llr, _device_tables, _lib, _raise_launch
 from .types import DecodeResult
 
 MAX_DC = 32     # the kernel's largest row degree
+_FT = 8          # frames per block (csrc/flooding.cu's FT)
 _THREADS_Y = 64  # rows of threads per block (8 frames each)
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
 _ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
@@ -51,6 +45,24 @@ def check_args(graph: CompiledGraph, kind: str, alpha, beta) -> None:
         raise KeyError(f"flooding kind must be one of {CN_KINDS}, got {kind!r}")
     if np.ndim(alpha) != 0 or np.ndim(beta) != 0:
         raise ValueError("flooding decoders take scalar alpha/beta only")
+
+
+def _to_tiles(llr: torch.Tensor) -> torch.Tensor:
+    """llr [B, n] -> f32 [tiles, n, FT], frames innermost, the last tile
+    padded with zero LLRs (its extra lanes are never written back)."""
+    B, n = llr.shape
+    tiles = -(-B // _FT)
+    x = llr if tiles * _FT == B else torch.cat(
+        [llr, llr.new_zeros((tiles * _FT - B, n))])
+    return x.view(tiles, _FT, n).transpose(1, 2).contiguous()
+
+
+def _from_tiles(x: torch.Tensor, B: int) -> torch.Tensor:
+    """[tiles, n, FT] -> [B, n], the inverse of _to_tiles."""
+    tiles, n, _ = x.shape
+    return x.transpose(1, 2).reshape(tiles * _FT, n)[:B].contiguous()
+
+
 
 
 def _plain_tables(graph: CompiledGraph, device):

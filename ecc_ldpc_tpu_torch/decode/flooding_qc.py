@@ -17,7 +17,12 @@ CPU path and the card's yardstick.
 ecc_ldpc_tpu/decode/pallas/flooding_qc.py::_kernel (and, on XOR graphs,
 ecc_ldpc_tpu/decode/pallas/layered_xor.py::_kernel's flooding mode, K4),
 the same operations in the same order: bit-identical with the plain
-version on the card.
+version on the card. The kernel holds a tile's whole decoder state on chip
+(csrc/state_tile.cuh) by the plan layered_qc.tile_plan(..., form=
+"flooding") gives (a dvbs2/64800 frame over a cluster of 8 SMs, several
+802.3an frames an SM), and reads llr [B, n] and writes [B, n] directly;
+`flooding_qc_decode_cuda.last_plan` is its last launch's plan and the
+clusters resident.
 """
 from __future__ import annotations
 
@@ -32,19 +37,18 @@ from .cn_ops import CN_KINDS, get_rule
 from .layered_qc import (
     _check_llr,
     _device_tables,
-    _from_tiles,
     _kernel_table,
     _lib,
+    _plan_launch,
+    _ptr,
     _raise_launch,
-    _to_tiles,
 )
 from .types import DecodeResult
 
 MAX_DEG = 32     # the kernel's largest row degree
-_THREADS_Y = 64  # rows of threads per block (8 frames each)
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
-_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
-         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 def check_args(graph: QCGraph, kind: str, alpha, beta) -> None:
@@ -192,34 +196,30 @@ def _flooding_table(graph: QCGraph, device):
 
 
 def _launch(graph: QCGraph, llr: torch.Tensor, kind: str, alpha, beta,
-            max_iters: int, early_term: bool):
-    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch."""
+            max_iters: int, early_term: bool, with_posteriors: bool = False):
+    """(DecodeResult, posteriors f32 [B, n] or None) of one launch."""
     check_args(graph, kind, alpha, beta)
     _check_llr(llr, graph.n, max_iters, "flooding_qc_decode_cuda",
                "flooding_qc_decode_plain")
     if graph.dcb_max > MAX_DEG:
         raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
                          f"the flooding kernel's limit {MAX_DEG}")
-    dev = llr.device
-    B, Z, n = llr.shape[0], graph.Z, graph.n
+    dev, B = llr.device, llr.shape[0]
     tab = _device_tables(graph, dev, "flooding_kernel", _flooding_table)
-    L = _to_tiles(llr)
-    tiles, _, ft = L.shape
-    total = torch.empty_like(L)
-    nxt = torch.empty_like(L)
-    C = torch.empty((tiles, graph.num_block_edges * Z, ft),
-                    dtype=torch.float32, device=dev)
-    bits = torch.empty((tiles, n, ft), dtype=torch.uint8, device=dev)
-    ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    inst = (graph.dcb_max, _RULE_IDS[kind], int(early_term),
+            int(graph.perm == "xor"))
+    plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
+        "flooding_qc", inst, graph, llr, kind, early_term, with_posteriors,
+        "flooding")
     lib = _lib("flooding_qc", "flooding_qc_decode", _ARGS)
     with torch.cuda.device(dev):
         rc = lib.flooding_qc_decode(
-            L.data_ptr(), total.data_ptr(), nxt.data_ptr(), C.data_ptr(),
-            bits.data_ptr(), ok.data_ptr(), iters.data_ptr(), tab.data_ptr(),
-            Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
-            graph.dcb_max, _RULE_IDS[kind], float(alpha), float(beta),
-            int(early_term), _THREADS_Y, int(graph.perm == "xor"),
+            llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
+            iters.data_ptr(), *ptrs, tab.data_ptr(),
+            graph.Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
+            graph.dcb_max, inst[1], float(alpha), float(beta), *inst[2:],
+            plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
+            int(plan.llr_chip), plan.threads, plan.smem, clusters,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -228,9 +228,8 @@ def _launch(graph: QCGraph, llr: torch.Tensor, kind: str, alpha, beta,
     flooding_qc_decode_cuda.frames += B
     flooding_qc_decode_cuda.launches_by_perm[graph.perm] += 1
     flooding_qc_decode_cuda.frames_by_perm[graph.perm] += B
-    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
-                       iterations=iters)
-    return res, total
+    flooding_qc_decode_cuda.last_plan = plan, clusters
+    return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def flooding_qc_decode_cuda(graph: QCGraph, llr: torch.Tensor, *,
@@ -239,7 +238,8 @@ def flooding_qc_decode_cuda(graph: QCGraph, llr: torch.Tensor, *,
                             early_term: bool = True) -> DecodeResult:
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
     the QC flooding kernel on the current stream. Raises on anything the
-    kernel does not take; never falls back to the plain version."""
+    kernel does not take, a plan that does not fit included; never falls
+    back to the plain version."""
     return _launch(graph, llr, kind, alpha, beta, max_iters, early_term)[0]
 
 
@@ -249,8 +249,8 @@ def flooding_qc_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                      early_term: bool = True):
     """(DecodeResult, posteriors f32 [B, n]) of one launch: for holding the
     kernel against flooding_qc_with_posteriors_plain."""
-    res, total = _launch(graph, llr, kind, alpha, beta, max_iters, early_term)
-    return res, _from_tiles(total, llr.shape[0])
+    return _launch(graph, llr, kind, alpha, beta, max_iters, early_term,
+                   with_posteriors=True)
 
 
 flooding_qc_decode_cuda.launches = 0
@@ -258,6 +258,8 @@ flooding_qc_decode_cuda.frames = 0  # frames decoded: the retry fallback's load
 # per block permutation: the roll and xor instantiations are kernels apart
 flooding_qc_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 flooding_qc_decode_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
+# the last launch's (TilePlan, clusters resident), for printing
+flooding_qc_decode_cuda.last_plan = None
 
 
 def make_flooding_qc_decoder(graph: QCGraph, *, kind: str = "minsum",

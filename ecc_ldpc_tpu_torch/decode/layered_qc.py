@@ -28,9 +28,10 @@ that replace ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel's
 ecc_ldpc_tpu/decode/pallas/layered_xor.py::_kernel's layered `sweep` (K4),
 scalar or per-iteration alpha/beta. `make_layered_decoder` picks one by
 graph and rule. The min-sum and exact-BP kernels hold a tile of frames'
-posteriors on chip (csrc/cluster_tile.cuh) by the plan `tile_plan`
-gives, and read llr [B, n] directly; the classic kernel and the flooding
-kernels take frames in tiles of 8 (`_to_tiles`).
+posteriors on chip (csrc/cluster_tile.cuh), the classic kernel and the QC
+flooding kernel (decode/flooding_qc.py) a tile's whole decoder state,
+posteriors and messages (csrc/state_tile.cuh), each by the plan
+`tile_plan` gives for its form, and all read llr [B, n] directly.
 Min-sum is bit-identical with the plain version in f32 (same operations in
 the same order, no fused multiply-add, no reduction across frames); the
 exact rules are too wherever the card's expf, logf, tanhf and log1pf are
@@ -58,10 +59,10 @@ _MINSTAR_IDENTITY = 1e9      # box-plus identity: a degree-1 row's message
 _SIGN = -(1 << 31)           # the f32 sign bit as an int32
 CN_RULES = ("minsum", "spa", "minstar")
 MAX_DEG = 32    # the kernels' largest row degree (csrc/*.cu)
-_FT = 8         # frames per CUDA block of the classic and flooding kernels
 _THREADS = 512  # threads per CUDA block at most (__launch_bounds__)
-# csrc/cluster_tile.cuh: shared memory a block may use on an H100, the
-# kernels' static shared arrays (rounded up), frames per tile at most; the
+# csrc/cluster_tile.cuh, csrc/state_tile.cuh: shared memory a block may use
+# on an H100, the kernels' static shared arrays (rounded up), frames per
+# tile at most; the
 # posteriors of block-columns a cluster of one cannot hold on chip that may
 # be in flight in the L2 scratch (of its 50 MB, beside the check state)
 _SMEM_BLOCK = 232_448
@@ -345,30 +346,24 @@ def _kernel_table(graph: QCGraph, device):
     return torch.as_tensor(tab, device=device)
 
 
-def threads_z(Z: int) -> int:
-    """Threads along z per block: all Z checks when they fit, else the
-    largest divisor of Z that fits the block (no idle z-round), unless
-    that wastes over half the block."""
-    cap = _THREADS // _FT
-    if Z <= cap:
-        return Z
-    best = max(d for d in range(1, cap + 1) if Z % d == 0)
-    return best if 2 * best > cap else cap
-
-
 def _round4(x: int) -> int:
     return -(-x // 4) * 4
 
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """How the min-sum and exact-BP kernels (csrc/cluster_tile.cuh) cut a
-    batch: tiles of `frames` frames, each held for the whole decode by a
-    cluster of `cluster` blocks. Rank r of a cluster owns rows z = r (mod
-    cluster) of every block-column (`rows` of each) and the checks of the
-    same rows. `chip` block-columns live in the ranks' shared memory, the
-    rest (a cluster of one only) in the tile's L2 scratch, as `home` says
-    (column_homes); `slot` is the index map."""
+    """How the tile kernels cut a batch: tiles of `frames` frames, each held
+    for the whole decode by a cluster of `cluster` blocks. Rank r of a
+    cluster owns rows z = r (mod cluster) of every block-column (`rows` of
+    each) and the checks of the same rows. `form` "set" (the min-sum and
+    exact-BP kernels, csrc/cluster_tile.cuh): `chip` block-columns live in
+    the ranks' shared memory, the rest (a cluster of one only) in the tile's
+    L2 scratch, as `home` says (column_homes), and the check state in HBM
+    slabs of `stride` words. Forms "classic" (csrc/layered_classic.cu) and
+    "flooding" (csrc/flooding_qc.cu), csrc/state_tile.cuh: every
+    block-column and every message on chip (chip = nb, stride 0), and in
+    flooding the LLRs too where `llr_chip`. `slot` and `message_slot` are
+    the index maps."""
 
     cluster: int    # CS: blocks per cluster, a power of two dividing Z
     frames: int     # F: frames per tile
@@ -380,6 +375,8 @@ class TilePlan:
     clusters: int   # clusters the plan expects resident (sms // CS)
     chip: int       # block-columns held in shared memory
     home: tuple = dataclasses.field(repr=False)  # [nb] column -> k or -1-j
+    form: str = "set"
+    llr_chip: bool = False  # flooding: the LLRs held in shared memory
 
     @property
     def lg_cluster(self) -> int:
@@ -400,6 +397,15 @@ class TilePlan:
         rank = np.where(on, z % self.cluster, -1)
         word = np.where(on, (h * self.rows + z // self.cluster) * self.frames,
                         ((-1 - h) * Z + z) * self.frames) + f
+        return rank, word
+
+    def message_slot(self, s, z, f):
+        """(rank, f32 word in that rank's message buffer) of sweep slot s's
+        message to check z, frame f of the tile (forms "classic" and
+        "flooding"; numpy arrays welcome): the rank that owns the check."""
+        rank = np.asarray(z) % self.cluster
+        word = (np.asarray(s) * self.rows
+                + np.asarray(z) // self.cluster) * self.frames + f
         return rank, word
 
     def as_dict(self) -> dict:
@@ -435,29 +441,67 @@ def column_homes(graph: QCGraph, chip: int) -> tuple:
     return tuple(home)
 
 
+FORMS = ("set", "classic", "flooding")
+
+
+def _state_words(graph: QCGraph, form: str, llr: bool) -> int:
+    """f32 words of a form "classic" or "flooding" block per (row, frame):
+    posteriors and messages, and the layered deltas (one layer's
+    Cnew - Cold, dcb_max a check) or the flooding LLRs."""
+    own = graph.dcb_max if form == "classic" else (graph.nb if llr else 0)
+    return graph.nb + graph.num_block_edges + own
+
+
+def _state_tables(graph: QCGraph, form: str) -> int:
+    """Dynamic shared bytes of a form "classic" or "flooding" block's
+    tables: per sweep slot a pointer and an offset (and flooding's per
+    column edge the same), the row pointers, and the classic accumulate's
+    barrier masks or flooding's column pointers."""
+    BE, mb = graph.num_block_edges, graph.mb
+    if form == "classic":
+        return 12 * BE + 4 * (mb + 1) + 4 * mb
+    return 24 * BE + 4 * (mb + 1) + 4 * (graph.nb + 1)
+
+
+def _threads_cap(graph: QCGraph, form: str) -> int:
+    """Threads per block at most: the state forms' kernels take 1024 where
+    the row degree is at most 8 (their __launch_bounds__; 64 registers a
+    thread hold a check of 8 without spilling), else 512."""
+    return 2 * _THREADS if form != "set" and graph.dcb_max <= 8 else _THREADS
+
+
 def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
-                    sms: int = H100_SMS, track: bool = False) -> list:
+                    sms: int = H100_SMS, track: bool = False,
+                    form: str = "set") -> list:
     """[(waves, SMs busy, TilePlan)] for each cluster size that fits
-    `batch` frames of `graph` on a card of `sms` SMs, for the min-sum
-    (cn="minsum") or exact-BP kernel. Per block: the posteriors held on
-    chip (F x R f32 a block-column), two layers of check state (NW = 3-4
-    words a check for min-sum, d for exact BP) and the tables fit
-    _SMEM_BLOCK. A cluster of several blocks holds every block-column; a
-    cluster of one whose single frame does not fit leaves some in the L2
-    scratch (column_homes), up to SPILL_BUDGET bytes in flight. The waves
-    of tiles at sms // CS clusters resident are the fewest the largest F
-    that fits allows (in track mode, where a tile runs until its slowest
+    `batch` frames of `graph` on a card of `sms` SMs, for the kernels of
+    `form`. "set", the min-sum (cn="minsum") or exact-BP kernel: per block
+    the posteriors held on chip (F x R f32 a block-column), two layers of
+    check state (NW = 3-4 words a check for min-sum, d for exact BP) and the
+    tables fit _SMEM_BLOCK; a cluster of several blocks holds every
+    block-column; a cluster of one whose single frame does not fit leaves
+    some in the L2 scratch (column_homes), up to SPILL_BUDGET bytes in
+    flight. "classic" and "flooding": per block the whole state of its rows
+    (_state_words, the flooding LLRs where they fit) and the tables. The
+    waves of tiles at sms // CS clusters resident are the fewest the largest
+    F that fits allows (in track mode, where a tile runs until its slowest
     frame stops, at least TRACK_WAVES where the batch allows), and F the
     smallest that fills them, so a small batch spreads over the card and
     waves end even."""
+    if form not in FORMS:
+        raise KeyError(f"form must be one of {FORMS}, got {form!r}")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
-    if graph.mb < 2:
+    if graph.mb < 2 and form == "set":
         raise ValueError(f"{graph.name}: the tile kernels need >= 2 layers")
+    if graph.dcb_max > MAX_DEG:
+        raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
+                         f"the tile kernels' limit {MAX_DEG}")
     Z, nb = graph.Z, graph.nb
     words = ((3 if graph.dcb_max <= 16 else 4) if cn == "minsum"
              else graph.dcb_max)
     tab = (12 * graph.num_block_edges + 4 * (graph.mb + 1) + 4 * nb)
+    room = _SMEM_BLOCK - _SMEM_STATIC
     plans = []
     for cs in CLUSTER_SIZES:
         clusters = sms // cs
@@ -465,20 +509,32 @@ def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
             continue
         R = Z // cs
 
-        def fit(F):
-            """(block-columns on chip, dynamic shared bytes), or None."""
+        def fit_set(F):
+            """(block-columns on chip, dynamic shared bytes, False), or
+            None."""
             rest = 8 * _round4(words * R * F) + tab
-            room = _SMEM_BLOCK - _SMEM_STATIC - rest
-            if room < 0:
+            left = room - rest
+            if left < 0:
                 return None
-            chip = min(nb, room // (4 * R * F))
-            while chip and 4 * _round4(chip * R * F) > room:
+            chip = min(nb, left // (4 * R * F))
+            while chip and 4 * _round4(chip * R * F) > left:
                 chip -= 1
             spilled = (nb - chip) * Z * F * 4 * clusters
             if chip < nb and (cs > 1 or F > 1 or spilled > SPILL_BUDGET):
                 return None
-            return chip, 4 * _round4(chip * R * F) + rest
+            return chip, 4 * _round4(chip * R * F) + rest, False
 
+        def fit_state(F):
+            """(nb, dynamic shared bytes, LLRs on chip), or None: the
+            flooding LLRs on chip where they fit."""
+            for llr in (True, False) if form == "flooding" else (False,):
+                smem = (4 * _round4(_state_words(graph, form, llr) * R * F)
+                        + _state_tables(graph, form))
+                if smem <= room:
+                    return nb, smem, llr
+            return None
+
+        fit = fit_set if form == "set" else fit_state
         fits = [F for F in range(1, _MAX_FRAMES + 1) if fit(F)]
         if not fits:
             continue
@@ -486,33 +542,68 @@ def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
         if track:
             waves = max(waves, min(TRACK_WAVES, -(-batch // clusters)))
         F = -(-batch // (clusters * waves))
-        chip, smem = fit(F)
+        chip, smem, llr = fit(F)
         tiles = -(-batch // F)
-        threads = min(_THREADS, max(32, -(-R * F // 32) * 32))
+        items = R * F * (1 if form != "flooding" else max(graph.mb, nb))
+        threads = min(_threads_cap(graph, form),
+                      max(32, -(-items // 32) * 32))
+        stride = _round4(words * R * F) if form == "set" else 0
         plans.append((-(-tiles // clusters), min(tiles, clusters) * cs,
-                      TilePlan(cs, F, R, tiles, _round4(words * R * F),
-                               threads, smem, clusters, chip,
-                               column_homes(graph, chip))))
+                      TilePlan(cs, F, R, tiles, stride, threads, smem,
+                               clusters, chip, column_homes(graph, chip),
+                               form, llr)))
     return plans
 
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(graph: QCGraph, batch: int, cn: str = "minsum",
-              sms: int = H100_SMS, track: bool = False) -> TilePlan:
-    """The tile plan of the min-sum or exact-BP kernel: of
-    candidate_plans, the smallest cluster among those with the fewest
-    waves that keep at least 90% as many SMs busy as the busiest of them.
-    Raises ValueError when no plan fits. Cached: the wrappers ask for it
-    on every launch, and working it out takes milliseconds of host time."""
-    plans = candidate_plans(graph, batch, cn, sms, track)
+              sms: int = H100_SMS, track: bool = False,
+              form: str = "set") -> TilePlan:
+    """The tile plan of the kernels of `form`, of candidate_plans: form
+    "set", the smallest cluster among those with the fewest waves that
+    keep at least 90% as many SMs busy as the busiest of them; forms
+    "classic" and "flooding", whose barriers a cluster makes dearer (the
+    layered accumulate form takes several a layer), the smallest cluster
+    that keeps at least 90% as many SMs busy as the busiest plan, so a
+    cluster holds a tile only where its frame fits no smaller one or a
+    small batch would leave SMs idle. Raises ValueError when no plan fits.
+    Cached: the wrappers ask for it on every launch, and working it out
+    takes milliseconds of host time."""
+    plans = candidate_plans(graph, batch, cn, sms, track, form)
     if not plans:
+        what = (f"{graph.n} posteriors a frame" if form == "set" else
+                f"{graph.n} posteriors and "
+                f"{graph.num_block_edges * graph.Z} messages a frame")
         raise ValueError(
-            f"{graph.name}: no tile plan fits: {graph.n} posteriors a frame "
-            f"on at most {max(c for c in CLUSTER_SIZES if graph.Z % c == 0)}"
+            f"{graph.name}: no tile plan fits: {what} on at most "
+            f"{max(c for c in CLUSTER_SIZES if graph.Z % c == 0)}"
             f" blocks of {_SMEM_BLOCK} B")
-    waves = min(w for w, _, _ in plans)
-    busy = max(u for w, u, _ in plans if w == waves)
-    return next(p for w, u, p in plans if w == waves and 10 * u >= 9 * busy)
+    if form == "set":
+        waves = min(w for w, _, _ in plans)
+        plans = [q for q in plans if q[0] == waves]
+    busy = max(u for _, u, _ in plans)
+    return next(p for _, u, p in plans if 10 * u >= 9 * busy)
+
+
+def classic_barriers(graph: QCGraph, cn: str) -> list:
+    """Per layer in layer_order, the mask of visit positions q (bit q)
+    before which the classic kernel's accumulate step takes a barrier:
+    slots are visited in layer order (reversed for minstar), and a slot
+    whose block-column an earlier slot wrote since the last barrier must
+    wait for it (csrc/layered_classic.cu)."""
+    masks = []
+    for i in graph.layer_order:
+        cols = [c for _, c, _ in graph.layer_edges(i)]
+        order = range(len(cols) - 1, -1, -1) if cn == "minstar" \
+            else range(len(cols))
+        mask, since = 0, set()
+        for q, j in enumerate(order):
+            if cols[j] in since:
+                mask |= 1 << q
+                since = set()
+            since.add(cols[j])
+        masks.append(mask)
+    return masks
 
 
 def _lib(name: str, entry: str, argtypes):
@@ -533,9 +624,9 @@ def _lib(name: str, entry: str, argtypes):
 _QC_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
             + [ctypes.c_float] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
 _EXACT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
-_CLUSTERS_ARGS = [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 9
+                 + [ctypes.c_void_p])
 _RESIDENT = {}  # (library, kernel instance, plan shape, card) -> clusters
 _SMS = {}       # card -> its SM count
 
@@ -547,7 +638,9 @@ def resident_clusters(name: str, inst: tuple, plan: TilePlan,
     when no cluster of the plan fits."""
     key = (name, inst, plan.cluster, plan.threads, plan.smem, str(device))
     if key not in _RESIDENT:
-        lib = _lib(name, f"{name}_clusters", _CLUSTERS_ARGS)
+        # the instance's ints, then cs, threads and smem, then the result
+        lib = _lib(name, f"{name}_clusters",
+                   [ctypes.c_int] * (len(inst) + 3) + [ctypes.c_void_p])
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = getattr(lib, f"{name}_clusters")(
@@ -563,30 +656,36 @@ def resident_clusters(name: str, inst: tuple, plan: TilePlan,
 
 
 def _plan_launch(name: str, inst: tuple, graph: QCGraph, llr: torch.Tensor,
-                 cn: str, track: bool, with_posteriors: bool):
-    """(plan, resident clusters, the addresses of the check state, the L2
-    scratch, the column homes and the tile counter, then bits, posteriors
-    or None, ok, iters) of one tile-kernel launch. The three scratch
-    buffers are one allocation: the host work before a launch is time the
-    card waits."""
+                 cn: str, track: bool, with_posteriors: bool,
+                 form: str = "set"):
+    """(plan, resident clusters, scratch, the addresses the kernel takes
+    for it, then bits, posteriors or None, ok, iters) of one tile-kernel
+    launch. Form "set": the check state, the L2 scratch, the column homes
+    and the tile counter, the three scratch buffers one allocation (the
+    host work before a launch is time the card waits); forms "classic" and
+    "flooding" keep their state on chip and take the tile counter alone."""
     dev, B, n = llr.device, llr.shape[0], graph.n
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = tile_plan(graph, B, cn, _SMS[dev], track)
+    plan = tile_plan(graph, B, cn, _SMS[dev], track, form)
     clusters = min(plan.tiles, resident_clusters(name, inst, plan, dev))
     words = clusters * plan.cluster * graph.mb * plan.stride  # a multiple of 4
     spilled = clusters * plan.spill * graph.Z * plan.frames
     scratch = torch.empty(words + spilled + 1, dtype=torch.int32, device=dev)
     at = scratch.data_ptr()
-    home = _device_tables(graph, dev, ("home", plan.home),
-                          lambda g, d: torch.as_tensor(
-                              plan.home, dtype=torch.int32, device=d))
+    if form == "set":
+        home = _device_tables(graph, dev, ("home", plan.home),
+                              lambda g, d: torch.as_tensor(
+                                  plan.home, dtype=torch.int32, device=d))
+        ptrs = (at, at + 4 * words, home.data_ptr(),
+                at + 4 * (words + spilled))
+    else:
+        ptrs = (at,)
     bits = torch.empty((B, n), dtype=torch.uint8, device=dev)
     post = (torch.empty((B, n), dtype=torch.float32, device=dev)
             if with_posteriors else None)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
-    ptrs = (at, at + 4 * words, home.data_ptr(), at + 4 * (words + spilled))
     return plan, clusters, scratch, ptrs, bits, post, ok, iters
 
 
@@ -627,22 +726,6 @@ def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
         raise ValueError(
             f"{graph.name}: a layer repeats a block-column; its kernel is "
             f"layered_classic_cuda's")
-
-
-def _to_tiles(llr: torch.Tensor) -> torch.Tensor:
-    """llr [B, n] -> f32 [tiles, n, FT], frames innermost, the last tile
-    padded with zero LLRs (its extra lanes are never written back)."""
-    B, n = llr.shape
-    tiles = -(-B // _FT)
-    x = llr if tiles * _FT == B else torch.cat(
-        [llr, llr.new_zeros((tiles * _FT - B, n))])
-    return x.view(tiles, _FT, n).transpose(1, 2).contiguous()
-
-
-def _from_tiles(x: torch.Tensor, B: int) -> torch.Tensor:
-    """[tiles, n, FT] -> [B, n], the inverse of _to_tiles."""
-    tiles, n, _ = x.shape
-    return x.transpose(1, 2).reshape(tiles * _FT, n)[:B].contiguous()
 
 
 def _raise_launch(lib, name: str, rc: int) -> None:
@@ -739,21 +822,6 @@ layered_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 layered_decode_cuda.last_plan = None
 
 
-def _message_buffers(graph: QCGraph, llr: torch.Tensor):
-    """Tile buffers of the classic kernel, which keeps every message:
-    (slot table, total, C, bits, ok, iters); total holds the LLRs in and
-    the posteriors out, C one row per sweep slot and check."""
-    dev = llr.device
-    B, tiles = llr.shape[0], -(-llr.shape[0] // _FT)
-    tab = _device_tables(graph, dev, "kernel", _kernel_table)
-    C = torch.empty((tiles, graph.num_block_edges * graph.Z, _FT),
-                    dtype=torch.float32, device=dev)
-    bits = torch.empty((tiles, graph.n, _FT), dtype=torch.uint8, device=dev)
-    ok = torch.empty(B, dtype=torch.uint8, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
-    return tab, _to_tiles(llr), C, bits, ok, iters
-
-
 def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
                   early_term: bool, cn: str, with_posteriors: bool = False):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
@@ -814,9 +882,18 @@ layered_exact_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
 layered_exact_cuda.last_plan = None
 
 
+def _classic_table(graph: QCGraph, device, cn: str):
+    """int32: _kernel_table, then the accumulate step's barrier masks
+    (classic_barriers: minstar visits a layer's slots backward)."""
+    masks = np.asarray(classic_barriers(graph, cn), np.uint32).view(np.int32)
+    tab = np.concatenate([_kernel_table(graph, "cpu").numpy(), masks])
+    return torch.as_tensor(tab, device=device)
+
+
 def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
-                    max_iters: int, early_term: bool, cn: str):
-    """(DecodeResult, posteriors f32 [tiles, n, FT]) of one launch of the
+                    max_iters: int, early_term: bool, cn: str,
+                    with_posteriors: bool = False):
+    """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     layered kernel for graphs that repeat a block-column in a layer."""
     alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
     if graph.perm != "roll":
@@ -826,22 +903,24 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
             f"xor graph is layered_decode_cuda's and layered_exact_cuda's")
     _check_cuda_input(graph, llr, max_iters, "layered_classic_cuda",
                       classic=True)
-    dev, B, Z = llr.device, llr.shape[0], graph.Z
-    tab, total, C, bits, ok, iters = _message_buffers(graph, llr)
+    dev, B = llr.device, llr.shape[0]
+    tab = _device_tables(graph, dev, ("classic", cn == "minstar"),
+                         lambda g, d: _classic_table(g, d, cn))
     ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
           if per_iter else None)
-    # one layer's message changes Cnew - Cold (csrc/layered_classic.cu)
-    D = torch.empty((C.shape[0], graph.dcb_max * Z, _FT),
-                    dtype=torch.float32, device=dev)
+    inst = (graph.dcb_max, CN_RULES.index(cn), int(early_term))
+    plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
+        "layered_classic", inst, graph, llr, cn, early_term, with_posteriors,
+        "classic")
     lib = _lib("layered_classic", "layered_classic_decode", _CLASSIC_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_classic_decode(
-            total.data_ptr(), C.data_ptr(), D.data_ptr(), bits.data_ptr(),
-            ok.data_ptr(), iters.data_ptr(), tab.data_ptr(),
-            None if ab is None else ab.data_ptr(),
-            Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
-            graph.dcb_max, float(alphas[0]), float(betas[0]),
-            CN_RULES.index(cn), int(early_term), threads_z(Z),
+            llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
+            iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(ab),
+            graph.Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
+            graph.dcb_max, float(alphas[0]), float(betas[0]), *inst[1:],
+            plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
+            plan.threads, plan.smem, clusters,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -850,9 +929,8 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
     layered_classic_cuda.frames += B
     layered_classic_cuda.by_rule[cn] += 1
     layered_classic_cuda.frames_by_rule[cn] += B
-    res = DecodeResult(bits=_from_tiles(bits, B), ok=ok.bool(),
-                       iterations=iters)
-    return res, total
+    layered_classic_cuda.last_plan = plan, clusters
+    return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def layered_classic_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
@@ -874,9 +952,8 @@ def classic_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                  early_term: bool = True, cn: str = "minsum"):
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the classic
     layered kernel, for holding it against plain_with_posteriors."""
-    res, total = _launch_classic(graph, llr, alpha, beta, max_iters,
-                                 early_term, cn)
-    return res, _from_tiles(total, llr.shape[0])
+    return _launch_classic(graph, llr, alpha, beta, max_iters, early_term,
+                           cn, with_posteriors=True)
 
 
 layered_classic_cuda.launches = 0
@@ -884,6 +961,7 @@ layered_classic_cuda.frames = 0
 # per rule: one kernel serves a retry decoder's primary and its fallback
 layered_classic_cuda.by_rule = dict.fromkeys(CN_RULES, 0)         # launches
 layered_classic_cuda.frames_by_rule = dict.fromkeys(CN_RULES, 0)  # frames
+layered_classic_cuda.last_plan = None
 
 
 def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,

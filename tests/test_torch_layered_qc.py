@@ -24,7 +24,6 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
     _plain_layers,
     layered_decode_plain,
     make_layered_decoder,
-    threads_z,
 )
 
 torch.set_num_threads(1)
@@ -125,7 +124,3 @@ def test_kernel_table_follows_sweep_order(z16):
         want = np.concatenate([c * Z + (z + sh) % Z
                                for c, sh in zip(col[s], shift[s])])
         assert np.array_equal(idx.numpy(), want)
-    # 8 frames per block, at most 64 threads along z
-    assert threads_z(360) == 60 and threads_z(180) == 60
-    assert threads_z(16) == 16 and threads_z(64) == 64
-    assert threads_z(96) == 48 and threads_z(67) == 64
