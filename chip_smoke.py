@@ -57,9 +57,18 @@ Phases (one JSON line each; any failure raises and exits non-zero):
   11. flooding kernel vs plain — K2 (csrc/flooding.cu) against its plain
      version on mackay1008 on the same LLRs on the card: minsum fixed at
      2.5 dB and track at 2.0 dB, spa and minstar fixed and track at
-     1.5 dB (32 frames; 13 for a ragged last tile), and each rule at the
-     timed leg's shape (2048 frames). Bits, ok and iterations identical;
-     posteriors after one iteration within EXACT_MAX_ULPS.
+     1.5 dB (32 frames; 13, a frame a tile), each rule in track mode
+     at 601 frames (F >= 2, a ragged last tile) and minsum fixed there,
+     minsum track at 2048 frames (tiles of 2 whose frames stop at
+     different iterations), each rule at the timed leg's shape (2048
+     frames), and the form "global" on a seeded (3,6)-regular n = 16384
+     graph (bench/flooding_probe.regular_graph; the all-zero codeword's
+     LLRs), minsum track and spa fixed. Bits, ok and iterations identical;
+     posteriors after one iteration within EXACT_MAX_ULPS. Each case
+     prints its plan (decode/flooding.flooding_plan: a tile's whole state
+     in one block's shared memory, form "chip", or in a device-memory
+     scratch, form "global") and the blocks launched; the cases must
+     include both forms, a ragged tile of F >= 2 and such a track tile.
   12. QC flooding kernel vs plain — K3 (csrc/flooding_qc.cu) the same
      way on dvbs2/64800/12, each rule: fixed at 1.5 dB and track at 1.2
      dB (32 and 13 frames), r=3/4 fixed at 3.0 dB and r=9/10 fixed at 4.0
@@ -72,7 +81,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      (mackay1008 minsum, and spa and minstar on the same shape; the three
      dvbs2/64800/12 flooding legs): ms, Mbit/s, launches, bound, plain ms,
      FER (mackay1008 <= 0.01; the DVB-S2 legs are held to no band: the
-     repo stores no flooding FER for that code).
+     repo stores no flooding FER for that code); each mackay1008 leg also
+     K2's device and host µs a decode (bench/flooding_probe.time_decode)
+     and its plan.
   14. mackay1008 sweep vs golden — run_sweep of spa/50 and
      minsum/norm:0.8125/25 at 1.5 and 2.0 dB (batch 4096, 100 frame
      errors or 65536 frames) must overlap curves/mackay1008_tpu_golden.json
@@ -141,12 +152,14 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      layered/norm:0.8125/50;retry=layered/spa/50 at 3.6 dB, 65536 frames
      in batches of 4096: both xor kernels launched, the fallback got
      frames, and the FER overlaps the reference's retry point.
-  23. K5 vs plain — the ring all-reduce (csrc/ring.cu) on D = 2 and D = 4
-     ranks (processes under torch.distributed.run, gloo between them) of
-     the one card, through bench/ring.py: f32 and int64 at the sweep
-     counters' shape [2, 4], at a ragged 1001 elements and at 16 MiB per
-     rank; K5's sum identical to the plain version's on every rank and the
-     ranks identical to each other; K5, the plain version and gloo's
+  23. K5 vs plain — the all-reduce (csrc/ring.cu: one push into every
+     rank's slot, ordered on the device by interprocess events, then the
+     sum) on D = 2 and D = 4 ranks (processes under
+     torch.distributed.run, gloo between them) of the one card, through
+     bench/ring.py: f32 and int64 at the sweep counters' shape [2, 4], at
+     a ragged 1001 elements and at 16 MiB per rank; K5's sum identical to
+     the plain version's on every rank and the ranks identical to each
+     other, 2 launches a call; K5, the plain version and gloo's
      all_reduce timed on the same CUDA tensors. The card's compute mode
      is printed.
   24. the sharded sweep at full width — bench/sharded.py on meshes 1x1,
@@ -175,6 +188,11 @@ import numpy as np
 import torch
 
 from ecc_ldpc_tpu_torch import _build
+from ecc_ldpc_tpu_torch.bench.flooding_probe import (
+    regular_graph,
+    time_decode,
+    zero_codeword_llr,
+)
 from ecc_ldpc_tpu_torch.bench.throughput import (
     CCSDS_LEGS,
     CCSDS_PRODUCTION_SWEEP,
@@ -288,7 +306,9 @@ PRODUCTION_FRAMES = 65536
 PRODUCTION_FER_MAX = 1.5e-4
 KINDS = ("minsum", "spa", "minstar")
 RULE = {"minsum": "minsum/norm:0.8125", "spa": "spa", "minstar": "minstar"}
-# K2 vs plain on mackay1008: (name, spec with {r}, Eb/N0 dB, B)
+# K2 vs plain on mackay1008: (name, spec, Eb/N0 dB, B). 601 frames take
+# tiles of F = 2 (track) and 6 (fixed), the last one ragged; 2048 track
+# frames tiles of 2, whose frames stop at different iterations
 FLOODING_CASES = [
     ("minsum_fixed_2.5dB", "minsum/norm:0.8125/25/noet", 2.5, 32),
     ("minsum_track_2.0dB", "minsum/norm:0.8125/25", 2.0, 32),
@@ -296,7 +316,22 @@ FLOODING_CASES = [
     *[(f"{k}_{m}_1.5dB", f"{k}/25" + ("/noet" if m == "fixed" else ""),
        1.5, 32) for k in ("spa", "minstar") for m in ("fixed", "track")],
     ("spa_track_1.5dB_13frames", "spa/50", 1.5, 13),
+    *[(f"{k}_track_1.5dB_601frames", f"{r}/25", 1.5, 601)
+      for k, r in (("minsum", "minsum/norm:0.8125"), ("spa", "spa"),
+                   ("minstar", "minstar"))],
+    ("minsum_fixed_2.0dB_601frames", "minsum/norm:0.8125/25/noet", 2.0, 601),
+    ("minsum_track_2.0dB_2048frames", "minsum/norm:0.8125/25", 2.0, 2048),
 ]
+# K2's form "global": (name, decoder arguments) on the seeded (3,6)-regular
+# n = 16384 graph, whose frame (262 KB of state) does not fit a block
+FLOODING_GLOBAL_N = 16384
+FLOODING_GLOBAL_CASES = [
+    ("regular16384_minsum_track_2.0dB",
+     dict(kind="minsum", alpha=0.8125, max_iters=25, early_term=True)),
+    ("regular16384_spa_fixed_2.0dB",
+     dict(kind="spa", max_iters=10, early_term=False)),
+]
+FLOODING_GLOBAL_B = 32
 # K3 vs plain: (name, code, spec with {r} for the rule, Eb/N0, B)
 FLOODING_QC_CASES = [
     ("r12_fixed_1.5dB", "dvbs2/64800/12", "{r}/25/noet", 1.5, 32),
@@ -418,8 +453,9 @@ def same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
 def tile_line(wrapper, B: int) -> dict:
     """The tile plan of a tile kernel's wrapper's last launch (K1a, K1c,
     K1b/K1c', K3: its cluster size, frames a tile, tiles, and the clusters
-    resident at most by cudaOccupancyMaxActiveClusters), and whether the
-    last tile is ragged."""
+    launched, at most those resident by cudaOccupancyMaxActiveClusters; K2:
+    its form, frames a tile, tiles and the blocks launched), and whether
+    the last tile is ragged."""
     plan, resident = wrapper.last_plan
     return dict(plan=dict(plan.as_dict(), resident=resident),
                 ragged=B % plan.frames != 0)
@@ -475,10 +511,13 @@ def compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw,
     are identical and, after one fixed iteration (a schedule's first
     alpha/beta), the posteriors are within EXACT_MAX_ULPS; with
     final_exact (min-sum) also unless the final posteriors are identical.
-    With `tiles` (K1a's or K1c's wrapper) the line carries the decode's
-    tile plan."""
+    With `tiles` (the tile kernel's wrapper) the line carries the decode's
+    tile plan, and whether a tile's frames stopped at different
+    iterations."""
     (kern, ktot), kern_ms = timed(kernel_fn, graph, llr, **dkw)
-    plan = {} if tiles is None else tile_line(tiles, llr.shape[0])
+    plan = {} if tiles is None else dict(
+        tile_line(tiles, llr.shape[0]),
+        spread_stops=spread_stops(kern, tiles.last_plan[0].frames))
     (plain, ptot), plain_ms = timed(plain_fn, graph, llr, **dkw)
     same = (torch.equal(kern.bits, plain.bits) and torch.equal(kern.ok, plain.ok)
             and torch.equal(kern.iterations, plain.iterations))
@@ -545,15 +584,39 @@ def compare_classic(graph, llr, kw) -> dict:
 
 
 def compare_flooding(graph, llr, kw, kernel_fn, plain_fn) -> dict:
-    """A flooding kernel (K2 or K3) against its plain version; K3's line
+    """A flooding kernel (K2 or K3) against its plain version; the line
     carries its tile plan."""
     dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
                beta=kw.get("beta", 0.0), max_iters=kw.get("max_iters", 25),
                early_term=kw.get("early_term", True))
     tiles = (flooding_qc_decode_cuda
-             if kernel_fn is flooding_qc_with_posteriors_cuda else None)
+             if kernel_fn is flooding_qc_with_posteriors_cuda
+             else flooding_decode_cuda)
     return compare_posteriors(kernel_fn, plain_fn, graph, llr, dkw,
                               tiles=tiles)
+
+
+def spread_stops(res, frames: int) -> bool:
+    """Some tile of `frames` frames holds frames that stopped at different
+    iterations (track mode's per-frame freeze inside one tile)."""
+    it = res.iterations
+    whole = it.shape[0] // frames * frames
+    tiles = it[:whole].view(-1, frames)
+    return bool((tiles.amax(1) != tiles.amin(1)).any().item())
+
+
+def check_k2_plans(lines) -> None:
+    """Raise unless K2's cases launched both forms, a tile of F >= 2 with a
+    ragged last tile, and a track tile whose frames stopped at different
+    iterations."""
+    need_plan("K2", lines, 'the form "chip"',
+              lambda r: r["plan"]["form"] == "chip")
+    need_plan("K2", lines, 'the form "global"',
+              lambda r: r["plan"]["form"] == "global")
+    need_plan("K2", lines, "F >= 2 with a ragged last tile",
+              lambda r: r["plan"]["frames"] >= 2 and r["ragged"])
+    need_plan("K2", lines, "a tile whose frames stop at different "
+              "iterations", lambda r: r["spread_stops"])
 
 
 def bench_line(res, launches, smi_before) -> dict:
@@ -1072,9 +1135,9 @@ def dist_path(dev) -> list:
                     raise AssertionError(f"K5 differs from its plain version "
                                          f"or across ranks: rank "
                                          f"{line['rank']}, {c}")
-                if c["launches"] != D + 1:
+                if c["launches"] != 2:
                     raise AssertionError(f"K5 launched {c['launches']} "
-                                         f"kernels for D = {D}")
+                                         f"kernels a call for D = {D}")
         ring_cases[D] = lines[0]["cases"]
         for c in ring_cases[D]:
             emit("ring_vs_plain", **c)
@@ -1407,12 +1470,24 @@ def main() -> int:
     k3 = (flooding_qc_with_posteriors_cuda, flooding_qc_with_posteriors_plain)
     flood_err = {f"flooding:{k}": 0.0 for k in KINDS}
     flood_err.update({f"flooding_qc:{k}": 0.0 for k in KINDS})
+    k2_lines = []
     for name, spec_str, ebn0, B in FLOODING_CASES:
         x = make_inputs("mackay1008", spec_str, B, ebn0, dev, seed=1)
         r = compare_flooding(x.graph, x.llr, x.kw, *k2)
         key = f"flooding:{x.kw['kind']}"
         flood_err[key] = max(flood_err[key], r["max_abs_err"])
+        k2_lines.append(r)
         emit("flooding_vs_plain", case=name, decoder=spec_str, **r)
+    big = regular_graph(FLOODING_GLOBAL_N)
+    for name, kw in FLOODING_GLOBAL_CASES:
+        llr = zero_codeword_llr(big, FLOODING_GLOBAL_B, 2.0, dev)
+        r = compare_flooding(big, llr, kw, *k2)
+        key = f"flooding:{kw['kind']}"
+        flood_err[key] = max(flood_err[key], r["max_abs_err"])
+        k2_lines.append(r)
+        emit("flooding_vs_plain", case=name, code=big.name, **r)
+    del big
+    check_k2_plans(k2_lines)
     # each rule at the timed leg's shape (the leg's code, batch and seed)
     mackay_legs = {k: dict(FLOODING_LEGS["mackay"],
                            decoder=f"{RULE[k]}/25/noet") for k in KINDS}
@@ -1465,11 +1540,15 @@ def main() -> int:
         smi_before = smi_sample()
         res = run_benchmark(**cfg, device=dev)
         flood_launches[key] = wrapper.launches
-        if wrapper is flooding_qc_decode_cuda:  # K3 holds tiles on chip
-            flood_plans[key] = tile_line(wrapper, res.batch)["plan"]
+        flood_plans[key] = tile_line(wrapper, res.batch)["plan"]
+        per_decode = {}
+        if wrapper is flooding_decode_cuda:  # host and device µs a decode
+            x = make_inputs(**cfg, device=dev, seed=0)
+            per_decode = time_decode(x.graph, x.llr, x.kw)[0]
+            del per_decode["plan"], x
         emit("flooding_bench", kernel=key, code=cfg["code"],
              decoder=cfg["decoder"], plain_ms=flood_parity[key]["plain_ms"],
-             plan=flood_plans.get(key),
+             plan=flood_plans[key], **per_decode,
              **bench_line(res, flood_launches[key], smi_before))
         if flood_launches[key] <= 0:
             raise AssertionError(f"{key}: the kernel never launched")
@@ -1616,8 +1695,7 @@ def main() -> int:
             "bound_by": res.roofline_form,
             "library_ms": None,
         })
-        if key in flood_plans:
-            kernels[-1]["plan"] = flood_plans[key]
+        kernels[-1]["plan"] = flood_plans[key]
     kernels += kernels_ccsds + kernels_xor + kernels_dist
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")

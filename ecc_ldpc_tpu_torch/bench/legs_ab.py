@@ -10,8 +10,9 @@ Each process builds its own tree's kernels, times the legs through its own
 tree's bench.throughput.run_benchmark and prints one JSON line per leg.
 Then one line per leg: each tree's time (the mean of its two runs' medians)
 and this / other - 1. Leg names are bench.profile's: the keys of LEGS,
-EXACT_LEGS and FLOODING_LEGS, ccsds_<rule> and 8023an_<mode>; a leg that a
-tree lacks is skipped there.
+EXACT_LEGS and FLOODING_LEGS, ccsds_<rule> and 8023an_<mode>, and
+mackay_spa and mackay_minstar (the mackay leg's shape with spa/25/noet and
+minstar/25/noet); a leg that a tree lacks is skipped there.
 """
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ for name in ("LEGS", "EXACT_LEGS", "FLOODING_LEGS"):
     legs.update(getattr(t, name, {}))
 legs.update({f"ccsds_{k}": v for k, v in getattr(t, "CCSDS_LEGS", {}).items()})
 legs.update({f"8023an_{k}": v for k, v in getattr(t, "XOR_LEGS", {}).items()})
+legs.update({f"mackay_{k}": dict(legs["mackay"], decoder=f"{k}/25/noet")
+             for k in ("spa", "minstar")})
 for leg in sys.argv[2:]:
     if leg in legs:
         r = t.run_benchmark(**legs[leg], device="cuda")

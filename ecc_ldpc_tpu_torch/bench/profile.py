@@ -8,8 +8,8 @@ card:
         -m ecc_ldpc_tpu_torch.bench.profile sharded_sweep_step_2x2
 
 Prints one JSON line per leg (the three min-sum legs, the two exact-BP
-legs, the four flooding legs, the three CCSDS legs, the two 8023an legs of
-K4's modes) and one for each production sweep step (random message,
+legs, the four flooding legs and mackay1008's spa and minstar legs, the
+three CCSDS legs, the two 8023an legs of K4's modes) and one for each production sweep step (random message,
 encode, channel, the retry decoder with its layered and with its flooding
 fallback on DVB-S2, on CCSDS and on 8023an, tally); with LEG names, only
 those rows. A row sharded_sweep_step_BxS (named only, one process per rank
@@ -138,7 +138,10 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     ccsds = {f"ccsds_{cn}": cfg for cn, cfg in CCSDS_LEGS.items()}
     xor = {f"8023an_{leg}": cfg for leg, cfg in XOR_LEGS.items()}
-    legs = {**LEGS, **EXACT_LEGS, **FLOODING_LEGS, **ccsds, **xor}
+    mackay = {f"mackay_{k}": dict(FLOODING_LEGS["mackay"],
+                                  decoder=f"{k}/25/noet")
+              for k in ("spa", "minstar")}
+    legs = {**LEGS, **EXACT_LEGS, **FLOODING_LEGS, **mackay, **ccsds, **xor}
     steps = {"production_sweep_step": PRODUCTION_SWEEP,
              "flooding_production_sweep_step": FLOODING_PRODUCTION_SWEEP,
              "ccsds_production_sweep_step": CCSDS_PRODUCTION_SWEEP,

@@ -12,8 +12,9 @@ at the sweep counters' shape [2, 4], at a ragged 1001 elements, and at
 and to every other rank's, K5's launches, and ms per call of K5, of the
 plain version and of gloo's all_reduce (host clock around back-to-back
 calls ending in a synchronize, after a warm-up), beside the bound
-(ring_bound) and K5's device time per call (its copy and sum kernels
-under torch.profiler): the rest of its ms is the host round trips.
+(ring_bound) and K5's device time per call (its push and sum kernels
+under torch.profiler): the rest of its ms is launches, the host's wait for
+the peers' records and the device's for their pushes.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ def _device_ms(fn, reps: int, dev) -> float:
         torch.cuda.synchronize(dev)
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
-             and ("namespace)::copy_kernel(int4" in e.name
+             and ("namespace)::push_kernel(" in e.name
                   or "namespace)::sum_kernel<" in e.name))
     return us / 1e3 / reps
 

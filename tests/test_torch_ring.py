@@ -2,7 +2,9 @@
 against the JAX package's ring_allreduce (its Pallas kernel in interpret
 mode on virtual CPU devices), on the same numpy blocks: the same slot order,
 so the same bits. The CUDA wrapper runs only on the card (chip_smoke.py
-phase 23); here it must refuse a CPU tensor."""
+phase 23); here it must refuse a CPU tensor, and a CPU model of its
+schedule (push, interprocess events, the host handshake) must show the
+hazards of csrc/ring.cu's header answered for D = 2..8."""
 import multiprocessing
 import pathlib
 
@@ -147,3 +149,119 @@ def test_ring_bound():
     s, form = ring_bound(2, 64, 8)
     assert form == "bytes" and abs(s - 2 * 2 * 64 / 3.35e12) < 1e-18
     assert ring_bound(1, 64, 8)[0] == 2 * 64 / 3.35e12
+
+
+def ring_schedule(D: int, calls: int, seed: int, events: int = 2,
+                  handshake: bool = True) -> list:
+    """A CPU model of K5's schedule on the card (csrc/ring.cu's header):
+    each of D ranks runs `calls` calls of push(k), record E_r[k % events],
+    publish k + 1, spin until every peer published k + 1 (if `handshake`),
+    waits on every peer's E_p[k % events], sum(k), on its host; each host
+    step enqueues onto the rank's stream, and the steps of the hosts and
+    the streams interleave in a seeded random order. A wait binds to the
+    most recent record issued on the host at the time of the call, and
+    passes once that record has run. Raises AssertionError on a hazard: a
+    slot written twice in a call, a half written while its previous
+    reader (the sum of call k - 2) has not run, a sum that reads a slot
+    not written by that call, or no step able to run. Returns the call
+    each wait bound to, as (waiter, peer, k, bound)."""
+    rng = np.random.default_rng(seed)
+    host = [[(op, k) for k in range(calls) for op in
+             ("push", "record", "publish", "spin", "wait", "sum")]
+            for _ in range(D)]
+    stream = [[] for _ in range(D)]
+    words = [0] * D                          # the host segment's counters
+    issued = [[None] * events for _ in range(D)]   # latest record, by call
+    ran = [[-1] * events for _ in range(D)]        # latest record run
+    buf = {}                                 # (rank, half, slot) -> call
+    writes = {}                              # (rank, k, slot) -> count
+    summed = [-1] * D                        # the last call each rank summed
+    bound = []
+
+    def host_step(r):
+        op, k = host[r][0]
+        if op == "spin":
+            if handshake and min(words) < k + 1:
+                return False
+        elif op == "publish":
+            words[r] = k + 1
+        elif op == "record":
+            issued[r][k % events] = k
+            stream[r].append(("record", k, None))
+        elif op == "wait":
+            for p in range(D):
+                if p != r:
+                    b = issued[p][k % events]
+                    bound.append((r, p, k, b))
+                    stream[r].append(("wait", p, (k % events, b)))
+        else:
+            stream[r].append((op, k, None))
+        host[r].pop(0)
+        return True
+
+    def device_step(r):
+        op, k, arg = stream[r][0]
+        if op == "wait":  # ("wait", peer, (event, bound call))
+            e, b = arg
+            if b is not None and ran[k][e] < b:
+                return False
+        elif op == "record":
+            ran[r][k % events] = k
+        elif op == "push":
+            for p in range(D):
+                assert k < 2 or summed[p] >= k - 2, \
+                    f"rank {r} pushes call {k} into rank {p}'s half before " \
+                    f"its sum of call {k - 2} read it"
+                buf[p, k % 2, r] = k
+                writes[p, k, r] = writes.get((p, k, r), 0) + 1
+        else:  # sum
+            for s in range(D):
+                assert buf.get((r, k % 2, s)) == k, \
+                    f"rank {r}'s sum of call {k} reads slot {s} of call " \
+                    f"{buf.get((r, k % 2, s))}"
+            summed[r] = k
+        stream[r].pop(0)
+        return True
+
+    while any(host) or any(stream):
+        steps = [(host_step, r) for r in range(D) if host[r]]
+        steps += [(device_step, r) for r in range(D) if stream[r]]
+        for i in rng.permutation(len(steps)):
+            fn, r = steps[i]
+            if fn(r):
+                break
+        else:
+            raise AssertionError("no host or device step can run: deadlock")
+    assert all(c == 1 for c in writes.values())
+    assert len(writes) == D * D * calls  # every slot of every call, once
+    return bound
+
+
+@pytest.mark.parametrize("D", range(2, 9))
+def test_ring_schedule_model(D):
+    """Over seeded interleavings of 5 calls: every slot written once a
+    call, no half written while its last reader may still read it, each
+    wait bound to its own call's record, and no deadlock."""
+    for seed in range(25):
+        bound = ring_schedule(D, 5, seed)
+        assert len(bound) == D * (D - 1) * 5
+        assert all(b == k for _, _, k, b in bound), seed
+
+
+def test_ring_schedule_model_tells_the_hazards_apart():
+    """The model sees what the design guards against: with one event a
+    rank, some wait binds to the next call's record (safe, but not the
+    record meant); without the host handshake some sum reads a stale slot
+    or a wait binds to no record of its call."""
+    late = [(k, b) for seed in range(200)
+            for _, _, k, b in ring_schedule(2, 4, seed, events=1) if b != k]
+    assert late and all(b == k + 1 for k, b in late)
+    failed = 0
+    for seed in range(200):
+        try:
+            bound = ring_schedule(3, 4, seed, handshake=False)
+        except AssertionError:
+            failed += 1
+            continue
+        failed += any(b != k for _, _, k, b in bound)
+    assert failed > 0
