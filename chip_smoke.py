@@ -171,7 +171,42 @@ Phases (one JSON line each; any failure raises and exits non-zero):
   25. the entry point — the CLI's sweep under torch.distributed.run on a
      2x2 mesh (4 ranks), 100 frame errors or 32768 frames a point: every
      rank exits 0 and rank 0's results overlap the golden curve.
-Then the kernels line, nvidia-smi's line, and the result line last.
+  26. families vs plain — K1a (fixed and track), K1c (spa, track) and K3
+     (minsum, track) against their plain versions on 80211n/1944/12 and
+     80211n/648/56 (odd Z = 81, 27: clusters of one), wimax/2304/56,
+     nr5g/bg1/384 (768 punctured columns at LLR +0.0), nr5g/bg1/208/3168
+     (1408 filler columns at LLR 60), nr5g/bg1/384/8448/12672 (a graph
+     truncated to 13 x 35), sc/3/6/10/64 and punct/80211n~1944~12/0:81, at
+     32 frames, 13 frames and the sweeps' 4096; then
+     nr5g/bg2/52/500/1200/rv0..3, each redundancy version alone (32 and 13
+     frames) and the four transmissions of one codeword summed by
+     harq_combine. Bits, ok and iterations identical, posteriors after one
+     sweep within EXACT_MAX_ULPS (min-sum's final ones identical); each
+     case prints its plan.
+  27. row degree 34 — dvbs2/16200/910 through the 64-wide builds of K1a
+     (fixed, track), K1c (spa, minstar) and K3 (minsum, spa), and its H
+     written by matrixio.dumps_matlab_sparse, loaded through mat: and
+     decoded by K2 (minsum, spa; the form "global"), each against its plain
+     version as in 26; the ptxas report (registers, spill) of every
+     64-wide instance; each 64-wide case timed by run_benchmark at 4096
+     frames (ms, launches, bound, plain ms at the same shape), and beside
+     it the same decoder on dvbs2/16200/89 (row degree 28: the 32-wide
+     builds on the same 48,960 edges) with its builds' spill.
+  28. family sweeps — the CLI's sweep of layered/norm:0.8125/25 on each
+     of the five family goldens (80211n/1944/12, wimax/2304/12,
+     wimax/2304/56, nr5g/bg1/384, nr5g/bg2/384) at the golden's points,
+     16384 frames a point in batches of 4096, must overlap the golden
+     (curves_overlap); K2's sweeps of minsum/norm:0.8125/25 on
+     gallager/2052/3/6/s0 and on a dense: file of 80211n/648/12's H must
+     overlap the JAX CPU references in ecc_ldpc_tpu_torch/data; spa/50
+     (K3) on 80211n/1944/12 and layered/spa/25 (K1c) on wimax/2304/56
+     decode most frames. The launches from here to the end of 29 are the
+     families' path's.
+  29. families timed — bench/families.py over its whole list: one JSON
+     line a row with the card's name and power limit, and the table.
+Then the kernels line (the families' launches and errors added to the
+kernels that decode them, and an entry with "width": 64 for each 64-wide
+instance timed in 27), nvidia-smi's line, and the result line last.
 """
 from __future__ import annotations
 
@@ -188,6 +223,7 @@ import numpy as np
 import torch
 
 from ecc_ldpc_tpu_torch import _build
+from ecc_ldpc_tpu_torch.bench import families
 from ecc_ldpc_tpu_torch.bench.flooding_probe import (
     regular_graph,
     time_decode,
@@ -210,6 +246,8 @@ from ecc_ldpc_tpu_torch.bench.throughput import (
 )
 from ecc_ldpc_tpu_torch.chan.awgn import awgn_llr, make_channel
 from ecc_ldpc_tpu_torch.cli.main import main as cli_main
+from ecc_ldpc_tpu_torch.codes.matrixio import dumps_dense, dumps_matlab_sparse
+from ecc_ldpc_tpu_torch.codes.nr5g import harq_combine
 from ecc_ldpc_tpu_torch.codes.qc import QCXorCode, expand_qc_xor
 from ecc_ldpc_tpu_torch.codes.registry import get_code
 from ecc_ldpc_tpu_torch.decode.api import (
@@ -236,6 +274,7 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
     minsum_with_posteriors_cuda,
     plain_with_posteriors,
 )
+from ecc_ldpc_tpu_torch.encode.structured import build_encoder
 from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
 from ecc_ldpc_tpu_torch.sim import (
     PointResult,
@@ -412,6 +451,98 @@ SHARDED_COUNTERS = ("frames", "bit_errors", "frame_errors", "iters_sum",
                     "bit_errors_sq")
 CLI_MESH = "2x2"
 CLI_MESH_FRAMES = 32768
+# 26. the other code families, kernel vs plain: code -> Eb/N0 where 25
+# iterations fail some of 32 frames. 802.11n's Z = 81 and 27 are odd (a
+# cluster of one only), the nr5g codes carry 768/416 punctured columns at
+# LLR +0.0, 1408 filler columns at LLR 60, and a truncated graph
+FAMILY_CODES = {
+    "80211n/1944/12": 1.25, "80211n/648/56": 3.5, "wimax/2304/56": 3.25,
+    "nr5g/bg1/384": 0.9, "nr5g/bg1/208/3168": 1.0,
+    "nr5g/bg1/384/8448/12672": 2.0, "sc/3/6/10/64": 2.0,
+    "punct/80211n~1944~12/0:81": 1.5,
+}
+FAMILY_FULL_B = 4096  # the family sweeps' batch
+FAMILY_CASES = [  # (name, decoder spec, B) on every family code
+    ("k1a_fixed", "layered/norm:0.8125/25/noet", 32),
+    ("k1a_track", "layered/norm:0.8125/25", 32),
+    ("k1a_track_13frames", "layered/norm:0.8125/25", 13),
+    ("k1a_track_full", "layered/norm:0.8125/25", FAMILY_FULL_B),
+    ("k1c_spa_track", "layered/spa/25", 32),
+    ("k1c_spa_track_13frames", "layered/spa/25", 13),
+    ("k1c_spa_track_full", "layered/spa/25", FAMILY_FULL_B),
+    ("k3_minsum_track", "minsum/norm:0.8125/25", 32),
+    ("k3_minsum_track_13frames", "minsum/norm:0.8125/25", 13),
+    ("k3_minsum_track_full", "minsum/norm:0.8125/25", FAMILY_FULL_B),
+]
+# the NR circular buffer: each redundancy version alone, then the four
+# transmissions of one codeword summed by harq_combine
+HARQ_CODE = "nr5g/bg2/52/500/1200/rv{rv}"
+HARQ_EBN0 = 1.0
+HARQ_DECODER = "layered/norm:0.8125/25"
+# 27. row degree 34 on the 64-wide builds: (name, decoder spec, B)
+WIDE_CODE = "dvbs2/16200/910"
+WIDE_EBN0 = 4.3
+WIDE_CASES = [
+    ("k1a_fixed", "layered/norm:0.8125/25/noet", 32),
+    ("k1a_track", "layered/norm:0.8125/25", 32),
+    ("k1a_track_13frames", "layered/norm:0.8125/25", 13),
+    ("k1c_spa_track", "layered/spa/25", 32),
+    ("k1c_minstar_track", "layered/minstar/25", 32),
+    ("k1c_spa_track_13frames", "layered/spa/25", 13),
+    ("k3_minsum_track", "minsum/norm:0.8125/25", 32),
+    ("k3_spa_track", "spa/25", 32),
+    ("k3_minsum_track_13frames", "minsum/norm:0.8125/25", 13),
+]
+# K2 on the same H loaded through matrixio (mat:): (name, spec, B)
+WIDE_K2_CASES = [
+    ("k2_minsum_fixed", "minsum/norm:0.8125/25/noet", 32),
+    ("k2_minsum_track", "minsum/norm:0.8125/25", 32),
+    ("k2_spa_track", "spa/25", 32),
+    ("k2_spa_track_13frames", "spa/25", 13),
+]
+# the 64-wide instances timed: (kernels-line name, wrapper key, decoder)
+WIDE_LEGS = [
+    ("layered_qc", "k1a", "layered/norm:0.8125/25/noet"),
+    ("layered_exact:spa", "k1c", "layered/spa/25/noet"),
+    ("layered_exact:minstar", "k1c", "layered/minstar/25/noet"),
+    ("flooding_qc:minsum", "k3", "minsum/norm:0.8125/25/noet"),
+    ("flooding_qc:spa", "k3", "spa/25/noet"),
+    ("flooding:minsum", "k2", "minsum/norm:0.8125/25/noet"),
+    ("flooding:spa", "k2", "spa/25/noet"),
+]
+WIDE_B = 4096
+# the same legs on the 32-wide builds, beside them: dvbs2/16200/89 has row
+# degree 28, the same 48,960 edges and Z = 360 (its H through mat: for K2)
+NARROW_CODE = "dvbs2/16200/89"
+NARROW_EBN0 = 3.6
+# 28. family sweeps: golden file -> its code (layered/norm:0.8125/25, bpsk,
+# the golden's own points), FAMILY_SWEEP_FRAMES frames a point
+FAMILY_GOLDENS = {
+    "80211n/1944/12": ROOT / "curves" / "80211n_1944_12_tpu_golden.json",
+    "wimax/2304/12": ROOT / "curves" / "wimax_2304_12_tpu_golden.json",
+    "wimax/2304/56": ROOT / "curves" / "wimax_2304_56_tpu_golden.json",
+    "nr5g/bg1/384": ROOT / "curves" / "nr5g_bg1_384_tpu_golden.json",
+    "nr5g/bg2/384": ROOT / "curves" / "nr5g_bg2_384_tpu_golden.json",
+}
+FAMILY_SWEEP_DECODER = "layered/norm:0.8125/25"
+FAMILY_SWEEP_FRAMES = 16384
+FAMILY_SWEEP_BATCH = 4096
+# K2 sweeps against JAX CPU references (ecc_ldpc_tpu_torch/data): the code,
+# or (for dense:) the registered code whose H the script writes as dense
+# 0/1 text, the reference file, and the points
+K2_FAMILY_DECODER = "minsum/norm:0.8125/25"
+K2_FAMILY_SWEEPS = [
+    ("gallager/2052/3/6/s0", None,
+     ROOT / "ecc_ldpc_tpu_torch" / "data" / "gallager_2052_3_6_s0_jax_cpu.json"),
+    ("dense:", "80211n/648/12",
+     ROOT / "ecc_ldpc_tpu_torch" / "data" / "dense_80211n_648_12_jax_cpu.json"),
+]
+# the exact rules on the families' path: (decoder, code, Eb/N0), 16384
+# frames, held to "decodes most frames" (no stored curve of these rules)
+FAMILY_EXACT_SWEEPS = [
+    ("spa/50", "80211n/1944/12", 1.25),
+    ("layered/spa/25", "wimax/2304/56", 3.25),
+]
 
 
 T_START = time.perf_counter()
@@ -1083,6 +1214,263 @@ def xor_path(dev, k3_lines) -> list:
     return kernels
 
 
+def ptxas_wide(report: str, width: int = 64) -> dict:
+    """{kernel function: "registers, spill stores/loads" line} of the
+    instances of one width in a ptxas -v report (their template's first
+    argument, mangled "ILi64E")."""
+    out, fn = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn and f"ILi{width}E" in fn and ("spill" in ln
+                                              or "registers" in ln):
+            out[fn] = (out.get(fn, "") + " " + ln.strip()).strip()
+    return out
+
+
+def note_compare(lines, errs, key, phase, code, name, spec_str, ebn0, r):
+    """Keep a compare's line and its kernel's largest error, and print it."""
+    errs[key] = max(errs.get(key, 0.0), r["max_abs_err"])
+    lines.append(dict(r, code=code))
+    emit(phase, code=code, case=name, decoder=spec_str, ebn0_db=ebn0,
+         kernel=key, **r)
+
+
+def compare_spec(graph, llr, kw):
+    """(kernel key, compare line) of the kernel a parsed decoder spec
+    runs: K1a for layered min-sum, K1c for the exact layered rules, K3
+    for QC flooding, K2 for flooding on an unstructured graph."""
+    if kw["kind"] == "layered":
+        if kw.get("cn", "minsum") == "minsum":
+            return "layered_qc", compare(graph, llr, kw)[0]
+        return f"layered_exact:{kw['cn']}", compare_exact(graph, llr, kw)
+    if hasattr(graph, "Z"):
+        return f"flooding_qc:{kw['kind']}", compare_flooding(
+            graph, llr, kw, flooding_qc_with_posteriors_cuda,
+            flooding_qc_with_posteriors_plain)
+    return f"flooding:{kw['kind']}", compare_flooding(
+        graph, llr, kw, flooding_with_posteriors_cuda,
+        flooding_with_posteriors_plain)
+
+
+WRAPPERS = {"layered_qc": layered_decode_cuda,
+            "layered_exact": layered_exact_cuda,
+            "layered_classic": layered_classic_cuda,
+            "flooding": flooding_decode_cuda,
+            "flooding_qc": flooding_qc_decode_cuda}
+
+
+def families_path(dev, ptxas: dict) -> dict:
+    """Phases 26-29: the other code families (802.11n, WiMAX, 5G NR with
+    filler, puncturing, truncation and the circular buffer, SC, punct:)
+    through K1a, K1c and K3 against their plain versions; row degree 34
+    through the 64-wide builds of K1a, K1c, K3 and K2 (through mat:),
+    timed; the family sweeps against the goldens and the JAX CPU
+    references; bench/families.py. Returns {"errs": largest error per
+    kernels-line name, "launches": the path's launches per wrapper
+    (phases 28-29), "wide": the 64-wide entries of the kernels line}."""
+    errs, lines = {}, []
+    t0 = time.perf_counter()
+    # 26. the families, kernel vs plain
+    for code, ebn0 in FAMILY_CODES.items():
+        for name, spec_str, B in FAMILY_CASES:
+            x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+            key, r = compare_spec(x.graph, x.llr, x.kw)
+            note_compare(lines, errs, key, "family_vs_plain", code, name,
+                         spec_str, ebn0, r)
+            del x
+    specs = [get_code(HARQ_CODE.format(rv=rv)) for rv in range(4)]
+    enc = build_encoder(specs[0])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    msg = torch.randint(0, 2, (32, specs[0].k), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    cw = enc(msg)
+    kw = parse_decoder_spec(HARQ_DECODER)
+    llrs = []
+    for rv, spec in enumerate(specs):
+        llrs.append(make_channel(spec)(gen, cw, HARQ_EBN0))
+        graph = choose_graph(spec, HARQ_DECODER)
+        for B in (32, 13):
+            key, r = compare_spec(graph, llrs[-1][:B].contiguous(), kw)
+            note_compare(lines, errs, key, "family_vs_plain", spec.name,
+                         f"rv{rv}_track_{B}frames", HARQ_DECODER, HARQ_EBN0, r)
+    combined = harq_combine(*llrs)
+    key, r = compare_spec(choose_graph(specs[0], HARQ_DECODER), combined, kw)
+    note_compare(lines, errs, key, "family_vs_plain", specs[0].name,
+                 "harq_combine_rv0123", HARQ_DECODER, HARQ_EBN0, r)
+    emit("harq", frames=32, ok_frames_combined=r["ok_frames"],
+         seconds=time.perf_counter() - t0)
+    need_plan("layered_qc", lines, "a cluster of one on an odd Z",
+              lambda r: r["code"].startswith("80211n")
+              and r["plan"]["cluster"] == 1)
+
+    # 27. row degree 34 through the 64-wide builds, and their spill
+    t0 = time.perf_counter()
+    spill = {}  # (source, width) -> the most any instance spills
+    for src in ("layered_qc", "layered_exact", "flooding_qc", "flooding"):
+        for width in (64, 32):
+            fns = ptxas_wide(ptxas[src], width)
+            spill[src, width] = max(
+                int(v.split(" bytes spill stores")[0].split()[-1])
+                for v in fns.values())
+            emit("wide_ptxas", source=src, width=width, kernels=fns)
+    wide_lines = []
+    for name, spec_str, B in WIDE_CASES:
+        x = make_inputs(WIDE_CODE, spec_str, B, WIDE_EBN0, dev, seed=1)
+        key, r = compare_spec(x.graph, x.llr, x.kw)
+        note_compare(wide_lines, errs, f"{key}:64", "wide_vs_plain",
+                     WIDE_CODE, name, spec_str, WIDE_EBN0, r)
+        del x
+    tmp = tempfile.TemporaryDirectory()
+    mat = pathlib.Path(tmp.name) / "dvbs2_16200_910.mat"
+    mat.write_text(dumps_matlab_sparse(get_code(WIDE_CODE)))
+    mat_code = f"mat:{mat}"
+    narrow_mat = pathlib.Path(tmp.name) / "dvbs2_16200_89.mat"
+    narrow_mat.write_text(dumps_matlab_sparse(get_code(NARROW_CODE)))
+    for name, spec_str, B in WIDE_K2_CASES:
+        x = make_inputs(mat_code, spec_str, B, WIDE_EBN0, dev, seed=1)
+        key, r = compare_spec(x.graph, x.llr, x.kw)
+        note_compare(wide_lines, errs, f"{key}:64", "wide_vs_plain",
+                     mat_code, name, spec_str, WIDE_EBN0, r)
+        del x
+    need_plan("flooding", wide_lines, "the 64-wide build",
+              lambda r: r["plan"].get("width") == 64)
+    wide = []
+    for name, _, dec in WIDE_LEGS:
+        code = mat_code if name.startswith("flooding:") else WIDE_CODE
+        wrapper = WRAPPERS[name.split(":")[0]]
+        # the plain version at the timed shape (run_benchmark's seed)
+        x = make_inputs(code, dec, WIDE_B, WIDE_EBN0, dev, seed=0)
+        key, parity = compare_spec(x.graph, x.llr, x.kw)
+        errs[f"{key}:64"] = max(errs.get(f"{key}:64", 0.0),
+                                parity["max_abs_err"])
+        del x
+        wrapper.launches = 0
+        smi_before = smi_sample()
+        res = run_benchmark(code=code, decoder=dec, batch=WIDE_B,
+                            ebn0_db=WIDE_EBN0, device=dev)
+        launches = wrapper.launches
+        plan = tile_line(wrapper, WIDE_B)["plan"]
+        emit("wide_bench", kernel=name, code=code, decoder=dec, plan=plan,
+             plain_ms=parity["plain_ms"],
+             **bench_line(res, launches, smi_before))
+        if launches <= 0:
+            raise AssertionError(f"{name} (64-wide) never launched")
+        wide.append({
+            "name": name, "width": 64, "route": "cuda",
+            "source": dict(
+                layered_qc="ecc_ldpc_tpu_torch/csrc/layered_qc.cu",
+                layered_exact="ecc_ldpc_tpu_torch/csrc/layered_exact.cu",
+                flooding_qc="ecc_ldpc_tpu_torch/csrc/flooding_qc.cu",
+                flooding="ecc_ldpc_tpu_torch/csrc/flooding.cu")[
+                    name.split(":")[0]],
+            "replaces": dict(
+                layered_qc="ecc_ldpc_tpu/decode/pallas/layered_qc.py:146",
+                layered_exact="ecc_ldpc_tpu/decode/pallas/layered_qc.py:501",
+                flooding_qc="ecc_ldpc_tpu/decode/pallas/flooding_qc.py:85",
+                flooding="ecc_ldpc_tpu/decode/pallas/fused_mm.py:151")[
+                    name.split(":")[0]],
+            "launches": launches,
+            "max_abs_err": errs.get(f"{name}:64", 0.0),
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": parity["plain_ms"],
+            "bound_ms": res.bound_ms, "bound_by": res.roofline_form,
+            "library_ms": None, "code": code, "batch": WIDE_B,
+            "plan": plan,
+            "spill_bytes_max": spill[name.split(":")[0], 64],
+        })
+        # the 32-wide build on the same work, beside it
+        code = (f"mat:{narrow_mat}" if name.startswith("flooding:")
+                else NARROW_CODE)
+        smi_before = smi_sample()
+        res = run_benchmark(code=code, decoder=dec, batch=WIDE_B,
+                            ebn0_db=NARROW_EBN0, device=dev)
+        emit("narrow_bench", kernel=name, code=code, decoder=dec,
+             plan=tile_line(wrapper, WIDE_B)["plan"],
+             **bench_line(res, None, smi_before))
+        wide[-1].update(ms_32wide=res.wall_s_per_batch * 1e3,
+                        bound_ms_32wide=res.bound_ms, code_32wide=code,
+                        spill_bytes_max_32wide=spill[name.split(":")[0], 32])
+    emit("wide", seconds=time.perf_counter() - t0)
+
+    # 28. the family sweeps (the path: counts from here to the end of 29)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    for code, path in FAMILY_GOLDENS.items():
+        golden = [PointResult.from_json(d) for d in
+                  json.loads(path.read_text())]
+        out = pathlib.Path(tmp.name) / f"{code.replace('/', '_')}.json"
+        t1 = time.perf_counter()
+        rc = cli_main([
+            "sweep", "--code", code, "--decoder", FAMILY_SWEEP_DECODER,
+            "--ebn0", ",".join(str(g.ebn0_db) for g in golden),
+            "--batch", str(FAMILY_SWEEP_BATCH), "--min-frame-errors",
+            "1000000", "--max-frames", str(FAMILY_SWEEP_FRAMES),
+            "--out", str(out)])
+        swept = [PointResult.from_json(d) for d in json.loads(out.read_text())]
+        overlap = curves_overlap(swept, golden, "fer")
+        for pr in swept:
+            g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+            emit("family_vs_golden", code=code, decoder=FAMILY_SWEEP_DECODER,
+                 **point_line(pr), golden_fer=g.fer, golden_fer_ci=g.fer_ci)
+        emit("family_vs_golden", code=code, rc=rc, overlap=overlap,
+             golden=path.name, seconds=time.perf_counter() - t1)
+        if rc != 0 or not overlap:
+            raise AssertionError(f"{code}: the sweep misses {path.name}")
+    for code, source, ref_path in K2_FAMILY_SWEEPS:
+        if source is not None:  # a dense 0/1 text file of source's H
+            dense = pathlib.Path(tmp.name) / f"{source.replace('/', '_')}.txt"
+            dense.write_text(dumps_dense(get_code(source)))
+            code = f"{code}{dense}"
+        ref = [PointResult.from_json(d) for d in
+               json.loads(ref_path.read_text())]
+        before = flooding_decode_cuda.launches
+        swept = run_sweep(SweepSpec(
+            code=code, decoder=K2_FAMILY_DECODER,
+            ebn0_db=tuple(q.ebn0_db for q in ref), batch=FAMILY_SWEEP_BATCH,
+            stopping=StoppingRule(min_frame_errors=1_000_000,
+                                  max_frames=FAMILY_SWEEP_FRAMES)),
+            device=dev)
+        overlap = curves_overlap(swept, ref, "fer")
+        for pr in swept:
+            q = next(q for q in ref if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+            emit("family_vs_reference", code=code, decoder=K2_FAMILY_DECODER,
+                 **point_line(pr), reference_fer=q.fer,
+                 reference_fer_ci=q.fer_ci)
+        emit("family_vs_reference", code=code, overlap=overlap,
+             reference=ref_path.name,
+             k2_launches=flooding_decode_cuda.launches - before)
+        if not overlap or flooding_decode_cuda.launches == before:
+            raise AssertionError(f"{code}: K2's sweep misses {ref_path.name}")
+    for dec, code, ebn0 in FAMILY_EXACT_SWEEPS:
+        (pr,) = run_sweep(SweepSpec(
+            code=code, decoder=dec, ebn0_db=(ebn0,), batch=FAMILY_SWEEP_BATCH,
+            stopping=StoppingRule(min_frame_errors=1_000_000,
+                                  max_frames=FAMILY_SWEEP_FRAMES)),
+            device=dev)
+        emit("family_exact_sweep", code=code, decoder=dec, **point_line(pr))
+        if not pr.fer < 0.5:
+            raise AssertionError(f"{code} {dec}: FER {pr.fer}")
+    emit("family_sweeps", seconds=time.perf_counter() - t0)
+    tmp.cleanup()
+
+    # 29. bench/families.py over its whole list
+    t0 = time.perf_counter()
+    rows = families.run()
+    print(families.table(rows), flush=True)
+    emit("families", rows=len(rows), card=rows[0][1],
+         seconds=time.perf_counter() - t0)
+    if len(rows) != len(families.DEFAULT_CONFIGS):
+        raise AssertionError("a bench/families.py row did not run")
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    for k in ("layered_qc", "layered_exact", "flooding", "flooding_qc"):
+        if launches[k] <= 0:
+            raise AssertionError(f"the families' path never launched {k}")
+    return dict(errs=errs, launches=launches, wide=wide)
+
+
 def run_ranks(nproc: int, args: list, timeout: float) -> str:
     """`python -m torch.distributed.run --standalone` with nproc ranks of
     the module args[0] (its arguments after it), in its own process group,
@@ -1697,6 +2085,20 @@ def main() -> int:
         })
         kernels[-1]["plan"] = flood_plans[key]
     kernels += kernels_ccsds + kernels_xor + kernels_dist
+    fam = families_path(dev, {k: v["ptxas"] for k, v in built.items()})
+    # the families' path adds its launches (phases 28-29) and its errors
+    # (phase 26) to the kernels that decode it; the 64-wide instances
+    # (phase 27) take entries of their own
+    family_path = {"layered_qc": "layered_qc",
+                   "layered_exact:spa": "layered_exact",
+                   "flooding_qc:spa": "flooding_qc",
+                   "flooding:minsum": "flooding"}
+    for k in kernels:
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               fam["errs"].get(k["name"], 0.0))
+        if k["name"] in family_path:
+            k["launches"] += fam["launches"][family_path[k["name"]]]
+    kernels += fam["wide"]
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

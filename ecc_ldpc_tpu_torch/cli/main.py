@@ -1,5 +1,5 @@
 """Command line of the port (port of ecc_ldpc_tpu/cli/main.py:21-132 and the
-sweep, compare and plot subcommands). Usage:
+sweep, compare, plot and codes subcommands). Usage:
 
   python -m ecc_ldpc_tpu_torch.cli sweep \\
       --code dvbs2/64800/12 \\
@@ -9,6 +9,8 @@ sweep, compare and plot subcommands). Usage:
 
   python -m ecc_ldpc_tpu_torch.cli compare a.json b.json
   python -m ecc_ldpc_tpu_torch.cli plot a.json b.json --metric fer
+  python -m ecc_ldpc_tpu_torch.cli codes --info nr5g/bg1/384 --threshold \\
+      wimax/2304/56
 
 Sweeps run on the card (`--device cuda`, the default) or, with
 `--device cpu`, through the plain PyTorch path. Result files are the JAX
@@ -31,8 +33,6 @@ import sys
 
 # subcommands of the JAX package's CLI that the port does not have yet
 _WAITING = {
-    "codes": "ROADMAP.md Queue 1 step 15 (other code families, analyze, "
-             "threshold)",
     "findsnr": "ROADMAP.md Queue 1 step 14 (sim/findsnr.py)",
     "trap": "ROADMAP.md Queue 1 step 14 (sim/microscope.py)",
     "bench": "ROADMAP.md Queue 1 step 14 (bench/ ab, pipeline; the port's "
@@ -157,6 +157,37 @@ def cmd_plot(args) -> int:
     return 0
 
 
+def cmd_codes(args) -> int:
+    """List the registered code families, or analyze codes (degree
+    profiles, 4-cycle census, QC shape) and print their thresholds."""
+    from ..codes import get_code, list_codes
+
+    if args.threshold:
+        from ..codes.threshold import bec_threshold, de_threshold_ebn0
+
+        for spec_str in args.threshold:
+            spec = get_code(spec_str)
+            th = de_threshold_ebn0(spec)
+            eps = bec_threshold(spec)
+            print(f"{spec_str}: rate {spec.rate:.4f}, "
+                  f"BP threshold (GA-DE) {th:+.3f} dB Eb/N0, "
+                  f"BEC threshold (exact DE) eps*={eps:.4f} "
+                  f"(capacity {1 - spec.rate:.4f})")
+        return 0
+    if args.info:
+        import json
+
+        from ..codes.analyze import analyze, format_info
+
+        for spec_str in args.info:
+            info = analyze(get_code(spec_str), cycles=not args.no_cycles)
+            print(json.dumps(info) if args.json else format_info(info))
+        return 0
+    for name in list_codes():
+        print(name)
+    return 0
+
+
 def cmd_waiting(args) -> int:
     print(f"{args.cmd}: not ported yet; it waits for "
           f"{_WAITING[args.cmd]}", file=sys.stderr)
@@ -203,6 +234,21 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("results", nargs="+", help="results JSON files")
     sp.add_argument("--metric", default="fer", choices=("fer", "ber"))
     sp.set_defaults(fn=cmd_plot)
+
+    sp = sub.add_parser(
+        "codes", help="list registered code families / inspect a code")
+    sp.add_argument("--info", action="append", default=None,
+                    help="code spec string to analyze (repeatable): degree "
+                         "profiles, 4-cycle census, QC block shape")
+    sp.add_argument("--json", action="store_true",
+                    help="emit --info reports as JSON lines")
+    sp.add_argument("--threshold", action="append", default=None,
+                    help="print the asymptotic BP threshold (protograph "
+                         "Gaussian-approximation density evolution) of a "
+                         "code spec (repeatable)")
+    sp.add_argument("--no-cycles", action="store_true",
+                    help="skip the 4-cycle census (O(sum col_deg^2))")
+    sp.set_defaults(fn=cmd_codes)
 
     for name, step in _WAITING.items():
         sp = sub.add_parser(name, help=f"not ported yet ({step})")

@@ -69,3 +69,20 @@ def loads_alist(text: str, name: str = "alist") -> CodeSpec:
 def load_alist(path, name: str | None = None) -> CodeSpec:
     with open(path) as f:
         return loads_alist(f.read(), name=name or str(path))
+
+
+def dumps_alist(spec: CodeSpec) -> str:
+    dv_max = int(spec.col_deg.max())
+    dc_max = int(spec.row_deg.max())
+    out = [f"{spec.n} {spec.m}", f"{dv_max} {dc_max}"]
+    out.append(" ".join(str(int(d)) for d in spec.col_deg))
+    out.append(" ".join(str(int(d)) for d in spec.row_deg))
+    for j in range(spec.n):
+        ent = [str(int(r) + 1) for r in spec.col_rows[j]]
+        ent += ["0"] * (dv_max - len(ent))
+        out.append(" ".join(ent))
+    for i in range(spec.m):
+        ent = [str(int(c) + 1) for c in spec.row_cols[i]]
+        ent += ["0"] * (dc_max - len(ent))
+        out.append(" ".join(ent))
+    return "\n".join(out) + "\n"

@@ -1,11 +1,13 @@
-"""QC 4-cycle census and shift optimizer used by the surrogate
-constructions (codes/dvbs2.py, codes/ccsds.py).
+"""QC 4-cycle census and shift optimizers used by the surrogate
+constructions (codes/dvbs2.py, codes/ccsds.py, codes/ieee80211n.py,
+codes/nr5g.py, codes/sc.py).
 
-Copies of block_4cycle_violations and of the edge-list optimizer
-(_edge_quadruples, edge_4cycle_count, optimize_edge_shifts) from
-ecc_ldpc_tpu/codes/girth.py, with the same RNG calls in the same order, so
-the same seed draws the same shifts; the port keeps its own copy so that
-it imports nothing of the JAX package.
+Copies of block_4cycle_violations, chain_conflicts, the base-matrix
+optimizer optimize_shifts (coordinate descent under the chain-shift rule)
+and the edge-list optimizer (_edge_quadruples, edge_4cycle_count,
+optimize_edge_shifts) from ecc_ldpc_tpu/codes/girth.py, with the same RNG
+calls in the same order, so the same seed draws the same shifts; the port
+keeps its own copy so that it imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -29,6 +31,107 @@ def block_4cycle_violations(base: np.ndarray, Z: int):
                             + base[i2, j2] - base[i2, j1]) % Z == 0:
                         viol.append((i1, i2, j1, j2))
     return viol
+
+
+def chain_conflicts(base: np.ndarray, ncols: int, dist: int):
+    """(row_a, row_b, col) triples with equal shifts at rows within `dist`
+    in one of the first `ncols` columns."""
+    out = []
+    for j in range(ncols):
+        rows = np.flatnonzero(base[:, j] >= 0)
+        for x in range(len(rows)):
+            for y in range(x + 1, len(rows)):
+                a, b = int(rows[x]), int(rows[y])
+                if b - a <= dist and base[a, j] == base[b, j]:
+                    out.append((a, b, j))
+    return out
+
+
+def optimize_shifts(
+    base: np.ndarray,
+    Z: int,
+    free,
+    seed: int,
+    *,
+    chain_dist: int = 0,
+    chain_ncols: int = 0,
+    max_passes: int = 50,
+    kicks: int = 24,
+    kick_threshold: int = 8,
+) -> np.ndarray:
+    """Minimize lifted 4-cycles by coordinate descent on the shifts where
+    free(i, j) is True (ties keep the current shift — a clean table comes
+    back unchanged). When zero isn't reached directly and the residual is
+    small, random-restart kicks (deterministic rng from `seed`) perturb
+    one violating cycle's free entries and re-descend in shuffled order;
+    the best table seen wins. Residuals can be genuinely unavoidable:
+    two rows sharing s columns pigeonhole-force collisions once s > Z.
+    """
+    base = base.copy()
+    mb, nb = base.shape
+    entries = [(i, j) for i in range(mb) for j in range(nb)
+               if base[i, j] >= 0 and free(i, j)]
+    rows_of_col = {j: np.flatnonzero(base[:, j] >= 0) for j in range(nb)}
+
+    def descend(b, order_rng=None):
+        for _ in range(max_passes):
+            changed = False
+            sweep = entries
+            if order_rng is not None:
+                sweep = [entries[t]
+                         for t in order_rng.permutation(len(entries))]
+            for i, j in sweep:
+                cost = np.zeros(Z, np.int64)
+                for i2 in rows_of_col[j]:
+                    if i2 == i:
+                        continue
+                    shared = np.flatnonzero((b[i] >= 0) & (b[i2] >= 0))
+                    shared = shared[shared != j]
+                    if len(shared):
+                        deltas = (b[i, shared] - b[i2, shared]) % Z
+                        hist = np.bincount(deltas, minlength=Z)
+                        # candidate v's delta is (v - s[i2,j]) % Z: a roll
+                        cost += np.roll(hist, int(b[i2, j]))
+                    if chain_dist and j < chain_ncols \
+                            and abs(int(i2) - i) <= chain_dist:
+                        cost[int(b[i2, j])] += _BIG
+                best = int(np.argmin(cost))
+                if cost[best] < cost[int(b[i, j])]:
+                    b[i, j] = best
+                    changed = True
+            if not changed:
+                return
+
+    def total(b):
+        t = len(block_4cycle_violations(b, Z))
+        if chain_dist:
+            t += _BIG * len(chain_conflicts(b, chain_ncols, chain_dist))
+        return t
+
+    rng = np.random.default_rng(seed)
+    descend(base)
+    best = base.copy()
+    best_v = total(best)
+    for _ in range(kicks if 0 < best_v <= kick_threshold else 0):
+        b = best.copy()
+        viols = block_4cycle_violations(b, Z)
+        if not viols:
+            break
+        i1, i2, j1, j2 = viols[int(rng.integers(len(viols)))]
+        touched = False
+        for i, j in ((i1, j1), (i2, j1), (i1, j2), (i2, j2)):
+            if free(i, int(j)):
+                b[i, j] = rng.integers(0, Z)
+                touched = True
+        if not touched:
+            break
+        descend(b, order_rng=rng)
+        v = total(b)
+        if v < best_v:
+            best, best_v = b.copy(), v
+            if v == 0:
+                break
+    return best
 
 
 # -- explicit edge-list form (multi-edge protographs) -----------------------

@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "qc_index.cuh"
 
 namespace ct {
@@ -63,6 +65,11 @@ namespace cg = cooperative_groups;
 constexpr int kMaxFrames = 64;    // frames per tile at most (plan.frames)
 constexpr int kMaxCluster = 16;   // 16 needs the non-portable size
 constexpr int kSlotWords = kMaxFrames + 1;
+
+// One bit per slot of a check of up to DEG slots (the 64-wide builds take
+// two words)
+template <int DEG>
+using SignMask = std::conditional_t<(DEG > 32), unsigned long long, uint32_t>;
 
 struct Args {
   const float* llr;       // [B, n] in: channel LLRs
@@ -346,19 +353,20 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
               r[j] = *e;
             }
           }
-          uint32_t rneg = 0;  // track mode: sign bits of the posteriors read
+          // track mode: sign bits of the posteriors read
+          SignMask<D> rneg = 0;
           bool par = false;   // and the layer's parity on them (x < 0)
           if constexpr (TRACK) {
 #pragma unroll
             for (int j = 0; j < D; ++j) {
               if (j < d) {
-                rneg |= (__float_as_uint(r[j]) >> 31) << j;
+                rneg |= (SignMask<D>)(__float_as_uint(r[j]) >> 31) << j;
                 par ^= r[j] < 0.f;
               }
             }
           }
           rule.update(r, d, old + i, t == 0, out + i, RF);
-          uint32_t nneg = 0;
+          SignMask<D> nneg = 0;
 #pragma unroll
           for (int j = 0; j < D; ++j) {
             if (j < d) {
@@ -367,7 +375,8 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
               } else {
                 *edge(s0 + j, zl, i) = r[j];
               }
-              if constexpr (TRACK) nneg |= (__float_as_uint(r[j]) >> 31) << j;
+              if constexpr (TRACK)
+                nneg |= (SignMask<D>)(__float_as_uint(r[j]) >> 31) << j;
             }
           }
           if constexpr (TRACK) {

@@ -22,6 +22,9 @@
 //                           checks of a warp touch adjacent words
 //   LLRs        [n][F]      where they fit (`llr_chip`); else re-read from
 //                           llr [B, n], where they stay in L2
+// Row widths: builds for checks of up to 6, 8, 32 and 64 slots; the
+// 64-wide one takes one frame a thread's item (a loaded matrix's long rows;
+// decode/flooding.MAX_DC).
 // decode/flooding.flooding_plan picks the form and F from the graph's size:
 //   "chip"    the state in dynamic shared memory (mackay1008: 16,128 B a
 //             frame, 20,160 with its LLRs);
@@ -366,11 +369,17 @@ Kern pick_rule(int rule, int track) {
   return pick_mode<MAX_DC, bp::kMinsum, GLOBAL, G>(track);
 }
 
+// the widest build (decode/flooding.MAX_DC), and the widest that takes two
+// frames an item (decode/flooding.MAX_DC_PAIRS)
+constexpr int kMaxDc = 64;
+constexpr int kPairDc = 32;
+
 template <bool GLOBAL, int G>
 Kern pick_width(int dc, int rule, int track) {
   if (dc <= 6) return pick_rule<6, GLOBAL, G>(rule, track);
   if (dc <= 8) return pick_rule<8, GLOBAL, G>(rule, track);
-  return pick_rule<32, GLOBAL, G>(rule, track);
+  if (dc <= kPairDc) return pick_rule<kPairDc, GLOBAL, G>(rule, track);
+  return pick_rule<kMaxDc, GLOBAL, 1>(rule, track);  // one frame an item
 }
 
 // lanes: frames an item (G), 2 only in the form "chip" with F even
@@ -381,8 +390,8 @@ Kern pick(int dc, int rule, int track, int global, int lanes) {
 }
 
 bool bad(int dc, int rule, int global, int lanes) {
-  return dc > 32 || dc < 1 || rule < 0 || rule > 2 || lanes < 1 ||
-         lanes > 2 || (global && lanes != 1);
+  return dc > kMaxDc || dc < 1 || rule < 0 || rule > 2 || lanes < 1 ||
+         lanes > 2 || (global && lanes != 1) || (dc > kPairDc && lanes != 1);
 }
 
 }  // namespace

@@ -211,7 +211,8 @@ template <bool XOR>
 Kern pick_width(int dcb_max, int rule, int track) {
   if (dcb_max <= 8) return pick_rule<8, XOR>(rule, track);
   if (dcb_max <= 16) return pick_rule<16, XOR>(rule, track);
-  return pick_rule<32, XOR>(rule, track);
+  if (dcb_max <= 32) return pick_rule<32, XOR>(rule, track);
+  return pick_rule<64, XOR>(rule, track);
 }
 
 Kern pick(int dcb_max, int rule, int track, int xor_perm) {
@@ -219,8 +220,11 @@ Kern pick(int dcb_max, int rule, int track, int xor_perm) {
                   : pick_width<false>(dcb_max, rule, track);
 }
 
+// the widest build (decode/flooding_qc.MAX_DEG)
+constexpr int kMaxDeg = 64;
+
 bool bad(int dcb_max, int rule) {
-  return dcb_max > 32 || dcb_max < 1 || rule < 0 || rule > 2;
+  return dcb_max > kMaxDeg || dcb_max < 1 || rule < 0 || rule > 2;
 }
 
 }  // namespace

@@ -37,6 +37,9 @@
 // and the posterior is written as v + Cnew (set form: a dup-free layer
 // writes each column once).
 //
+// One build each for rows of up to 8, 16, 32 and 64 slots (decode/
+// layered_qc.MAX_DEG); the 64-wide one spills at 512 threads (PERF.md).
+//
 // Exact f32 semantics: built with -fmad=false, explicit _rn intrinsics for
 // every add/sub/mul, and the accurate expf, logf, tanhf and log1pf (the
 // functions PyTorch's CUDA elementwise ops call), never the __expf-style
@@ -80,6 +83,7 @@ using bp::kTanhClip;
 using bp::log_tanh_half;
 
 constexpr unsigned kSign = 0x80000000u;
+constexpr int kMaxDeg = 64;  // the widest build (decode/layered_qc.MAX_DEG)
 enum Rule { kSpa = 0, kMinstar = 1 };
 
 struct NoParams {};
@@ -179,7 +183,8 @@ template <bool XOR>
 Kern pick_width(int dcb_max, int minstar, int track) {
   if (dcb_max <= 8) return pick_rule<8, XOR>(minstar, track);
   if (dcb_max <= 16) return pick_rule<16, XOR>(minstar, track);
-  return pick_rule<32, XOR>(minstar, track);
+  if (dcb_max <= 32) return pick_rule<32, XOR>(minstar, track);
+  return pick_rule<64, XOR>(minstar, track);
 }
 
 Kern pick(int dcb_max, int minstar, int track, int xor_perm) {
@@ -196,7 +201,7 @@ extern "C" {
 // kernel instance the other arguments pick (0: the plan does not fit).
 int layered_exact_clusters(int dcb_max, int minstar, int track, int xor_perm,
                            int cs, int threads, int smem, void* out) {
-  if (dcb_max > 32 || dcb_max < 1) return (int)cudaErrorInvalidValue;
+  if (dcb_max > kMaxDeg || dcb_max < 1) return (int)cudaErrorInvalidValue;
   return (int)ct::max_clusters(pick(dcb_max, minstar, track, xor_perm), cs,
                                threads, (size_t)smem, static_cast<int*>(out));
 }
@@ -216,7 +221,7 @@ int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
                          int cs, int lg_cs, int F, int tiles, int stride,
                          int nchip, int threads, int smem, int clusters,
                          void* stream) {
-  if (dcb_max > 32 || dcb_max < 1 || B < 1 || max_iters < 1)
+  if (dcb_max > kMaxDeg || dcb_max < 1 || B < 1 || max_iters < 1)
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);

@@ -22,16 +22,21 @@
 // asked, posteriors) go straight to [B, n].
 // Check state: per check, in HBM, prefetched a layer ahead with cp.async:
 // mag1, mag2, the sign bits of the d messages and the slot that took mag2
-// (packed beside the signs when d <= 16), NW = 3 or 4 words. It is a
-// lossless form of the reference's message array C [BE, Z]: message j of a
-// check is (j == slot ? mag2 : mag1) with sign bit j, exactly the float the
-// reference stored (with a tied minimum mag2 == mag1, so the slot chosen
-// does not matter). It moves 12-16 bytes per check where C moves 4 per
-// edge. Check z of block-edge (col, s) reads variable
+// (packed beside the signs when d <= 16), NW = 3, 4 or 5 (d > 32) words.
+// It is a lossless form of the reference's message array C [BE, Z]:
+// message j of a check is (j == slot ? mag2 : mag1) with sign bit j,
+// exactly the float the reference stored (with a tied minimum mag2 ==
+// mag1, so the slot chosen does not matter). It moves 12-20 bytes per
+// check where C moves 4 per edge. Check z of block-edge (col, s) reads variable
 // qc::var_index<XOR>(z, s, Z) of block-column col: (z + s) % Z on a
 // circulant graph, z ^ s on an XOR graph (qc_index.cuh). A block
 // permutation is index arithmetic here, so the TPU's rolls, one-hot
 // permutation matmuls, delta-shift storage and replica packing are gone.
+//
+// Row widths: one build each for rows of up to 8, 16, 32 and 64 slots
+// (the 64-wide one, for dvbs2/16200/910's degree 34 and loaded matrices,
+// holds 64 posteriors a thread and spills at 512 threads; PERF.md). A long
+// row is never split: layered min-sum over a split row is another decoder.
 //
 // Exact f32 semantics (built with -fmad=false, and the _rn intrinsics):
 // signs are the XOR of sign bits (-0.0 counts as negative); hard
@@ -74,6 +79,7 @@ namespace {
 
 constexpr unsigned kSign = 0x80000000u;
 constexpr float kMagCap = 1e12f;
+constexpr int kMaxDeg = 64;  // the widest build (decode/layered_qc.MAX_DEG)
 
 struct MinsumParams {
   const float* ab;  // [2, max_iters] alpha_t then beta_t, or null
@@ -86,8 +92,10 @@ template <int DEG, bool FAST_MAG>
 struct Minsum {
   static constexpr int MAX_DEG = DEG;
   // words per check: mag1, mag2, signs | slot << 16 (d <= 16), or
-  // mag1, mag2, signs, slot
-  static constexpr int NW = DEG <= 16 ? 3 : 4;
+  // mag1, mag2, signs, slot (d <= 32), or mag1, mag2, the signs of slots
+  // 0-31, those of 32-63, slot (d <= 64; decode/layered_qc.candidate_plans)
+  static constexpr int NW = DEG <= 16 ? 3 : DEG <= 32 ? 4 : 5;
+  using Mask = ct::SignMask<DEG>;
   MinsumParams p;
   float a, bt;
 
@@ -99,15 +107,26 @@ struct Minsum {
   __device__ void update(float (&r)[DEG], int d, const uint32_t* old,
                          bool zero, uint32_t* out, int ws) const {
     // the messages this check sent last time (all +0.0 at first)
-    uint32_t old1 = 0, old2 = 0, oldw = 0, old3 = 0;
+    uint32_t old1 = 0, old2 = 0, oldw = 0, old3 = 0, old4 = 0;
     if (!zero) {
       old1 = old[0];
       old2 = old[ws];
       oldw = old[2 * ws];
-      if (NW == 4) old3 = old[3 * ws];
+      if (NW >= 4) old3 = old[3 * ws];
+      if (NW == 5) old4 = old[4 * ws];
     }
-    const uint32_t oldsg = NW == 3 ? (oldw & 0xFFFFu) : oldw;
-    const int oldslot = NW == 3 ? (int)(oldw >> 16) : (int)old3;
+    Mask oldsg;
+    int oldslot;
+    if constexpr (NW == 3) {
+      oldsg = oldw & 0xFFFFu;
+      oldslot = (int)(oldw >> 16);
+    } else if constexpr (NW == 4) {
+      oldsg = oldw;
+      oldslot = (int)old3;
+    } else {
+      oldsg = (Mask)oldw | ((Mask)old3 << 32);
+      oldslot = (int)old4;
+    }
     float min1 = INFINITY, min2 = INFINITY;
     unsigned sg = 0;
     // pass 1: extrinsic inputs, running two-min, sign-bit product
@@ -115,7 +134,8 @@ struct Minsum {
     for (int j = 0; j < DEG; ++j) {
       if (j < d) {
         const float cv = __uint_as_float(
-            (j == oldslot ? old2 : old1) | (((oldsg >> j) & 1u) << 31));
+            (j == oldslot ? old2 : old1) |
+            ((uint32_t)((oldsg >> j) & 1u) << 31));
         const float x = __fsub_rn(r[j], cv);
         r[j] = x;
         const float ax = fabsf(x);
@@ -137,7 +157,7 @@ struct Minsum {
       mag2 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min2, kMagCap)), bt), 0.f);
     }
     // pass 2: messages out, posteriors as v + Cnew
-    uint32_t newsg = 0;
+    Mask newsg = 0;
     int slot = -1;
 #pragma unroll
     for (int j = 0; j < DEG; ++j) {
@@ -146,7 +166,7 @@ struct Minsum {
         const bool is_min = fabsf(x) == min1;
         if (is_min && slot < 0) slot = j;
         const uint32_t neg = (sg ^ __float_as_uint(x)) & kSign;
-        newsg |= (neg >> 31) << j;
+        newsg |= (Mask)(neg >> 31) << j;
         const float cn =
             __uint_as_float(__float_as_uint(is_min ? mag2 : mag1) | neg);
         r[j] = __fadd_rn(x, cn);
@@ -155,10 +175,14 @@ struct Minsum {
     out[0] = __float_as_uint(mag1);
     out[ws] = __float_as_uint(mag2);
     if constexpr (NW == 3) {
-      out[2 * ws] = newsg | ((uint32_t)slot << 16);
-    } else {
-      out[2 * ws] = newsg;
+      out[2 * ws] = (uint32_t)newsg | ((uint32_t)slot << 16);
+    } else if constexpr (NW == 4) {
+      out[2 * ws] = (uint32_t)newsg;
       out[3 * ws] = (uint32_t)slot;
+    } else {
+      out[2 * ws] = (uint32_t)newsg;
+      out[3 * ws] = (uint32_t)(newsg >> 32);
+      out[4 * ws] = (uint32_t)slot;
     }
   }
 };
@@ -183,7 +207,8 @@ template <bool XOR>
 Kern pick_width(int dcb_max, int track, int fast_mag) {
   if (dcb_max <= 8) return pick_mode<8, XOR>(track, fast_mag);
   if (dcb_max <= 16) return pick_mode<16, XOR>(track, fast_mag);
-  return pick_mode<32, XOR>(track, fast_mag);
+  if (dcb_max <= 32) return pick_mode<32, XOR>(track, fast_mag);
+  return pick_mode<64, XOR>(track, fast_mag);
 }
 
 Kern pick(int dcb_max, int track, int fast_mag, int xor_perm) {
@@ -200,7 +225,7 @@ extern "C" {
 // kernel instance the other arguments pick (0: the plan does not fit).
 int layered_qc_clusters(int dcb_max, int track, int fast_mag, int xor_perm,
                         int cs, int threads, int smem, void* out) {
-  if (dcb_max > 32 || dcb_max < 1) return (int)cudaErrorInvalidValue;
+  if (dcb_max > kMaxDeg || dcb_max < 1) return (int)cudaErrorInvalidValue;
   return (int)ct::max_clusters(pick(dcb_max, track, fast_mag, xor_perm), cs,
                                threads, (size_t)smem, static_cast<int*>(out));
 }
@@ -220,7 +245,7 @@ int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
                       int fast_mag, int xor_perm, int cs, int lg_cs, int F,
                       int tiles, int stride, int nchip, int threads,
                       int smem, int clusters, void* stream) {
-  if (dcb_max > 32 || dcb_max < 1 || B < 1 || max_iters < 1)
+  if (dcb_max > kMaxDeg || dcb_max < 1 || B < 1 || max_iters < 1)
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);

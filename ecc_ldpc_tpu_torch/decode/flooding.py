@@ -45,10 +45,17 @@ from .layered_qc import (
     _ptr,
     _raise_launch,
     _round4,
+    check_degree,
 )
 from .types import DecodeResult
 
-MAX_DC = 32     # the kernel's largest row degree
+# the kernel's widest build (csrc/flooding.cu: 6-, 8-, 32- and 64-wide
+# instances; ROADMAP.md Queue 3); the plain version takes any degree
+MAX_DC = 64
+# rows up to this degree take two frames a thread's item where F is even;
+# the 64-wide build takes one (its registers hold one frame's row)
+MAX_DC_PAIRS = 32
+WIDTHS = (6, 8, 32, MAX_DC)  # the builds' row widths (pick_width)
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
 _ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
          + [ctypes.c_int] * 8 + [ctypes.c_void_p])
@@ -179,12 +186,14 @@ class FloodingPlan:
     form: str       # "chip" or "global"
     llr_chip: bool  # the LLRs held on chip too
     words: int      # f32 words of one frame's state in the tile
+    width: int = 8  # the kernel build's row width (csrc/flooding.cu)
 
     @property
     def lanes(self) -> int:
         """Frames a thread's item: 2 (8-byte shared-memory accesses) in the
-        form "chip" with F even, else 1."""
-        return 2 if self.form == "chip" and self.frames % 2 == 0 else 1
+        form "chip" with F even, up to MAX_DC_PAIRS wide, else 1."""
+        return 2 if (self.form == "chip" and self.frames % 2 == 0
+                     and self.width <= MAX_DC_PAIRS) else 1
 
     def as_dict(self) -> dict:
         return dict(dataclasses.asdict(self), lanes=self.lanes)
@@ -217,9 +226,7 @@ def flooding_plan(graph: CompiledGraph, batch: int, kind: str = "minsum",
         raise KeyError(f"flooding kind must be one of {CN_KINDS}, got {kind!r}")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
-    if graph.dc_max > MAX_DC:
-        raise ValueError(f"{graph.name}: row degree {graph.dc_max} exceeds "
-                         f"the flooding kernel's limit {MAX_DC}")
+    check_degree(graph.name, graph.dc_max, MAX_DC, "flooding_plan")
     room = _SMEM_BLOCK - _SMEM_STATIC
 
     def smem(F: int, llr: bool) -> int:
@@ -239,12 +246,13 @@ def flooding_plan(graph: CompiledGraph, batch: int, kind: str = "minsum",
         raise ValueError(f"{graph.name}: {F} frames do not fit a block")
     llr_chip = form == "chip" and smem(F, True) <= room
     cap = 1024 if graph.dc_max <= 8 else 512  # csrc st::max_threads
-    lanes = 2 if form == "chip" and F % 2 == 0 else 1  # FloodingPlan.lanes
-    items = max(graph.m, graph.n) * F // lanes
+    width = next(w for w in WIDTHS if graph.dc_max <= w)
+    plan = FloodingPlan(F, 0, smem(F, llr_chip) if form == "chip" else 0,
+                        -(-batch // F), sms, form, llr_chip,
+                        _frame_words(graph, llr_chip), width)
+    items = max(graph.m, graph.n) * F // plan.lanes
     threads = min(cap, max(32, -(-items // 32) * 32))
-    return FloodingPlan(F, threads, smem(F, llr_chip) if form == "chip"
-                        else 0, -(-batch // F), sms, form, llr_chip,
-                        _frame_words(graph, llr_chip))
+    return dataclasses.replace(plan, threads=threads)
 
 
 _RESIDENT = {}  # (kernel instance, plan shape, card) -> blocks
@@ -299,9 +307,7 @@ def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
     check_args(graph, kind, alpha, beta)
     _check_llr(llr, graph.n, max_iters, "flooding_decode_cuda",
                "flooding_decode_plain")
-    if graph.dc_max > MAX_DC:
-        raise ValueError(f"{graph.name}: row degree {graph.dc_max} exceeds "
-                         f"the flooding kernel's limit {MAX_DC}")
+    check_degree(graph.name, graph.dc_max, MAX_DC, "flooding_decode_cuda")
     dev = llr.device
     B, n = llr.shape
     plan, blocks, inst, cn, vn = _prepared(graph, dev, B, kind,

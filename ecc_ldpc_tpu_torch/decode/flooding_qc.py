@@ -35,6 +35,7 @@ from ..device import resolve_device
 from ..graph.qc import PERMS, QCGraph, check_index, var_index
 from .cn_ops import CN_KINDS, get_rule
 from .layered_qc import (
+    FLOODING_MAX_DEG,
     _check_llr,
     _device_tables,
     _kernel_table,
@@ -42,10 +43,11 @@ from .layered_qc import (
     _plan_launch,
     _ptr,
     _raise_launch,
+    check_degree,
 )
 from .types import DecodeResult
 
-MAX_DEG = 32     # the kernel's largest row degree
+MAX_DEG = FLOODING_MAX_DEG  # the kernel's widest build (csrc/flooding_qc.cu)
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
 _ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
          + [ctypes.c_int] * 10 + [ctypes.c_void_p])
@@ -201,9 +203,8 @@ def _launch(graph: QCGraph, llr: torch.Tensor, kind: str, alpha, beta,
     check_args(graph, kind, alpha, beta)
     _check_llr(llr, graph.n, max_iters, "flooding_qc_decode_cuda",
                "flooding_qc_decode_plain")
-    if graph.dcb_max > MAX_DEG:
-        raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
-                         f"the flooding kernel's limit {MAX_DEG}")
+    check_degree(graph.name, graph.dcb_max, MAX_DEG,
+                 "flooding_qc_decode_cuda")
     dev, B = llr.device, llr.shape[0]
     tab = _device_tables(graph, dev, "flooding_kernel", _flooding_table)
     inst = (graph.dcb_max, _RULE_IDS[kind], int(early_term),

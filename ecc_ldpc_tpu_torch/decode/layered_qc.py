@@ -58,7 +58,15 @@ _SPA_TANH_CLIP = 1.0 - 1e-7  # keeps 2*atanh finite (layered.py:86)
 _MINSTAR_IDENTITY = 1e9      # box-plus identity: a degree-1 row's message
 _SIGN = -(1 << 31)           # the f32 sign bit as an int32
 CN_RULES = ("minsum", "spa", "minstar")
-MAX_DEG = 32    # the kernels' largest row degree (csrc/*.cu)
+# the cards' largest row degree by tile form (ROADMAP.md Queue 3): the
+# min-sum and exact-BP kernels (form "set", csrc/layered_qc.cu,
+# csrc/layered_exact.cu) build 8-, 16-, 32- and 64-wide instances, the
+# classic kernel (csrc/layered_classic.cu) 8, 16 and 32, the QC flooding
+# kernel (csrc/flooding_qc.cu, its MAX_DEG) 8 to 64. The plain versions
+# take any degree.
+MAX_DEG = 64
+MAX_DEG_CLASSIC = 32
+FLOODING_MAX_DEG = 64
 _THREADS = 512  # threads per CUDA block at most (__launch_bounds__)
 # csrc/cluster_tile.cuh, csrc/state_tile.cuh: shared memory a block may use
 # on an H100, the kernels' static shared arrays (rounded up), frames per
@@ -94,18 +102,25 @@ def _schedule(alpha, beta, max_iters: int, cn: str = "minsum"):
 
 
 def check_graph(graph: QCGraph) -> None:
-    """Raise on graphs this module does not decode."""
+    """Raise on graphs this module does not decode, on any device (the
+    card's degree caps are check_degree's)."""
     if not isinstance(graph, QCGraph):
         raise TypeError("layered decoding needs the port's QCGraph "
                         "(graph.qc.compile_qc_graph)")
-    if graph.dcb_max > MAX_DEG:
-        raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
-                         f"the layered kernel's limit {MAX_DEG}")
     if graph.perm == "xor" and not graph.intra_layer_dup_free:
         raise ValueError(
             f"{graph.name}: a layer of this xor-permutation graph repeats a "
             f"block-column; the accumulate form (csrc/layered_classic.cu) "
             f"serves circulant graphs only")
+
+
+def check_degree(name: str, degree: int, cap: int, kernel: str) -> None:
+    """Raise where a row of `degree` is wider than the card's `kernel`
+    builds (`cap`); the plain version decodes it."""
+    if degree > cap:
+        raise ValueError(
+            f"{name}: row degree {degree} exceeds {kernel}'s limit {cap} on "
+            f"the card (ROADMAP.md Queue 3); the plain version decodes it")
 
 
 def _device_tables(graph: QCGraph, device: torch.device, kind: str, build):
@@ -442,6 +457,8 @@ def column_homes(graph: QCGraph, chip: int) -> tuple:
 
 
 FORMS = ("set", "classic", "flooding")
+_FORM_MAX_DEG = dict(set=MAX_DEG, classic=MAX_DEG_CLASSIC,
+                     flooding=FLOODING_MAX_DEG)
 
 
 def _state_words(graph: QCGraph, form: str, llr: bool) -> int:
@@ -494,12 +511,14 @@ def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
         raise ValueError(f"batch must be >= 1, got {batch}")
     if graph.mb < 2 and form == "set":
         raise ValueError(f"{graph.name}: the tile kernels need >= 2 layers")
-    if graph.dcb_max > MAX_DEG:
-        raise ValueError(f"{graph.name}: row degree {graph.dcb_max} exceeds "
-                         f"the tile kernels' limit {MAX_DEG}")
+    check_degree(graph.name, graph.dcb_max, _FORM_MAX_DEG[form],
+                 f"the {form} tile kernels")
     Z, nb = graph.Z, graph.nb
-    words = ((3 if graph.dcb_max <= 16 else 4) if cn == "minsum"
-             else graph.dcb_max)
+    # words a check (csrc/layered_qc.cu Minsum::NW: mag1, mag2, then the
+    # signs and the slot of mag2 in one word to degree 16, two to 32, three
+    # to 64; exact BP: every message)
+    d = graph.dcb_max
+    words = (3 if d <= 16 else 4 if d <= 32 else 5) if cn == "minsum" else d
     tab = (12 * graph.num_block_edges + 4 * (graph.mb + 1) + 4 * nb)
     room = _SMEM_BLOCK - _SMEM_STATIC
     plans = []
@@ -718,6 +737,8 @@ def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
     the other two only graphs that do not."""
     _check_llr(llr, graph.n, max_iters, who, "layered_decode_plain")
     check_graph(graph)
+    check_degree(graph.name, graph.dcb_max,
+                 MAX_DEG_CLASSIC if classic else MAX_DEG, who)
     if classic and graph.intra_layer_dup_free:
         raise ValueError(
             f"{graph.name}: no layer repeats a block-column; its kernels are "

@@ -11,7 +11,9 @@ info blocks without any generator matrix:
   p_1   = s_0 + P^{x} p_0
   p_{d+1} = p_d + s_d + [P^{y} p_0 if d == rx]   (back-substitution)
 
-The DVB-S2 surrogate (codes/dvbs2.py) has this dual-diagonal shape. Each
+The DVB-S2 surrogate (codes/dvbs2.py), 802.11n and WiMAX have this
+dual-diagonal shape; 5G NR's core is its 4-row form with degree-1
+extension parities (NRCoreExtensionEncoder). Each
 encoder is a chain of torch.roll/XOR on [Z, B] slabs on the device of its
 input, with a NumPy twin (`encode_numpy`) that validates it against H.
 Both roll, so both refuse codes whose blocks are XOR permutations
@@ -226,20 +228,135 @@ class StaircaseEncoder:
         return torch.cat([msgT, par]).t().contiguous()
 
 
-def build_encoder(spec: CodeSpec):
-    """The structured encoder for a QC code, tried in the JAX package's
-    order (dual-diagonal, then staircase); the dense generator otherwise."""
-    if spec.shortened_cols:
-        raise NotImplementedError(
-            f"{spec.name}: shortened codes wait for ROADMAP.md Queue 1 "
-            f"step 3 (NR core+extension encoder, shortened-code wrapper)"
+class NRCoreExtensionEncoder:
+    """5G NR encoder (38.212 shape): solve the 4-row dual-diagonal core
+    parity, then the extension parities drop out directly (their columns
+    are degree-1 identities). O(n), roll/XOR only, on the device of its
+    input. Handles filler bits: the message is k bits, the info-section
+    tail (shortened_cols) is zero."""
+
+    def __init__(self, spec: CodeSpec, validate: bool = True):
+        base = _circulant_base(spec)
+        mb, nb = base.shape
+        # parity section = 4 core + (mb-4) identity columns
+        kb = nb - mb
+        if mb < 5:
+            raise ValueError(f"{spec.name}: too few rows for NR structure")
+        # the core is rows 0..3; extension rows may also touch the
+        # core-parity columns, as ordinary row_edges after the core solve
+        core = base[:4]
+        col = core[:, kb]
+        nz = np.flatnonzero(col >= 0)
+        # special column at rows (0, rm, 3): BG1 has rm=1, BG2 rm=2. The
+        # paired first/last shifts (x, _, x) cancel in the 4-row sum,
+        # leaving P^y p0 = sum(s) with y the mid-row shift
+        if not (len(nz) == 3 and nz[0] == 0 and nz[2] == 3
+                and col[nz[0]] == col[nz[2]]):
+            raise ValueError(f"{spec.name}: no NR core special column")
+        self._mid_row = int(nz[1])
+        self._mid_shift = int(col[nz[1]])
+        self._special_shift = int(col[0])
+        for d, rows in [(1, [0, 1]), (2, [1, 2]), (3, [2, 3])]:
+            c = core[:, kb + d]
+            nz = np.flatnonzero(c >= 0)
+            if not (list(nz) == rows and not c[nz].any()):
+                raise ValueError(f"{spec.name}: core col {d} not staircase")
+        for r in range(4, mb):
+            c = base[:, kb + 4 + (r - 4)]
+            nz = np.flatnonzero(c >= 0)
+            if not (list(nz) == [r] and c[r] == 0):
+                raise ValueError(
+                    f"{spec.name}: extension col for row {r} missing")
+        self.spec = spec
+        self.Z, self.mb, self.kb = spec.qc.Z, mb, kb
+        self.k = spec.k
+        self.n = nb * self.Z
+        self.k_full = kb * self.Z
+        # per-row entries over info + core-parity columns (j < kb+4)
+        self.row_edges = tuple(
+            tuple((int(j), int(base[i, j])) for j in range(kb + 4)
+                  if base[i, j] >= 0 and not (i < 4 and j >= kb))
+            for i in range(mb)
         )
+        if validate:
+            rng = np.random.default_rng(0)
+            msg = rng.integers(0, 2, (2, self.k), dtype=np.uint8)
+            if not spec.check_syndrome(self.encode_numpy(msg)):
+                raise AssertionError(f"{spec.name}: NR encode violates H")
+
+    def extract_message(self, codeword_bits):
+        return codeword_bits[..., : self.k]
+
+    def _solve(self, u, roll, zeros, cat):
+        """Core then extension parities of the info slabs u ([Z, B] each,
+        kb of them) by `roll` (np.roll semantics) and XOR."""
+        s = [zeros() for _ in range(4)]
+        for i in range(4):
+            for j, sh in self.row_edges[i]:
+                s[i] = s[i] ^ roll(u[j], -sh)
+        # 4-row sum: staircase pairs cancel, the (x,_,x) special pair
+        # cancels, leaving P^y p0 = s0+s1+s2+s3
+        ssum = s[0] ^ s[1] ^ s[2] ^ s[3]
+        p0 = roll(ssum, self._mid_shift)
+        p1 = s[0] ^ roll(p0, -self._special_shift)
+        p2 = s[1] ^ p1 ^ (ssum if self._mid_row == 1 else zeros())
+        p3 = s[2] ^ p2 ^ (ssum if self._mid_row == 2 else zeros())
+        core = [p0, p1, p2, p3]
+        cols = list(u) + core
+        ext = []
+        for r in range(4, self.mb):
+            sr = zeros()
+            for j, sh in self.row_edges[r]:
+                sr = sr ^ roll(cols[j], -sh)
+            ext.append(sr)
+        return cat(core + ext)
+
+    def encode_numpy(self, msg_bits: np.ndarray) -> np.ndarray:
+        """Host-side NumPy twin of __call__."""
+        B = msg_bits.shape[0]
+        full = np.zeros((B, self.k_full), np.uint8)
+        full[:, : self.k] = msg_bits
+        u = full.T.reshape(self.kb, self.Z, B)
+        par = self._solve(u, lambda x, s: np.roll(x, s, axis=0),
+                          lambda: np.zeros((self.Z, B), np.uint8),
+                          lambda slabs: np.concatenate(slabs, axis=0))
+        return np.concatenate([full.T, par]).T
+
+    def __call__(self, msg_bits: torch.Tensor) -> torch.Tensor:
+        B, dev = msg_bits.shape[0], msg_bits.device
+        full = torch.zeros((self.k_full, B), dtype=torch.uint8, device=dev)
+        full[: self.k] = msg_bits.t().to(torch.uint8)
+        u = full.reshape(self.kb, self.Z, B)
+        par = self._solve(
+            u, _roll,
+            lambda: torch.zeros((self.Z, B), dtype=torch.uint8, device=dev),
+            lambda slabs: torch.cat(slabs, dim=0))
+        return torch.cat([full, par]).t().contiguous()
+
+
+def build_encoder(spec: CodeSpec):
+    """The encoder for a code, tried in the JAX package's order: the
+    structured ones where the QC skeleton allows (dual-diagonal,
+    staircase, NR core+extension), the dense generator otherwise. A
+    tail-shortened code (codes/puncture.shorten, NR filler bits) gets its
+    mother encoder wrapped with zero-fill (codes/puncture.ShortenedEncoder)."""
+    enc = None
     if spec.qc is not None:
-        for cls in (DualDiagonalEncoder, StaircaseEncoder):
+        for cls in (DualDiagonalEncoder, StaircaseEncoder,
+                    NRCoreExtensionEncoder):
             try:
-                return cls(spec)
+                enc = cls(spec)
+                break
             except ValueError:
                 pass
-    from .dense import DenseEncoder
+    if enc is None:
+        from .dense import DenseEncoder
 
-    return DenseEncoder.build(spec)
+        enc = DenseEncoder.build(spec)
+    if enc.k != spec.k and spec.shortened_cols:
+        tail = tuple(range(spec.k, enc.k))
+        if tuple(spec.shortened_cols[-len(tail):]) == tail:
+            from ..codes.puncture import ShortenedEncoder
+
+            return ShortenedEncoder(enc, spec)
+    return enc

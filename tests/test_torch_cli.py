@@ -52,7 +52,7 @@ def test_not_ported_yet_names_its_roadmap_step(tmp_path, capsys):
         main(SWEEP + ["--mesh", "2x1"])
     with pytest.raises(ValueError, match="host-level"):
         main(SWEEP + ["--mesh", "1x1"])
-    for cmd in ("findsnr", "trap", "bench", "learn", "codes"):
+    for cmd in ("findsnr", "trap", "bench", "learn"):
         assert main([cmd, "--code", "dvbs2/64800/12"]) == 2
         assert "ROADMAP.md Queue 1 step" in capsys.readouterr().err
     # the bit-flipping decoders are not ported yet

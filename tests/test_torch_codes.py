@@ -107,8 +107,11 @@ def test_staircase_encoder_on_pure_staircase():
 def test_circulant_and_registry_limits():
     P = circulant(5, 2)
     assert P.sum() == 5 and P[0, 2] == 1 and P[4, 1] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_code("wimax/576/12")
+    # every family resolves now; an unknown name raises KeyError, as in
+    # the JAX registry
+    assert get_code("wimax/576/12").name == jax_get_code("wimax/576/12").name
+    with pytest.raises(KeyError, match="unknown code 'nosuch'"):
+        get_code("nosuch/1")
     with pytest.raises(ValueError):
         get_code("dvbs2/64800")
 

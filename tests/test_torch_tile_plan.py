@@ -34,9 +34,8 @@ from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph, var_index
 
 torch.set_num_threads(1)
 
-# every rate but dvbs2/16200/910, whose row degree 34 no layered kernel takes
-DVBS2 = [f"dvbs2/{n}/{r}" for n in (64800, 16200) for r in RATES
-         if (n, r) != (16200, "910")]
+# every rate, dvbs2/16200/910 (row degree 34) on the 64-wide builds
+DVBS2 = [f"dvbs2/{n}/{r}" for n in (64800, 16200) for r in RATES]
 CODES = DVBS2 + ["8023an", "toyxor16"]
 BATCHES = (1, 13, 2048, 4096)
 # cluster_tile.cuh's static arrays: reduction slots, flags, peer pointers
@@ -68,8 +67,8 @@ def test_plan_fits_and_map_is_a_bijection(code, B):
         # the waves end even: one frame fewer a tile would need another
         waves = -(-p.tiles // p.clusters)
         assert p.frames == 1 or -(-B // (p.frames - 1)) > waves * p.clusters
-        words = ((3 if g.dcb_max <= 16 else 4) if cn == "minsum"
-                 else g.dcb_max)
+        words = ((3 if g.dcb_max <= 16 else 4 if g.dcb_max <= 32 else 5)
+                 if cn == "minsum" else g.dcb_max)
         assert p.stride % 4 == 0 and p.stride >= words * p.rows * p.frames
         post = -(-p.chip * p.rows * p.frames // 4) * 4 * 4
         tables = (12 * g.num_block_edges + 4 * (g.mb + 1) + 4 * g.nb)
@@ -253,3 +252,30 @@ def test_emulation_bit_identical_to_plain(code, ebn0, cn, mode, layout):
                        gpost.view(torch.int32))
     if mode == "track":  # some frames freeze early, some run on
         assert int(got.iterations.min()) < T or bool(got.ok.all())
+
+
+def test_degree_caps_are_the_cards():
+    """Rows of 33-64 get a plan of the 64-wide builds (5 words of min-sum
+    check state); above 64 the card's wrappers and plans raise, naming
+    ROADMAP.md Queue 3, and the plain version decodes; the classic form
+    stops at 32."""
+    from ecc_ldpc_tpu_torch.codes.qc import QCCode, expand_qc
+
+    g = graph_of("dvbs2/16200/910")
+    assert g.dcb_max == 34
+    assert lq.tile_plan(g, 4096, "minsum").stride % 4 == 0
+    assert lq.MAX_DEG == 64 and lq.MAX_DEG_CLASSIC == 32
+    wide = compile_qc_graph(expand_qc(
+        QCCode(Z=4, base=np.zeros((2, 67), np.int32)), name="wide67",
+        k=65 * 4))
+    assert wide.dcb_max == 67
+    lq.check_graph(wide)  # the plain version takes any degree
+    for form in lq.FORMS:
+        with pytest.raises(ValueError, match="row degree 67 .*Queue 3"):
+            lq.tile_plan(wide, 8, form=form)
+    with pytest.raises(ValueError, match="row degree 34 .*limit 32"):
+        lq.tile_plan(g, 8, form="classic")
+    llr = torch.ones((2, wide.n))
+    res = lq.layered_decode_plain(wide, llr, alpha=0.8125, max_iters=2)
+    assert bool(res.ok.all()) and not bool(res.bits.any())
+
