@@ -204,9 +204,41 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      families' path's.
   29. families timed — bench/families.py over its whole list: one JSON
      line a row with the card's name and power limit, and the table.
-Then the kernels line (the families' launches and errors added to the
-kernels that decode them, and an entry with "width": 64 for each 64-wide
-instance timed in 27), nvidia-smi's line, and the result line last.
+  30. wide rows — sc/2/80/6/32 and sc/3/96/10/64 (row degrees 80 and 96)
+     through the wide builds of K1a (fixed, track), K1c (spa, minstar),
+     K3 (minsum, spa, minstar) and, on their H written by
+     matrixio.dumps_matlab_sparse and loaded through mat:, K2 (minsum,
+     spa, minstar), each against its plain version as in 26 (32 and 13
+     frames); the wide instances' ptxas lines; each wide leg timed on
+     sc/3/96/10/64 at 4096 frames (ms, bound, plain ms, plan, spill).
+  31. the G cache — HOME pointed at an empty directory: ccsds/16384/45's
+     generator built cold (host elimination) and warm (the cache file),
+     G's bytes on the card; a batch encoded on the card with every
+     syndrome zero, a noiseless batch through K1b with no error, and a
+     two-point layered/norm:0.8125/25 sweep through K1b whose FER falls.
+  32. channels — every kind (qpsk, qam16/64/256, 8psk, apsk16:r56,
+     apsk32:r34, each also with :il; bsc, bec, rayleigh, hard): the
+     card's LLRs against the CPU's on the same draws (rtol 1e-5, atol
+     1e-4), each channel's ms at dvbs2/16200/12, B = 4096; the uncoded
+     anchors through bpsk/N (bpsk, qpsk, hard and rayleigh inside the
+     99.9% Wilson interval of their closed forms, 8psk within 0.8-1.25x
+     of its approximation).
+  33. modem goldens — run_sweep of dvbs2/16200/12 with
+     layered/norm:0.8125/25 over apsk16:r56:il, apsk32:r34:il and bpsk at
+     each golden's points and frame counts, held to the JAX package's
+     golden gate (CI overlap, or within 1.25x at a saturated point;
+     curves_overlap printed beside it); 80211n/1944/12 over qam64:il,
+     wimax/2304/12 over rayleigh and mackay1008 spa/50 over bec:0.4 (K2)
+     against their JAX CPU references by curves_overlap.
+  34. the sharded modem sweep — bench.SHARDED_MODEM_SWEEP (apsk16:r56:il)
+     on meshes 1x1 and 2x1 through bench/sharded.py and through the CLI
+     on 2x1 with --channel, under torch.distributed.run: identical
+     counters, K5 launched on every rank of 2x1.
+Then the kernels line (the launches of phases 28-29 and 31-34 added to
+the kernels that decode them, the families' errors to theirs, an entry
+with "width": 64 for each 64-wide instance timed in 27 and one with
+"width": "wide" for each wide instance timed in 30), nvidia-smi's line,
+and the result line last.
 """
 from __future__ import annotations
 
@@ -543,6 +575,81 @@ FAMILY_EXACT_SWEEPS = [
     ("spa/50", "80211n/1944/12", 1.25),
     ("layered/spa/25", "wimax/2304/56", 3.25),
 ]
+
+# 30. rows wider than 64 (the wide builds): code -> Eb/N0 where some of 32
+# frames fail; the cases (name, decoder spec, B) on each, through K1a,
+# K1c, K3 and, on the code's H loaded through mat:, K2
+WIDE_ROW_CODES = {"sc/2/80/6/32": 6.0, "sc/3/96/10/64": 5.0}
+WIDE_ROW_CASES = [
+    ("k1a_fixed", "layered/norm:0.8125/25/noet", 32),
+    ("k1a_track", "layered/norm:0.8125/25", 32),
+    ("k1a_track_13frames", "layered/norm:0.8125/25", 13),
+    ("k1c_spa_track", "layered/spa/25", 32),
+    # minstar at 8 iterations: its plain version walks 96 slots a layer
+    # in Python, 7-15 s a case at 25
+    ("k1c_minstar_track", "layered/minstar/8", 32),
+    ("k1c_minstar_fixed_13frames", "layered/minstar/8/noet", 13),
+    ("k3_minsum_track", "minsum/norm:0.8125/25", 32),
+    ("k3_spa_track", "spa/25", 32),
+    ("k3_minstar_track", "minstar/8", 32),
+]
+WIDE_ROW_K2_CASES = [
+    ("k2_minsum_fixed", "minsum/norm:0.8125/25/noet", 32),
+    ("k2_minsum_track", "minsum/norm:0.8125/25", 32),
+    ("k2_spa_track", "spa/25", 32),
+    ("k2_minstar_track", "minstar/8", 32),
+]
+# the wide legs timed on the widest code, at WIDE_B frames (the names of
+# WIDE_LEGS)
+WIDE_ROW_TIMED = "sc/3/96/10/64"
+
+# 31. the host-side G cache: CCSDS k = 16384 at rate 4/5 (n * m = 1.38e8),
+# encoded on the card and decoded through K1b, and a two-point sweep
+GCACHE_CODE = "ccsds/16384/45"
+GCACHE_B = 256
+GCACHE_DECODER = "layered/norm:0.8125/25"
+GCACHE_EBN0 = (2.5, 3.0)
+GCACHE_FRAMES = 2048
+# 32. the channels on the card: every kind, bare and (symbols) with :il
+CHANNEL_CODE = "dvbs2/16200/12"
+CHANNEL_SPECS = ["qpsk", "qam16", "qam64", "qam256", "8psk", "apsk16:r56",
+                 "apsk32:r34"]
+CHANNEL_SPECS += [f"{c}:il" for c in CHANNEL_SPECS] + [
+    "bsc:0.05", "bec:0.3", "rayleigh", "hard"]
+CHANNEL_EBN0 = 3.0
+CHANNEL_B = 64         # the card against the CPU on the same draws
+CHANNEL_TIMED_B = 4096  # each channel's ms at the APSK goldens' shape
+# the tolerance of tests/test_torch_modem.py (f32 log-sum-exp; the card's
+# logaddexp, exp and log1p against the CPU's)
+CHANNEL_RTOL, CHANNEL_ATOL = 1e-5, 1e-4
+# uncoded anchors through bpsk/N: (channel, Eb/N0, closed form, exact);
+# an exact one must lie in the 99.9% Wilson interval of the bit errors,
+# an approximation within 0.8-1.25x
+ANCHOR_N = 4800  # every symbol size divides it
+ANCHOR_FRAMES = 4096
+ANCHORS = [("bpsk", 4.0, "bpsk", True), ("qpsk", 4.0, "bpsk", True),
+           ("hard", 4.0, "bpsk", True), ("rayleigh", 10.0, "rayleigh", True),
+           ("8psk", 8.0, "8psk", False)]
+ANCHOR_Z = 3.29
+# 33. the goldens on dvbs2/16200/12 and the JAX CPU references: (code,
+# decoder, channel, file)
+MODEM_GOLDENS = [
+    ("dvbs2/16200/12", "layered/norm:0.8125/25", "apsk16:r56:il",
+     ROOT / "curves" / "dvbs2_16200_12_apsk16_tpu_golden.json"),
+    ("dvbs2/16200/12", "layered/norm:0.8125/25", "apsk32:r34:il",
+     ROOT / "curves" / "dvbs2_16200_12_apsk32_tpu_golden.json"),
+    ("dvbs2/16200/12", "layered/norm:0.8125/25", "bpsk",
+     ROOT / "curves" / "dvbs2_16200_12_tpu_golden.json"),
+]
+MODEM_REFERENCES = [
+    ("80211n/1944/12", "layered/norm:0.8125/25", "qam64:il",
+     ROOT / "ecc_ldpc_tpu_torch" / "data" / "80211n_1944_12_qam64il_jax_cpu.json"),
+    ("wimax/2304/12", "layered/norm:0.8125/25", "rayleigh",
+     ROOT / "ecc_ldpc_tpu_torch" / "data" / "wimax_2304_12_rayleigh_jax_cpu.json"),
+    ("mackay1008", "spa/50", "bec:0.4",
+     ROOT / "ecc_ldpc_tpu_torch" / "data" / "mackay1008_spa50_bec04_jax_cpu.json"),
+]
+MODEM_SWEEP_BATCH = 1024  # the goldens' own batch: their frame counts exactly
 
 
 T_START = time.perf_counter()
@@ -1471,6 +1578,364 @@ def families_path(dev, ptxas: dict) -> dict:
     return dict(errs=errs, launches=launches, wide=wide)
 
 
+def wide_rows_path(dev, ptxas: dict) -> dict:
+    """Phase 30: rows of degree 80 and 96 (sc/2/80/6/32, sc/3/96/10/64)
+    through the wide builds of K1a, K1c, K3 and, on their H loaded through
+    mat:, K2, each case against its plain version to the existing rules;
+    the wide legs timed on sc/3/96/10/64 with their plain time, plan and
+    the wide instances' spill. Returns {"errs": largest error per
+    kernels-line name, "wide": the entries with "width": "wide"}."""
+    errs, lines = {}, []
+    t0 = time.perf_counter()
+    spill = {}
+    for src in ("layered_qc", "layered_exact", "flooding_qc", "flooding"):
+        fns = ptxas_wide(ptxas[src], 0)  # ct::kWide: the mangled "ILi0E"
+        if not fns:
+            raise AssertionError(f"{src}: no wide instance in the build")
+        spill[src] = max(
+            int(v.split(" bytes spill stores")[0].split()[-1])
+            for v in fns.values())
+        emit("wide_rows_ptxas", source=src, kernels=fns)
+    tmp = tempfile.TemporaryDirectory()
+    mats = {}
+    for code, ebn0 in WIDE_ROW_CODES.items():
+        for name, spec_str, B in WIDE_ROW_CASES:
+            x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+            key, r = compare_spec(x.graph, x.llr, x.kw)
+            note_compare(lines, errs, f"{key}:wide", "wide_rows_vs_plain",
+                         code, name, spec_str, ebn0, r)
+            del x
+        mat = pathlib.Path(tmp.name) / f"{code.replace('/', '_')}.mat"
+        mat.write_text(dumps_matlab_sparse(get_code(code)))
+        mats[code] = f"mat:{mat}"
+        for name, spec_str, B in WIDE_ROW_K2_CASES:
+            # the codewords of the registered code (the loaded H is
+            # rank-deficient: the load counts k as n - m)
+            x = make_inputs(mats[code], spec_str, B, ebn0, dev, seed=1,
+                            source=code)
+            key, r = compare_spec(x.graph, x.llr, x.kw)
+            note_compare(lines, errs, f"{key}:wide", "wide_rows_vs_plain",
+                         mats[code], name, spec_str, ebn0, r)
+            del x
+    need_plan("flooding", lines, "the wide build",
+              lambda r: r["plan"].get("width", 0) > 64)
+    wide = []
+    ebn0 = WIDE_ROW_CODES[WIDE_ROW_TIMED]
+    for name, _, dec in WIDE_LEGS:
+        src = name.split(":")[0]
+        code = mats[WIDE_ROW_TIMED] if src == "flooding" else WIDE_ROW_TIMED
+        wrapper = WRAPPERS[src]
+        x = make_inputs(code, dec, WIDE_B, ebn0, dev, seed=0,
+                        source=WIDE_ROW_TIMED)
+        key, parity = compare_spec(x.graph, x.llr, x.kw)
+        errs[f"{key}:wide"] = max(errs.get(f"{key}:wide", 0.0),
+                                  parity["max_abs_err"])
+        del x
+        wrapper.launches = 0
+        smi_before = smi_sample()
+        res = run_benchmark(code=code, decoder=dec, batch=WIDE_B,
+                            ebn0_db=ebn0, device=dev, source=WIDE_ROW_TIMED)
+        launches = wrapper.launches
+        plan = tile_line(wrapper, WIDE_B)["plan"]
+        emit("wide_rows_bench", kernel=name, code=code, decoder=dec,
+             plan=plan, plain_ms=parity["plain_ms"], spill_bytes_max=spill[src],
+             **bench_line(res, launches, smi_before))
+        if launches <= 0:
+            raise AssertionError(f"{name} (wide) never launched")
+        wide.append({
+            "name": name, "width": "wide", "route": "cuda",
+            "source": f"ecc_ldpc_tpu_torch/csrc/{src}.cu",
+            "replaces": dict(
+                layered_qc="ecc_ldpc_tpu/decode/pallas/layered_qc.py:146",
+                layered_exact="ecc_ldpc_tpu/decode/pallas/layered_qc.py:501",
+                flooding_qc="ecc_ldpc_tpu/decode/pallas/flooding_qc.py:85",
+                flooding="ecc_ldpc_tpu/decode/pallas/fused_mm.py:151")[src],
+            "launches": launches,
+            "max_abs_err": errs.get(f"{name}:wide", 0.0),
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": parity["plain_ms"],
+            "bound_ms": res.bound_ms, "bound_by": res.roofline_form,
+            "library_ms": None, "code": code, "batch": WIDE_B,
+            "plan": plan, "spill_bytes_max": spill[src],
+        })
+    tmp.cleanup()
+    emit("wide_rows", seconds=time.perf_counter() - t0)
+    return dict(errs=errs, wide=wide)
+
+
+class _Home:
+    """HOME pointed at a fresh temporary directory while open, so that the
+    G cache (~/.cache/ecc_ldpc_tpu_torch) starts empty."""
+
+    def __enter__(self):
+        self.tmp = tempfile.TemporaryDirectory()
+        self.old = os.environ.get("HOME")
+        os.environ["HOME"] = self.tmp.name
+        return self.tmp.name
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ["HOME"]
+        else:
+            os.environ["HOME"] = self.old
+        self.tmp.cleanup()
+
+
+def gcache_path(dev) -> dict:
+    """Phase 31: ccsds/16384/45's generator built cold into an empty cache
+    and again warm (host seconds, the file, G's bytes on the card), a batch
+    encoded on the card with every syndrome zero, a noiseless batch decoded
+    through K1b with no error, and a two-point sweep through K1b whose FER
+    falls. Returns K1b's launches on this path."""
+    from ecc_ldpc_tpu_torch.decode.layered_qc import (
+        _plain_layers,
+        _syndrome_fail_plain,
+    )
+    from ecc_ldpc_tpu_torch.encode import dense
+
+    t0 = time.perf_counter()
+    with _Home():
+        spec = get_code(GCACHE_CODE)
+        t1 = time.perf_counter()
+        enc = dense.DenseEncoder.build(spec)
+        cold = time.perf_counter() - t1
+        path = pathlib.Path(dense.cache_path(spec))
+        t1 = time.perf_counter()
+        enc = dense.DenseEncoder.build(spec)
+        warm = time.perf_counter() - t1
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        enc._tables(dev)
+        g_bytes = torch.cuda.memory_allocated(dev) - before
+        emit("gcache", code=GCACHE_CODE, cold_s=cold, warm_s=warm,
+             file=path.name, file_bytes=path.stat().st_size,
+             k=enc.k, n=enc.n, cells=spec.n * spec.m, g_hbm_bytes=g_bytes)
+        if not path.exists() or warm >= cold:
+            raise AssertionError("the G cache did not serve the warm build")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        msg = torch.randint(0, 2, (GCACHE_B, enc.k), generator=gen,
+                            device=dev, dtype=torch.uint8)
+        cw = enc(msg)
+        graph = choose_graph(spec, GCACHE_DECODER)
+        fail = _syndrome_fail_plain(_plain_layers(graph, dev),
+                                    (1.0 - 2.0 * cw.float()).t(), graph.Z)
+        if bool(fail.any()) or not torch.equal(enc.extract_message(cw), msg):
+            raise AssertionError("a ccsds/16384/45 codeword fails its checks")
+        for w in WRAPPERS.values():
+            w.launches = 0
+        llr = make_channel(spec)(None, cw, 0.0,
+                                 torch.zeros(cw.shape, device=dev)) * 10.0
+        res = get_decoder(graph, GCACHE_DECODER, device=dev)(llr)
+        if not (bool(res.ok.all()) and torch.equal(res.bits, cw)):
+            raise AssertionError("K1b misses a noiseless ccsds/16384/45 frame")
+        swept = run_sweep(SweepSpec(
+            code=GCACHE_CODE, decoder=GCACHE_DECODER, ebn0_db=GCACHE_EBN0,
+            batch=GCACHE_B, stopping=StoppingRule(
+                min_frame_errors=10 ** 9, max_frames=GCACHE_FRAMES)),
+            device=dev)
+        launches = layered_classic_cuda.launches
+        for pr in swept:
+            emit("gcache_sweep", code=GCACHE_CODE, decoder=GCACHE_DECODER,
+                 **point_line(pr))
+        if launches <= 0 or any(w.launches for k, w in WRAPPERS.items()
+                                if k != "layered_classic"):
+            raise AssertionError("ccsds/16384/45 did not decode through K1b")
+        if not swept[0].fer > swept[1].fer:
+            raise AssertionError("the ccsds/16384/45 FER does not fall")
+    emit("gcache", launches=launches, noiseless_frames=GCACHE_B,
+         seconds=time.perf_counter() - t0)
+    return {"layered_classic:minsum": launches}
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Median ms of fn() on the card by CUDA events, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def channels_path(dev) -> None:
+    """Phase 32: every channel kind's LLRs on the card against the same
+    channel on the CPU from the same draws (CHANNEL_RTOL/ATOL), each
+    channel's ms a batch at dvbs2/16200/12, B = 4096, and the uncoded
+    anchors through bpsk/N against their closed forms."""
+    from ecc_ldpc_tpu_torch.chan.awgn import uncoded_bpsk_ber
+    from ecc_ldpc_tpu_torch.chan.modem import (
+        build_channel,
+        uncoded_8psk_ber_approx,
+        uncoded_rayleigh_ber,
+    )
+    from ecc_ldpc_tpu_torch.sim.stopping import wilson_interval
+
+    t0 = time.perf_counter()
+    code = get_code(CHANNEL_CODE)
+    cpu = torch.device("cpu")
+    for spec_str in CHANNEL_SPECS:
+        ch = build_channel(code, spec_str)
+        gen = torch.Generator().manual_seed(7)
+        cw = torch.randint(0, 2, (CHANNEL_B, code.n), generator=gen,
+                           dtype=torch.uint8)
+        noise = ch.draw(gen, CHANNEL_B, cpu)
+        want = ch(None, cw, CHANNEL_EBN0, noise)
+        got = ch(None, cw.to(dev), CHANNEL_EBN0, noise.to(dev)).cpu()
+        err = (got - want).abs().max().item()
+        close = torch.allclose(got, want, rtol=CHANNEL_RTOL,
+                               atol=CHANNEL_ATOL)
+        gdev = torch.Generator(device=dev)
+        gdev.manual_seed(8)
+        big = torch.randint(0, 2, (CHANNEL_TIMED_B, code.n), generator=gdev,
+                            device=dev, dtype=torch.uint8)
+        z = ch.draw(gdev, CHANNEL_TIMED_B, dev)
+        ms = _event_ms(lambda: ch(None, big, CHANNEL_EBN0, z))
+        emit("channel_vs_cpu", channel=spec_str, code=CHANNEL_CODE,
+             draws=ch.draws, count=ch.count, max_abs_err=err, close=close,
+             ms=ms, timed_batch=CHANNEL_TIMED_B)
+        del big, z
+        if not close:
+            raise AssertionError(f"{spec_str}: the card's LLRs differ from "
+                                 f"the CPU's by {err}")
+    theory = {"bpsk": uncoded_bpsk_ber, "8psk": uncoded_8psk_ber_approx,
+              "rayleigh": uncoded_rayleigh_ber}
+    for channel, ebn0, form, exact in ANCHORS:
+        (pr,) = run_sweep(SweepSpec(
+            code=f"bpsk/{ANCHOR_N}", decoder="none", ebn0_db=(ebn0,),
+            batch=ANCHOR_FRAMES, channel=channel,
+            stopping=StoppingRule(min_frame_errors=10 ** 9,
+                                  max_frames=ANCHOR_FRAMES)), device=dev)
+        want = float(theory[form](ebn0))
+        bits = pr.frames * ANCHOR_N
+        lo, hi = wilson_interval(pr.bit_errors, bits, ANCHOR_Z)
+        ok = lo <= want <= hi if exact else 0.8 * want < pr.ber < 1.25 * want
+        emit("uncoded_anchor", channel=channel, ebn0_db=ebn0, ber=pr.ber,
+             ci=[lo, hi], theory=want, exact=exact, bits=bits)
+        if not ok:
+            raise AssertionError(f"uncoded {channel} at {ebn0} dB: BER "
+                                 f"{pr.ber} against {want}")
+    emit("channels", seconds=time.perf_counter() - t0)
+
+
+def _curve_sweep(code, decoder, channel, ref, dev):
+    """run_sweep of (code, decoder, channel) at each of ref's points and
+    frame counts, in batches of MODEM_SWEEP_BATCH."""
+    out = []
+    for q in ref:
+        (pr,) = run_sweep(SweepSpec(
+            code=code, decoder=decoder, ebn0_db=(q.ebn0_db,),
+            batch=MODEM_SWEEP_BATCH, channel=channel,
+            stopping=StoppingRule(min_frame_errors=10 ** 9,
+                                  max_frames=q.frames)), device=dev)
+        out.append(pr)
+    return out
+
+
+def golden_overlap(swept, golden) -> bool:
+    """The JAX package's golden gate (tests/ber/test_golden_gate.py
+    fer_pt_ok) at every shared point: the FER CIs overlap, or, near
+    saturation (golden FER >= 0.5), the FERs are within 1.25x, where the
+    TPU's bf16 messages and the port's f32 ones legitimately disagree on
+    which marginal frames converge within the iteration cap."""
+    by = {round(q.ebn0_db, 6): q for q in golden}
+    for m in swept:
+        r = by[round(m.ebn0_db, 6)]
+        lo, hi = m.fer_ci
+        if r.fer_ci[1] < lo or hi < r.fer_ci[0]:
+            if not (r.fer >= 0.5 and 0.8 <= m.fer / r.fer <= 1.25):
+                return False
+    return True
+
+
+def modem_sweeps_path(dev) -> dict:
+    """Phase 33: the APSK goldens and the BPSK golden of dvbs2/16200/12,
+    each swept at its own points and frame counts and held to it by the
+    JAX package's golden gate (golden_overlap; curves_overlap printed
+    beside it), then the coded sweeps against the JAX CPU references by
+    curves_overlap. Returns the launches of K1a and K2 on this path."""
+    t0 = time.perf_counter()
+    for w in WRAPPERS.values():
+        w.launches = 0
+    goldens = {path for *_, path in MODEM_GOLDENS}
+    for code, decoder, channel, path in MODEM_GOLDENS + MODEM_REFERENCES:
+        ref = [PointResult.from_json(d) for d in json.loads(path.read_text())]
+        if any(q.channel != channel or q.code != code or q.decoder != decoder
+               for q in ref):
+            raise AssertionError(f"{path.name} is not {code} {decoder} "
+                                 f"{channel}")
+        t1 = time.perf_counter()
+        swept = _curve_sweep(code, decoder, channel, ref, dev)
+        overlap = curves_overlap(swept, ref, "fer")
+        gate = golden_overlap(swept, ref) if path in goldens else overlap
+        for pr, q in zip(swept, ref):
+            emit("modem_vs_reference", code=code, decoder=decoder,
+                 channel=channel, **point_line(pr), reference_fer=q.fer,
+                 reference_fer_ci=q.fer_ci, reference_frames=q.frames)
+        emit("modem_vs_reference", code=code, channel=channel,
+             reference=path.name, overlap=overlap, gate=gate,
+             seconds=time.perf_counter() - t1)
+        if not gate:
+            raise AssertionError(f"{code} over {channel} misses {path.name}")
+    launches = {"layered_qc": layered_decode_cuda.launches,
+                "flooding:spa": flooding_decode_cuda.launches}
+    emit("modem_sweeps", launches=launches, seconds=time.perf_counter() - t0)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the modem sweeps missed a kernel: {launches}")
+    return launches
+
+
+def modem_dist_path() -> int:
+    """Phase 34: the sharded sweep over apsk16:r56:il
+    (bench.SHARDED_MODEM_SWEEP) on meshes 1x1 and 2x1 through
+    bench/sharded.py, and through the CLI under torch.distributed.run on
+    2x1 with --channel: the same counters everywhere, K5 launched on every
+    rank of 2x1. Returns rank 0's launches of K1a and K5 there."""
+    from ecc_ldpc_tpu_torch.bench.throughput import SHARDED_MODEM_SWEEP as M
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    counters = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh in ("1x1", "2x1"):
+            b, s = (int(x) for x in mesh.split("x"))
+            run_ranks(b * s, ["ecc_ldpc_tpu_torch.bench.sharded", mesh, tmp,
+                              "modem"], 600)
+            lines = rank_lines(pathlib.Path(tmp), f"sharded_{mesh}_modem",
+                               b * s)
+            for line in lines:
+                emit("modem_sharded", **line)
+                if line["counters"] != lines[0]["counters"]:
+                    raise AssertionError(f"{mesh}: ranks disagree")
+                if b * s > 1 and line["launches"]["ring"] <= 0:
+                    raise AssertionError(f"{mesh}: K5 never launched")
+            counters[mesh] = [{k: c[k] for k in SHARDED_COUNTERS}
+                              for c in lines[0]["counters"]]
+        launches = dict(lines[0]["launches"])
+        out = pathlib.Path(tmp) / "modem_cli.json"
+        run_ranks(2, [
+            "ecc_ldpc_tpu_torch.cli", "sweep", "--code", M["code"],
+            "--decoder", M["decoder"], "--channel", M["channel"],
+            "--ebn0", ",".join(map(str, M["ebn0_db"])),
+            "--batch", str(M["batch"]), "--mesh", "2x1",
+            "--min-frame-errors", str(10 ** 9),
+            "--max-frames", str(M["steps"] * M["batch"]),
+            "--out", str(out)], 600)
+        counters["cli_2x1"] = [
+            {k: d[k] for k in SHARDED_COUNTERS}
+            for d in json.loads(out.read_text())]
+    emit("modem_sharded", channel=M["channel"], counters=counters,
+         launches_2x1_rank0=launches, seconds=time.perf_counter() - t0)
+    if not counters["1x1"] == counters["2x1"] == counters["cli_2x1"]:
+        raise AssertionError(f"the modem sweep's counters depend on the "
+                             f"mesh: {counters}")
+    return launches
+
+
 def run_ranks(nproc: int, args: list, timeout: float) -> str:
     """`python -m torch.distributed.run --standalone` with nproc ranks of
     the module args[0] (its arguments after it), in its own process group,
@@ -2099,6 +2564,20 @@ def main() -> int:
         if k["name"] in family_path:
             k["launches"] += fam["launches"][family_path[k["name"]]]
     kernels += fam["wide"]
+    # phases 30-34: the wide builds' entries of their own; the G cache's
+    # K1b launches, the modem sweeps' K1a and K2 launches and the sharded
+    # modem sweep's K1a and K5 launches (rank 0) added to their kernels
+    wide_rows = wide_rows_path(dev, {k: v["ptxas"] for k, v in built.items()})
+    added = gcache_path(dev)
+    channels_path(dev)
+    for k, v in modem_sweeps_path(dev).items():
+        added[k] = added.get(k, 0) + v
+    for k, v in modem_dist_path().items():
+        key = "layered_qc" if k == "layered_qc" else "ring"
+        added[key] = added.get(key, 0) + v
+    for k in kernels:
+        k["launches"] += added.get(k["name"], 0)
+    kernels += wide_rows["wide"]
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

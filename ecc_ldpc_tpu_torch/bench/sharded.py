@@ -4,9 +4,12 @@ point per step) through sim.run_sweep_sharded on a BATCHxSNR mesh, under
 torch.distributed.run:
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
-        -m ecc_ldpc_tpu_torch.bench.sharded BxS OUT_DIR
+        -m ecc_ldpc_tpu_torch.bench.sharded BxS OUT_DIR [modem]
 
-Each rank writes OUT_DIR/sharded_BxS_rank{r}.json: every point's counters
+With `modem`, bench.SHARDED_MODEM_SWEEP instead (dvbs2/16200/12 over
+apsk16:r56:il, its draws the channel's per-frame normals). Each rank
+writes OUT_DIR/sharded_BxS_rank{r}.json (sharded_BxS_modem_rank{r}.json
+with `modem`): every point's counters
 after SHARDED_SWEEP's steps (run after a one-step warm-up sweep), the
 launches of K1a (the layered min-sum kernel) and of K5 (the ring) in that
 run, the sweep's frames per second (all points' frames over the summed
@@ -29,14 +32,15 @@ from ..dist.mesh import MeshSpec, make_mesh, maybe_init_distributed
 from ..dist.montecarlo import frame_bits, frame_normals
 from ..dist.ring import ring_allreduce_cuda
 from ..sim import StoppingRule, SweepSpec, run_sweep_sharded
-from .throughput import SHARDED_SWEEP
+from .throughput import SHARDED_MODEM_SWEEP, SHARDED_SWEEP
 
 
-def sharded_spec(steps: int) -> SweepSpec:
-    """SHARDED_SWEEP as a SweepSpec that stops after `steps` steps."""
-    cfg = SHARDED_SWEEP
+def sharded_spec(steps: int, cfg: dict = SHARDED_SWEEP) -> SweepSpec:
+    """A sharded sweep config as a SweepSpec that stops after `steps`
+    steps."""
     return SweepSpec(code=cfg["code"], decoder=cfg["decoder"],
                      ebn0_db=cfg["ebn0_db"], batch=cfg["batch"],
+                     channel=cfg.get("channel", "bpsk"),
                      stopping=StoppingRule(min_frame_errors=10 ** 9,
                                            max_frames=steps * cfg["batch"]))
 
@@ -67,12 +71,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench.sharded needs a CUDA card")
     mesh_str, out_dir = args[0], pathlib.Path(args[1])
-    steps = SHARDED_SWEEP["steps"]
+    modem = args[2:] == ["modem"]
+    cfg = SHARDED_MODEM_SWEEP if modem else SHARDED_SWEEP
+    steps = cfg["steps"]
     joined = maybe_init_distributed()
     b, s = (int(x) for x in mesh_str.split("x"))
     mesh = make_mesh(MeshSpec(batch=b, snr=s), device="cuda")
-    spec = sharded_spec(steps)
-    run_sweep_sharded(sharded_spec(1), mesh)  # warm-up: loads the kernels
+    spec = sharded_spec(steps, cfg)
+    run_sweep_sharded(sharded_spec(1, cfg), mesh)  # warm-up: the kernels
     layered_decode_cuda.launches = 0
     ring_allreduce_cuda.launches = 0
     results = run_sweep_sharded(spec, mesh)
@@ -81,7 +87,8 @@ def main(argv=None) -> int:
     frames = sum(pr.frames for pr in results)
     code = get_code(spec.code)
     line = {
-        "mesh": mesh_str, "rank": mesh.rank, "device": str(mesh.device),
+        "mesh": mesh_str, "channel": spec.channel, "rank": mesh.rank,
+        "device": str(mesh.device),
         "card": torch.cuda.get_device_name(mesh.device), "steps": steps,
         "counters": [dict(ebn0_db=pr.ebn0_db, frames=pr.frames,
                           bit_errors=pr.bit_errors,
@@ -94,7 +101,8 @@ def main(argv=None) -> int:
         "generator_frames": spec.batch // mesh.batch,
     }
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / f"sharded_{mesh_str}_rank{mesh.rank}.json").write_text(
+    stem = f"sharded_{mesh_str}{'_modem' if modem else ''}"
+    (out_dir / f"{stem}_rank{mesh.rank}.json").write_text(
         json.dumps(line))
     print(json.dumps(line), flush=True)
     if joined:

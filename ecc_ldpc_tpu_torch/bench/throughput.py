@@ -118,6 +118,13 @@ CCSDS_PRODUCTION_SWEEP = dict(PRODUCTION_SWEEP, code="ccsds/4096/12",
 SHARDED_SWEEP = dict(code="dvbs2/64800/12", decoder="layered/norm:0.8125/25",
                      ebn0_db=(1.0, 1.1), batch=4096, steps=2)
 SHARDED_MESHES = ("1x1", "2x1", "2x2")
+# the sharded sweep over a modem channel (bench/sharded.py's "modem"):
+# DVB-S2 16APSK at rate 5/6's ring ratio with the bit interleaver, at two
+# points of its golden curve's waterfall
+SHARDED_MODEM_SWEEP = dict(code="dvbs2/16200/12",
+                           decoder="layered/norm:0.8125/25",
+                           ebn0_db=(3.8, 4.0), batch=4096, steps=2,
+                           channel="apsk16:r56:il")
 
 
 @dataclasses.dataclass
@@ -270,22 +277,26 @@ class BenchInputs:
 
 
 def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
-                device="cuda", seed: int = 0) -> BenchInputs:
-    """Code, graph, decoder, codewords and LLRs for one benchmark leg."""
+                device="cuda", seed: int = 0,
+                source: str = None) -> BenchInputs:
+    """Code, graph, decoder, codewords and LLRs for one benchmark leg.
+    `source`, when given, is a registered code with the same H whose
+    encoder makes the codewords (a mat: or dense: load of a rank-deficient
+    H counts k as n - m, not the true dimension)."""
     from ..chan.awgn import make_channel
     from ..codes.registry import get_code
     from ..decode.api import choose_graph, get_decoder, parse_decoder_spec
 
     dev = resolve_device(device)
-    spec = get_code(code)
     kw = parse_decoder_spec(decoder)
-    graph = choose_graph(spec, decoder)
+    graph = choose_graph(get_code(code), decoder)
     dec = get_decoder(graph, decoder, device=dev)
+    spec = get_code(source or code)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     msg = torch.randint(0, 2, (batch, spec.k), generator=gen, device=dev,
                         dtype=torch.uint8)
-    enc = _encoder(code)
+    enc = _encoder(source or code)
     cw = enc(msg)
     llr = make_channel(spec)(gen, cw, ebn0_db)
     return BenchInputs(spec=spec, graph=graph, decode=dec, kw=kw, enc=enc,
@@ -295,12 +306,14 @@ def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
 def run_benchmark(code: str = "dvbs2/64800/12",
                   decoder: str = "layered/norm:0.8125/25/noet",
                   batch: int = 4096, ebn0_db: float = 1.5, device="cuda",
-                  tries: int = 5, seed: int = 0) -> BenchResult:
-    """Decoded Mbit/s on the card for one (code, decoder, batch, Eb/N0)."""
+                  tries: int = 5, seed: int = 0,
+                  source: str = None) -> BenchResult:
+    """Decoded Mbit/s on the card for one (code, decoder, batch, Eb/N0);
+    `source` as make_inputs takes it."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("run_benchmark times the card; it has no CPU mode")
-    x = make_inputs(code, decoder, batch, ebn0_db, dev, seed)
+    x = make_inputs(code, decoder, batch, ebn0_db, dev, seed, source)
     res = x.decode(x.llr)  # warm-up (and the build, on first use)
     torch.cuda.synchronize(dev)
     times = []

@@ -11,6 +11,8 @@ the same LLR arrays.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -74,3 +76,17 @@ def make_channel(spec):
         return llr
 
     return channel
+
+
+def q_function(x) -> torch.Tensor:
+    """Gaussian tail Q(x) = P(N(0,1) > x), in f32 (x a number, array or
+    tensor)."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return 0.5 * torch.special.erfc(x / math.sqrt(2.0))
+
+
+def uncoded_bpsk_ber(ebn0_db) -> torch.Tensor:
+    """Closed-form uncoded BPSK BER = Q(sqrt(2*Eb/N0)), the anchor the
+    uncoded-BPSK baseline follows."""
+    ebn0 = 10.0 ** (torch.as_tensor(ebn0_db, dtype=torch.float32) / 10.0)
+    return q_function(torch.sqrt(2.0 * ebn0))

@@ -212,7 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--verbose", "-v", action="store_true")
     sp.add_argument("--ebn0", required=True, help="'0:4:0.5' or '1,2,3'")
     sp.add_argument("--channel", default="bpsk",
-                    help="channel spec (chan/modem.py; the port runs bpsk)")
+                    help="channel spec (chan/modem.py): bpsk, hard, "
+                         "rayleigh, bsc:P, bec:EPS, qpsk, 8psk, qam16, "
+                         "qam64, qam256, apsk16[:rRATE|:gG], "
+                         "apsk32[:rRATE|:gG:gG]; ':il' after a symbol "
+                         "channel adds the DVB-S2 bit interleaver (also "
+                         "with --mesh)")
     sp.add_argument("--min-frame-errors", type=int, default=100)
     sp.add_argument("--max-frames", type=int, default=1_000_000)
     sp.add_argument("--out", default=None, help="write results JSON here")

@@ -29,9 +29,10 @@ surrogate.
 Every block-row repeats a block-column (rate 1/2: row 0 has vP twice, row
 1 vP three times, row 2 v1 and v3 twice each), so the layered decoders
 take their accumulate form (decode/layered_qc.py). Encoding uses the
-dense systematic generator (encode/dense.py); the port builds it for
-n·m up to 64M cells (k = 1024 and 4096), and k = 16384 waits for the
-host-side G cache. Punctured-node LLRs are zeroed by chan.make_channel.
+dense systematic generator (encode/dense.py); for k = 16384 (n·m of
+1.4e8 to 1.0e9 cells) DenseEncoder.build eliminates it once and keeps it
+in the host-side G cache (~/.cache/ecc_ldpc_tpu_torch/). Punctured-node
+LLRs are zeroed by chan.make_channel.
 
 Spec strings: ccsds/<k>/<rate>[/s<seed>] — e.g. ccsds/1024/12,
 ccsds/4096/45.

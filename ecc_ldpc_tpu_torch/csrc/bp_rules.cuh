@@ -11,6 +11,15 @@
 // the accurate expf, logf, tanhf, atanhf and log1pf that PyTorch's CUDA
 // elementwise ops call. Loops run to the compile-time MAX_DEG so that the
 // register arrays keep compile-time indices.
+//
+// Rows wider than the widest register build (64 slots) take the wide
+// rules at the end: the row lives in memory (`Row`, the kernel's own
+// message slots, written in place as the register rules write v), is
+// walked in slot order with the same _rn arithmetic, so a wide build is
+// 0 ulps from the plain version as the register builds are. Min-sum and
+// spa read each slot twice (spa recomputes log_tanh_half in its second
+// pass: the same float); minstar keeps its forward prefixes in a
+// per-thread scratch row in device memory that the wrapper allocates.
 #pragma once
 
 #include <math.h>
@@ -139,6 +148,111 @@ __device__ __forceinline__ void minstar(float (&v)[MAX_DEG], int d) {
       }
       v[j] = fminf(fmaxf(out, -kMagCap), kMagCap);
     }
+  }
+}
+
+// A row of d floats in memory, slot j at p[j * stride].
+struct Row {
+  float* p;
+  size_t stride;
+  __device__ __forceinline__ float& operator[](int j) const {
+    return p[(size_t)j * stride];
+  }
+};
+
+// minsum<MAX_DEG> on a row in memory: pass 1 the two minima and the sign
+// parity, pass 2 each slot's message from its own input, read again.
+__device__ __forceinline__ void minsum_wide(Row v, int d, float alpha,
+                                            float beta) {
+  bool neg = false;
+  float m1 = INFINITY, m2 = INFINITY;
+  for (int j = 0; j < d; ++j) {
+    const float x = v[j];
+    const float a = fabsf(x);
+    neg ^= (x < 0.f);
+    if (a < m1) {
+      m2 = m1;
+      m1 = a;
+    } else if (a < m2) {
+      m2 = a;
+    }
+  }
+  const float sp = neg ? -1.f : 1.f;
+  for (int j = 0; j < d; ++j) {
+    const float x = v[j];
+    float mag = fabsf(x) == m1 ? m2 : m1;
+    mag = fminf(mag, kMagCap);
+    mag = fmaxf(__fsub_rn(__fmul_rn(alpha, mag), beta), 0.f);
+    v[j] = __fmul_rn(__fmul_rn(sp, sign_of(x)), mag);
+  }
+}
+
+// spa<MAX_DEG, LOG1P> on a row in memory; pass 2 recomputes each slot's
+// log_tanh_half from its input (deterministic: the float pass 1 added).
+template <bool LOG1P = false>
+__device__ __forceinline__ void spa_wide(Row v, int d) {
+  float acc = 0.f;
+  bool neg = false;
+  for (int j = 0; j < d; ++j) {
+    const float x = v[j];
+    const float lt = log_tanh_half(x);
+    acc = j == 0 ? lt : __fadd_rn(acc, lt);
+    neg ^= (x < 0.f);
+  }
+  const float sp = neg ? -1.f : 1.f;
+  for (int j = 0; j < d; ++j) {
+    const float x = v[j];
+    const float t = fminf(expf(__fsub_rn(acc, log_tanh_half(x))), kTanhClip);
+    const float mag = LOG1P ? __fsub_rn(log1pf(t), log1pf(-t))
+                            : __fmul_rn(2.f, atanhf(t));
+    v[j] = __fmul_rn(__fmul_rn(sp, sign_of(x)), mag);
+  }
+}
+
+// minstar<MAX_DEG> on a row in memory, its forward prefixes w[0..d-2] in
+// the scratch row w.
+__device__ __forceinline__ void minstar_wide(Row v, Row w, int d) {
+  if (d == 1) {
+    v[0] = kIdentity;
+    return;
+  }
+  float prev = v[0];
+  w[0] = prev;
+  for (int j = 1; j < d - 1; ++j) {
+    prev = boxplus(prev, v[j]);
+    w[j] = prev;
+  }
+  float bwd = 0.f;
+  for (int j = d - 1; j >= 0; --j) {
+    const float x = v[j];
+    float out;
+    if (j == d - 1) {
+      out = w[j - 1];  // fwd[d-2]
+    } else if (j == 0) {
+      out = bwd;
+    } else {
+      out = boxplus(w[j - 1], bwd);
+    }
+    if (j == d - 1) {
+      bwd = x;
+    } else if (j > 0) {
+      bwd = boxplus(bwd, x);
+    }
+    v[j] = fminf(fmaxf(out, -kMagCap), kMagCap);
+  }
+}
+
+// The wide form's check_rule: w is minstar's scratch row (unused by the
+// other rules).
+template <int RULE>
+__device__ __forceinline__ void check_rule_wide(Row v, Row w, int d,
+                                                float alpha, float beta) {
+  if constexpr (RULE == kMinsum) {
+    minsum_wide(v, d, alpha, beta);
+  } else if constexpr (RULE == kSpa) {
+    spa_wide(v, d);
+  } else {
+    minstar_wide(v, w, d);
   }
 }
 

@@ -48,6 +48,15 @@
 //     r: the check's d posteriors in, its new posteriors out; old: its last
 //     messages' words in the prefetched slab (word stride ws), all zeros
 //     when `zero`; out: the same words in HBM.
+// or, for rows wider than the register builds (MAX_DEG == kWide):
+//   template <bool TRACK, class At>
+//   bool update_wide(At at, int d, const uint32_t* old, bool zero,
+//                    uint32_t* out, int ws);
+//     at(j): the address of the check's posterior in slot j, read in slot
+//     order twice: in a dup-free layer no posterior of the row is written
+//     before the second pass reaches it, and `old` is the prefetched copy,
+//     so each extrinsic input r - Cold is recomputed to the same float.
+//     Returns (TRACK) whether the layer's parity failed or a sign flipped.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -65,6 +74,9 @@ namespace cg = cooperative_groups;
 constexpr int kMaxFrames = 64;    // frames per tile at most (plan.frames)
 constexpr int kMaxCluster = 16;   // 16 needs the non-portable size
 constexpr int kSlotWords = kMaxFrames + 1;
+// MAX_DEG of the builds for rows wider than the widest register build:
+// the check's row stays in memory (csrc/bp_rules.cuh, the wide rules)
+constexpr int kWide = 0;
 
 // One bit per slot of a check of up to DEG slots (the 64-wide builds take
 // two words)
@@ -276,14 +288,18 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
         int zl, f;
         split(i, zl, f);
         if (f >= nf) continue;
-        float r[D];
-#pragma unroll
-        for (int j = 0; j < D; ++j)
-          if (j < d) r[j] = *edge(s0 + j, zl, i);
         bool par = false;
+        if constexpr (D == kWide) {
+          for (int j = 0; j < d; ++j) par ^= *edge(s0 + j, zl, i) < 0.f;
+        } else {
+          float r[D];
 #pragma unroll
-        for (int j = 0; j < D; ++j)
-          if (j < d) par ^= r[j] < 0.f;
+          for (int j = 0; j < D; ++j)
+            if (j < d) r[j] = *edge(s0 + j, zl, i);
+#pragma unroll
+          for (int j = 0; j < D; ++j)
+            if (j < d) par ^= r[j] < 0.f;
+        }
         if (par) part[f] = 1;
       }
     }
@@ -339,49 +355,56 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
           if constexpr (TRACK) {
             if (done[f]) continue;
           }
-          // the d loads back to back, their uses after them all, so their
-          // latencies overlap; the widest rows recompute the addresses for
-          // the stores rather than hold 32 pointers
-          constexpr bool kKeep = D <= 16;
-          float* p[kKeep ? D : 1];
-          float r[D];
-#pragma unroll
-          for (int j = 0; j < D; ++j) {
-            if (j < d) {
-              float* e = edge(s0 + j, zl, i);
-              if constexpr (kKeep) p[j] = e;
-              r[j] = *e;
-            }
-          }
-          // track mode: sign bits of the posteriors read
-          SignMask<D> rneg = 0;
-          bool par = false;   // and the layer's parity on them (x < 0)
-          if constexpr (TRACK) {
+          if constexpr (D == kWide) {
+            auto at = [&](int j) { return edge(s0 + j, zl, i); };
+            const bool run = rule.template update_wide<TRACK>(
+                at, d, old + i, t == 0, out + i, RF);
+            if (TRACK && run) part[f] = 1;
+          } else {
+            // the d loads back to back, their uses after them all, so their
+            // latencies overlap; the widest rows recompute the addresses for
+            // the stores rather than hold 32 pointers
+            constexpr bool kKeep = D <= 16;
+            float* p[kKeep ? D : 1];
+            float r[D];
 #pragma unroll
             for (int j = 0; j < D; ++j) {
               if (j < d) {
-                rneg |= (SignMask<D>)(__float_as_uint(r[j]) >> 31) << j;
-                par ^= r[j] < 0.f;
+                float* e = edge(s0 + j, zl, i);
+                if constexpr (kKeep) p[j] = e;
+                r[j] = *e;
               }
             }
-          }
-          rule.update(r, d, old + i, t == 0, out + i, RF);
-          SignMask<D> nneg = 0;
+            // track mode: sign bits of the posteriors read
+            SignMask<D> rneg = 0;
+            bool par = false;   // and the layer's parity on them (x < 0)
+            if constexpr (TRACK) {
 #pragma unroll
-          for (int j = 0; j < D; ++j) {
-            if (j < d) {
-              if constexpr (kKeep) {
-                *p[j] = r[j];
-              } else {
-                *edge(s0 + j, zl, i) = r[j];
+              for (int j = 0; j < D; ++j) {
+                if (j < d) {
+                  rneg |= (SignMask<D>)(__float_as_uint(r[j]) >> 31) << j;
+                  par ^= r[j] < 0.f;
+                }
               }
-              if constexpr (TRACK)
-                nneg |= (SignMask<D>)(__float_as_uint(r[j]) >> 31) << j;
             }
-          }
-          if constexpr (TRACK) {
-            // a failed parity or a sign flip keeps the frame running
-            if (par || nneg != rneg) part[f] = 1;
+            rule.update(r, d, old + i, t == 0, out + i, RF);
+            SignMask<D> nneg = 0;
+#pragma unroll
+            for (int j = 0; j < D; ++j) {
+              if (j < d) {
+                if constexpr (kKeep) {
+                  *p[j] = r[j];
+                } else {
+                  *edge(s0 + j, zl, i) = r[j];
+                }
+                if constexpr (TRACK)
+                  nneg |= (SignMask<D>)(__float_as_uint(r[j]) >> 31) << j;
+              }
+            }
+            if constexpr (TRACK) {
+              // a failed parity or a sign flip keeps the frame running
+              if (par || nneg != rneg) part[f] = 1;
+            }
           }
         }
         cp_async_wait_all();

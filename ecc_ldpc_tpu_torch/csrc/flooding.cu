@@ -24,7 +24,10 @@
 //                           llr [B, n], where they stay in L2
 // Row widths: builds for checks of up to 6, 8, 32 and 64 slots; the
 // 64-wide one takes one frame a thread's item (a loaded matrix's long rows;
-// decode/flooding.MAX_DC).
+// decode/flooding.MAX_DC). A wider row takes the wide build, one frame an
+// item, whose check rule works on the row in place in the check's message
+// slots (csrc/bp_rules.cuh, the wide rules; minstar's prefixes in a
+// per-thread scratch row in device memory).
 // decode/flooding.flooding_plan picks the form and F from the graph's size:
 //   "chip"    the state in dynamic shared memory (mackay1008: 16,128 B a
 //             frame, 20,160 with its LLRs);
@@ -101,6 +104,7 @@ struct Args {
   const int32_t* cn;   // [dc][m] variable of each check slot, -1 padded
   const int32_t* vn;   // [n][dv] message row of each variable slot, -1 padded
   float* state;        // form "global": [blocks][n + m*dc][F]; else null
+  float* wide;         // the wide minstar build's prefixes: [dc][threads]
   int n, m, dc, dv, B, max_iters;
   int F, tiles, llr_chip;  // the plan
   float alpha, beta;
@@ -146,11 +150,18 @@ __device__ void syndrome(const Args& a, ct::Shared& sh, const float* post,
   for (st::Walk w(threadIdx.x, blockDim.x, 1, F); w.a < m; w.next()) {
     if (w.f >= nf) continue;
     bool par = false;
-#pragma unroll
-    for (int j = 0; j < MAX_DC; ++j) {
-      if (j < a.dc) {
+    if constexpr (MAX_DC == ct::kWide) {
+      for (int j = 0; j < a.dc; ++j) {
         const int var = __ldg(a.cn + j * m + w.a);
         if (var >= 0) par ^= post[(Idx)var * F + w.f] < 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < MAX_DC; ++j) {
+        if (j < a.dc) {
+          const int var = __ldg(a.cn + j * m + w.a);
+          if (var >= 0) par ^= post[(Idx)var * F + w.f] < 0.f;
+        }
       }
     }
     if (par) sh.part[w.f] = 1;
@@ -206,49 +217,74 @@ flooding_kernel(Args a) {
         if (!any) continue;
         float* Ci = C + ((Idx)i * F + f0);  // slot j at Ci[j * m * F]
         const Idx mF = (Idx)m * F;
-        float v[G][MAX_DC];
-        int deg = 0;
-        bool par[G] = {};
-#pragma unroll
-        for (int j = 0; j < MAX_DC; ++j) {
-          if (j < dc) {
+        if constexpr (MAX_DC == ct::kWide) {
+          static_assert(G == 1, "the wide build takes one frame an item");
+          // the row in place in the check's message slots (a padded slot
+          // bp::kIdentity): v = r - C, then C = rule(v)
+          int deg = 0;
+          bool par = false;
+          for (int j = 0; j < dc; ++j) {
             const int var = __ldg(a.cn + j * m + i);
+            float x = bp::kIdentity;
             if (var >= 0) {
-              float r[G], c[G] = {};
-              load<G>(post + ((Idx)var * F + f0), r);
-              if (t > 0) load<G>(Ci + j * mF, c);
-#pragma unroll
-              for (int g = 0; g < G; ++g) {
-                if constexpr (TRACK) par[g] ^= r[g] < 0.f;
-                v[g][j] = __fsub_rn(r[g], c[g]);
-              }
+              const float r = post[(Idx)var * F + f0];
+              if constexpr (TRACK) par ^= r < 0.f;
+              x = __fsub_rn(r, t > 0 ? Ci[j * mF] : 0.f);
               deg = j + 1;
-            } else {
+            }
+            Ci[j * mF] = x;
+          }
+          const size_t T = (size_t)gridDim.x * nth;
+          bp::check_rule_wide<RULE>(
+              bp::Row{Ci, (size_t)mF},
+              bp::Row{a.wide + (size_t)blockIdx.x * nth + tid, T},
+              RULE == bp::kMinstar ? dc : deg, a.alpha, a.beta);
+          if (TRACK && par) sh.part[f0] = 1;
+        } else {
+          float v[G][MAX_DC];
+          int deg = 0;
+          bool par[G] = {};
 #pragma unroll
-              for (int g = 0; g < G; ++g) v[g][j] = bp::kIdentity;
+          for (int j = 0; j < MAX_DC; ++j) {
+            if (j < dc) {
+              const int var = __ldg(a.cn + j * m + i);
+              if (var >= 0) {
+                float r[G], c[G] = {};
+                load<G>(post + ((Idx)var * F + f0), r);
+                if (t > 0) load<G>(Ci + j * mF, c);
+#pragma unroll
+                for (int g = 0; g < G; ++g) {
+                  if constexpr (TRACK) par[g] ^= r[g] < 0.f;
+                  v[g][j] = __fsub_rn(r[g], c[g]);
+                }
+                deg = j + 1;
+              } else {
+#pragma unroll
+                for (int g = 0; g < G; ++g) v[g][j] = bp::kIdentity;
+              }
             }
           }
-        }
-        // a lane not advancing stores its extrinsics: a done frame's
-        // messages are never read again, nor a dead lane's
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-          if (act[g])
-            bp::check_rule<MAX_DC, RULE>(v[g], RULE == bp::kMinstar ? dc : deg,
-                                         a.alpha, a.beta);
-#pragma unroll
-        for (int j = 0; j < MAX_DC; ++j) {
-          if (j < deg) {
-            float o[G];
-#pragma unroll
-            for (int g = 0; g < G; ++g) o[g] = v[g][j];
-            store<G>(Ci + j * mF, o);
-          }
-        }
-        if constexpr (TRACK) {
+          // a lane not advancing stores its extrinsics: a done frame's
+          // messages are never read again, nor a dead lane's
 #pragma unroll
           for (int g = 0; g < G; ++g)
-            if (act[g] && par[g]) sh.part[f0 + g] = 1;
+            if (act[g])
+              bp::check_rule<MAX_DC, RULE>(v[g], RULE == bp::kMinstar ? dc : deg,
+                                           a.alpha, a.beta);
+#pragma unroll
+          for (int j = 0; j < MAX_DC; ++j) {
+            if (j < deg) {
+              float o[G];
+#pragma unroll
+              for (int g = 0; g < G; ++g) o[g] = v[g][j];
+              store<G>(Ci + j * mF, o);
+            }
+          }
+          if constexpr (TRACK) {
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              if (act[g] && par[g]) sh.part[f0 + g] = 1;
+          }
         }
       }
       // flag[f]: frame f's stale posteriors fail a check, so it advances
@@ -369,8 +405,9 @@ Kern pick_rule(int rule, int track) {
   return pick_mode<MAX_DC, bp::kMinsum, GLOBAL, G>(track);
 }
 
-// the widest build (decode/flooding.MAX_DC), and the widest that takes two
-// frames an item (decode/flooding.MAX_DC_PAIRS)
+// the widest register build (decode/flooding.MAX_DC; wider rows take the
+// wide build), and the widest that takes two frames an item
+// (decode/flooding.MAX_DC_PAIRS)
 constexpr int kMaxDc = 64;
 constexpr int kPairDc = 32;
 
@@ -379,7 +416,9 @@ Kern pick_width(int dc, int rule, int track) {
   if (dc <= 6) return pick_rule<6, GLOBAL, G>(rule, track);
   if (dc <= 8) return pick_rule<8, GLOBAL, G>(rule, track);
   if (dc <= kPairDc) return pick_rule<kPairDc, GLOBAL, G>(rule, track);
-  return pick_rule<kMaxDc, GLOBAL, 1>(rule, track);  // one frame an item
+  if (dc <= kMaxDc)
+    return pick_rule<kMaxDc, GLOBAL, 1>(rule, track);  // one frame an item
+  return pick_rule<ct::kWide, GLOBAL, 1>(rule, track);
 }
 
 // lanes: frames an item (G), 2 only in the form "chip" with F even
@@ -390,7 +429,7 @@ Kern pick(int dc, int rule, int track, int global, int lanes) {
 }
 
 bool bad(int dc, int rule, int global, int lanes) {
-  return dc > kMaxDc || dc < 1 || rule < 0 || rule > 2 || lanes < 1 ||
+  return dc < 1 || rule < 0 || rule > 2 || lanes < 1 ||
          lanes > 2 || (global && lanes != 1) || (dc > kPairDc && lanes != 1);
 }
 
@@ -421,10 +460,12 @@ int flooding_blocks(int dc, int rule, int track, int global, int lanes,
 // plan (F, tiles, llr_chip, threads, smem; decode/flooding.flooding_plan)
 // on `blocks` resident blocks; state is the form "global" scratch
 // ([blocks, n + m*dc, F] f32) or null for the form "chip"; counter one int
-// (the launch zeroes it). post may be null. Returns a cudaError_t (0 on a
-// successful launch).
+// (the launch zeroes it). post may be null; wide, for minstar on rows wider
+// than 64, holds dc floats for each thread of the grid (else null). Returns
+// a cudaError_t (0 on a successful launch).
 int flooding_decode(void* llr, void* bits, void* post, void* ok, void* iters,
-                    void* counter, void* cn, void* vn, void* state, int n,
+                    void* counter, void* cn, void* vn, void* state,
+                    void* wide, int n,
                     int m, int dc, int dv, int B, int max_iters, int rule,
                     float alpha, float beta, int track, int lanes, int F,
                     int tiles, int llr_chip, int threads, int smem,
@@ -434,7 +475,8 @@ int flooding_decode(void* llr, void* bits, void* post, void* ok, void* iters,
       m < 1 || B < 1 || max_iters < 1 ||
       F < 1 || F > ct::kMaxFrames || tiles < 1 || (long long)tiles * F < B ||
       threads < 32 || threads > st::max_threads(dc <= 8 ? 8 : 32) ||
-      blocks < 1 || (global && (llr_chip || smem != 0)))
+      blocks < 1 || (global && (llr_chip || smem != 0)) ||
+      (rule == bp::kMinstar && dc > kMaxDc && wide == nullptr))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.llr = static_cast<const float*>(llr);
@@ -446,6 +488,7 @@ int flooding_decode(void* llr, void* bits, void* post, void* ok, void* iters,
   a.cn = static_cast<const int32_t*>(cn);
   a.vn = static_cast<const int32_t*>(vn);
   a.state = static_cast<float*>(state);
+  a.wide = static_cast<float*>(wide);
   a.n = n; a.m = m; a.dc = dc; a.dv = dv; a.B = B; a.max_iters = max_iters;
   a.F = F; a.tiles = tiles; a.llr_chip = llr_chip;
   a.alpha = alpha; a.beta = beta;

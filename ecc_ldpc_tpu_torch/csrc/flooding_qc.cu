@@ -13,6 +13,11 @@
 // The permutations are index arithmetic, so unlike the TPU kernels there is
 // no Z % 8 envelope, no bf16 fallback, no one-hot matmul and no VMEM cap.
 //
+// Row widths: builds for rows of up to 8, 16, 32 and 64 slots, whose
+// check rule holds the row in registers, and a wide build for any wider
+// row, whose rule works on the row in place in the check's message slots
+// (csrc/bp_rules.cuh, the wide rules).
+//
 // Design (csrc/state_tile.cuh): a tile of F frames keeps its whole decoder
 // state in shared memory for the whole decode, on one SM or spread over a
 // thread-block cluster of CS SMs: posteriors [nb][R][F], every message
@@ -66,7 +71,8 @@ namespace {
 
 struct FloodParams {
   float alpha, beta;
-  int llr_chip;  // the LLRs have a region of shared memory
+  int llr_chip;    // the LLRs have a region of shared memory
+  float* scratch;  // the wide minstar build's prefixes, or null
 };
 
 template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
@@ -128,22 +134,41 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
         const int f = w.f, zf = w.zf();
         if (f >= nf || (TRACK && sh.done[f])) continue;
         const int s0 = rptr[w.a], d = rptr[w.a + 1] - s0;
-        float v[MAX_DEG];
-        bool par = false;
-#pragma unroll
-        for (int j = 0; j < MAX_DEG; ++j) {
-          if (j < d) {
+        if constexpr (MAX_DEG == ct::kWide) {
+          // the row in place in the check's message slots: v = r - C_old,
+          // then C = rule(v) (csrc/bp_rules.cuh, the wide rules)
+          float* Cr = C + s0 * RF + zf;
+          bool par = false;
+          for (int j = 0; j < d; ++j) {
             const float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl,
                                          zf, RF, F);
             if constexpr (TRACK) par ^= (r < 0.f);
-            v[j] = __fsub_rn(r, t == 0 ? 0.f : C[(s0 + j) * RF + zf]);
+            Cr[j * RF] = __fsub_rn(r, t == 0 ? 0.f : Cr[j * RF]);
           }
-        }
-        bp::check_rule<MAX_DEG, RULE>(v, d, p.alpha, p.beta);
+          const size_t T = (size_t)gridDim.x * nth;
+          bp::check_rule_wide<RULE>(
+              bp::Row{Cr, (size_t)RF},
+              bp::Row{p.scratch + (size_t)blockIdx.x * nth + tid, T}, d,
+              p.alpha, p.beta);
+          if (TRACK && par) sh.part[f] = 1;
+        } else {
+          float v[MAX_DEG];
+          bool par = false;
 #pragma unroll
-        for (int j = 0; j < MAX_DEG; ++j)
-          if (j < d) C[(s0 + j) * RF + zf] = v[j];
-        if (TRACK && par) sh.part[f] = 1;
+          for (int j = 0; j < MAX_DEG; ++j) {
+            if (j < d) {
+              const float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl,
+                                           zf, RF, F);
+              if constexpr (TRACK) par ^= (r < 0.f);
+              v[j] = __fsub_rn(r, t == 0 ? 0.f : C[(s0 + j) * RF + zf]);
+            }
+          }
+          bp::check_rule<MAX_DEG, RULE>(v, d, p.alpha, p.beta);
+#pragma unroll
+          for (int j = 0; j < MAX_DEG; ++j)
+            if (j < d) C[(s0 + j) * RF + zf] = v[j];
+          if (TRACK && par) sh.part[f] = 1;
+        }
       }
       // the frame advances unless its pre-sweep state passed (or it is
       // done): flag[f] is the cluster's `fail`
@@ -212,7 +237,8 @@ Kern pick_width(int dcb_max, int rule, int track) {
   if (dcb_max <= 8) return pick_rule<8, XOR>(rule, track);
   if (dcb_max <= 16) return pick_rule<16, XOR>(rule, track);
   if (dcb_max <= 32) return pick_rule<32, XOR>(rule, track);
-  return pick_rule<64, XOR>(rule, track);
+  if (dcb_max <= 64) return pick_rule<64, XOR>(rule, track);
+  return pick_rule<ct::kWide, XOR>(rule, track);
 }
 
 Kern pick(int dcb_max, int rule, int track, int xor_perm) {
@@ -220,11 +246,12 @@ Kern pick(int dcb_max, int rule, int track, int xor_perm) {
                   : pick_width<false>(dcb_max, rule, track);
 }
 
-// the widest build (decode/flooding_qc.MAX_DEG)
+// the widest register build (decode/flooding_qc.MAX_DEG); wider rows take
+// the wide build
 constexpr int kMaxDeg = 64;
 
 bool bad(int dcb_max, int rule) {
-  return dcb_max > kMaxDeg || dcb_max < 1 || rule < 0 || rule > 2;
+  return dcb_max < 1 || rule < 0 || rule > 2;
 }
 
 }  // namespace
@@ -245,16 +272,20 @@ int flooding_qc_clusters(int dcb_max, int rule, int track, int xor_perm,
 // circulant (xor_perm = 0) or an XOR-permutation graph (xor_perm = 1) by
 // the plan (cs, F, tiles, llr_chip, threads, smem; decode/layered_qc.
 // tile_plan, form "flooding") on `clusters` resident clusters; counter one
-// int (the launch zeroes it). post may be null. Returns a cudaError_t (0 on
-// a successful launch).
+// int (the launch zeroes it). post may be null; scratch, for minstar on rows
+// wider than 64, holds dcb_max floats for each thread of the grid (else
+// null). Returns a cudaError_t (0 on a successful launch).
 int flooding_qc_decode(void* llr, void* bits, void* post, void* ok,
-                       void* iters, void* counter, void* tab, int Z, int mb,
+                       void* iters, void* counter, void* tab, void* scratch,
+                       int Z, int mb,
                        int nb, int BE, int B, int max_iters, int dcb_max,
                        int rule, float alpha, float beta, int track,
                        int xor_perm, int cs, int lg_cs, int F, int tiles,
                        int llr_chip, int threads, int smem, int clusters,
                        void* stream) {
-  if (bad(dcb_max, rule)) return (int)cudaErrorInvalidValue;
+  if (bad(dcb_max, rule) ||
+      (rule == bp::kMinstar && dcb_max > kMaxDeg && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
   st::Args a;
   a.llr = static_cast<const float*>(llr);
   a.bits = static_cast<uint8_t*>(bits);
@@ -266,7 +297,7 @@ int flooding_qc_decode(void* llr, void* bits, void* post, void* ok,
   a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
   a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
   a.tiles = tiles;
-  FloodParams p{alpha, beta, llr_chip};
+  FloodParams p{alpha, beta, llr_chip, static_cast<float*>(scratch)};
   return (int)st::launch(pick(dcb_max, rule, track, xor_perm), a, p,
                          clusters, threads, (size_t)smem,
                          static_cast<cudaStream_t>(stream));

@@ -39,6 +39,11 @@
 //
 // One build each for rows of up to 8, 16, 32 and 64 slots (decode/
 // layered_qc.MAX_DEG); the 64-wide one spills at 512 threads (PERF.md).
+// Wider rows take the wide build (ExactWide): the row is read from the
+// tile's posteriors in each pass instead of held in registers (spa
+// recomputes log|tanh| in pass 2, the same float), and minstar's forward
+// prefixes go to a per-thread scratch row in device memory that the
+// wrapper allocates (dcb_max floats for each thread of the grid).
 //
 // Exact f32 semantics: built with -fmad=false, explicit _rn intrinsics for
 // every add/sub/mul, and the accurate expf, logf, tanhf and log1pf (the
@@ -83,10 +88,14 @@ using bp::kTanhClip;
 using bp::log_tanh_half;
 
 constexpr unsigned kSign = 0x80000000u;
-constexpr int kMaxDeg = 64;  // the widest build (decode/layered_qc.MAX_DEG)
+// the widest register build (decode/layered_qc.MAX_DEG); wider rows take
+// the wide build
+constexpr int kMaxDeg = 64;
 enum Rule { kSpa = 0, kMinstar = 1 };
 
-struct NoParams {};
+struct ExactParams {
+  float* scratch;  // the wide minstar build's prefixes, or null
+};
 
 // Exact BP on one check; its state is its d f32 messages.
 template <int DEG, int RULE>
@@ -161,14 +170,114 @@ struct Exact {
   }
 };
 
+// Exact BP on a check of any degree d (the wide build), its posteriors
+// reached through at(j), its state the d messages as in Exact. Each pass
+// forms the extrinsic input v = r - Cold again from the posterior and the
+// prefetched old message (no posterior of the row is written before its
+// slot's last read), so every float is Exact's.
+template <int RULE>
+struct ExactWide {
+  static constexpr int MAX_DEG = ct::kWide;
+  float* scratch;  // minstar: slot j's prefix of thread g at j * T + g
+
+  __device__ void begin(int) {}
+
+  template <bool TRACK, class At>
+  __device__ bool update_wide(At at, int d, const uint32_t* old, bool zero,
+                              uint32_t* out, int ws) const {
+    auto input = [&](float r, int j) {
+      return __fsub_rn(r, zero ? 0.f : __uint_as_float(old[j * ws]));
+    };
+    const size_t T = (size_t)gridDim.x * blockDim.x;
+    float* w = scratch + (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    bool par = false, flip = false;
+    // write slot j's message cn and posterior v + cn; r the posterior read
+    auto emit = [&](float* pj, float r, float x, float cn, int j) {
+      out[j * ws] = __float_as_uint(cn);
+      const float y = __fadd_rn(x, cn);
+      *pj = y;
+      if constexpr (TRACK)
+        flip |= ((__float_as_uint(y) ^ __float_as_uint(r)) >> 31) != 0;
+    };
+    if constexpr (RULE == kSpa) {
+      float acc = 0.f;
+      unsigned sg = 0;
+      for (int j = 0; j < d; ++j) {
+        const float r = *at(j);
+        if constexpr (TRACK) par ^= r < 0.f;
+        const float x = input(r, j);
+        const float lt = log_tanh_half(x);
+        acc = j == 0 ? lt : __fadd_rn(acc, lt);
+        sg ^= __float_as_uint(x);
+      }
+      for (int j = 0; j < d; ++j) {
+        float* pj = at(j);
+        const float r = *pj;
+        const float x = input(r, j);
+        const float tt =
+            fminf(expf(__fsub_rn(acc, log_tanh_half(x))), kTanhClip);
+        const float mag = __fsub_rn(log1pf(tt), log1pf(-tt));
+        const unsigned neg = (sg ^ __float_as_uint(x)) & kSign;
+        emit(pj, r, x, __uint_as_float(__float_as_uint(mag) | neg), j);
+      }
+    } else {
+      // fwd[j] for j <= d-2 into the scratch row
+      float prev = 0.f;
+      for (int j = 0; j < d; ++j) {
+        const float r = *at(j);
+        if constexpr (TRACK) par ^= r < 0.f;
+        if (j < d - 1) {
+          const float x = input(r, j);
+          prev = j == 0 ? x : boxplus(prev, x);
+          w[j * T] = prev;
+        }
+      }
+      float bwd = 0.f;
+      for (int j = d - 1; j >= 0; --j) {
+        float* pj = at(j);
+        const float r = *pj;
+        const float x = input(r, j);
+        float o;
+        if (d == 1) {
+          o = kIdentity;
+        } else if (j == d - 1) {
+          o = w[(j - 1) * T];  // fwd[d-2]
+        } else if (j == 0) {
+          o = bwd;
+        } else {
+          o = boxplus(w[(j - 1) * T], bwd);
+        }
+        if (j == d - 1) {
+          bwd = x;
+        } else if (j > 0) {
+          bwd = boxplus(bwd, x);
+        }
+        emit(pj, r, x, fminf(fmaxf(o, -kMagCap), kMagCap), j);
+      }
+    }
+    return par || flip;
+  }
+};
+
+template <int DEG, int RULE>
+struct RuleOf {
+  using type = Exact<DEG, RULE>;
+  __device__ static type make(const ExactParams&) { return type{}; }
+};
+template <int RULE>
+struct RuleOf<ct::kWide, RULE> {
+  using type = ExactWide<RULE>;
+  __device__ static type make(const ExactParams& p) { return type{p.scratch}; }
+};
+
 template <int DEG, int RULE, bool TRACK, bool XOR>
 __global__ void __launch_bounds__(512, 1)
-layered_exact_kernel(ct::Args a, NoParams) {
-  Exact<DEG, RULE> rule;
+layered_exact_kernel(ct::Args a, ExactParams p) {
+  auto rule = RuleOf<DEG, RULE>::make(p);
   ct::decode_tiles<TRACK, XOR>(a, rule);
 }
 
-using Kern = void (*)(ct::Args, NoParams);
+using Kern = void (*)(ct::Args, ExactParams);
 
 template <int DEG, bool XOR>
 Kern pick_rule(int minstar, int track) {
@@ -184,7 +293,8 @@ Kern pick_width(int dcb_max, int minstar, int track) {
   if (dcb_max <= 8) return pick_rule<8, XOR>(minstar, track);
   if (dcb_max <= 16) return pick_rule<16, XOR>(minstar, track);
   if (dcb_max <= 32) return pick_rule<32, XOR>(minstar, track);
-  return pick_rule<64, XOR>(minstar, track);
+  if (dcb_max <= kMaxDeg) return pick_rule<64, XOR>(minstar, track);
+  return pick_rule<ct::kWide, XOR>(minstar, track);
 }
 
 Kern pick(int dcb_max, int minstar, int track, int xor_perm) {
@@ -201,7 +311,7 @@ extern "C" {
 // kernel instance the other arguments pick (0: the plan does not fit).
 int layered_exact_clusters(int dcb_max, int minstar, int track, int xor_perm,
                            int cs, int threads, int smem, void* out) {
-  if (dcb_max > kMaxDeg || dcb_max < 1) return (int)cudaErrorInvalidValue;
+  if (dcb_max < 1) return (int)cudaErrorInvalidValue;
   return (int)ct::max_clusters(pick(dcb_max, minstar, track, xor_perm), cs,
                                threads, (size_t)smem, static_cast<int*>(out));
 }
@@ -212,16 +322,18 @@ int layered_exact_clusters(int dcb_max, int minstar, int track, int xor_perm,
 // decode/layered_qc.tile_plan) on `clusters` resident clusters; state holds
 // clusters * cs * mb * stride words, spill clusters * (nb - nchip) * Z * F
 // floats, home the plan's column homes, counter one int (the launch zeroes it). post may
-// be null. Returns a cudaError_t (0 on a successful launch).
+// be null; scratch, for minstar on rows wider than 64, holds dcb_max floats
+// for each thread of the grid (else null). Returns a cudaError_t (0 on a
+// successful launch).
 int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
                          void* iters, void* state, void* spill, void* home,
-                         void* counter, void* tab,
+                         void* counter, void* tab, void* scratch,
                          int Z, int mb, int nb, int BE, int B, int max_iters,
                          int dcb_max, int minstar, int track, int xor_perm,
                          int cs, int lg_cs, int F, int tiles, int stride,
                          int nchip, int threads, int smem, int clusters,
                          void* stream) {
-  if (dcb_max > kMaxDeg || dcb_max < 1 || B < 1 || max_iters < 1)
+  if (dcb_max < 1 || B < 1 || max_iters < 1)
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);
@@ -237,8 +349,11 @@ int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
   a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
   a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
   a.tiles = tiles; a.stride = stride; a.nchip = nchip;
-  return (int)ct::launch(pick(dcb_max, minstar, track, xor_perm), a,
-                         NoParams{}, clusters, threads, (size_t)smem,
+  if (minstar && dcb_max > kMaxDeg && scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  ExactParams p{static_cast<float*>(scratch)};
+  return (int)ct::launch(pick(dcb_max, minstar, track, xor_perm), a, p,
+                         clusters, threads, (size_t)smem,
                          static_cast<cudaStream_t>(stream));
 }
 

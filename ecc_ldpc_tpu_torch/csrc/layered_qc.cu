@@ -35,8 +35,11 @@
 //
 // Row widths: one build each for rows of up to 8, 16, 32 and 64 slots
 // (the 64-wide one, for dvbs2/16200/910's degree 34 and loaded matrices,
-// holds 64 posteriors a thread and spills at 512 threads; PERF.md). A long
-// row is never split: layered min-sum over a split row is another decoder.
+// holds 64 posteriors a thread and spills at 512 threads; PERF.md), and a
+// wide build for any wider row (MinsumWide: the row is read from the
+// tile's posteriors twice instead of held in registers; its check state
+// is 3 + ceil(d/32) words). A long row is never split: layered min-sum
+// over a split row is another decoder.
 //
 // Exact f32 semantics (built with -fmad=false, and the _rn intrinsics):
 // signs are the XOR of sign bits (-0.0 counts as negative); hard
@@ -79,7 +82,9 @@ namespace {
 
 constexpr unsigned kSign = 0x80000000u;
 constexpr float kMagCap = 1e12f;
-constexpr int kMaxDeg = 64;  // the widest build (decode/layered_qc.MAX_DEG)
+// the widest register build (decode/layered_qc.MAX_DEG); wider rows take
+// the wide build
+constexpr int kMaxDeg = 64;
 
 struct MinsumParams {
   const float* ab;  // [2, max_iters] alpha_t then beta_t, or null
@@ -187,10 +192,105 @@ struct Minsum {
   }
 };
 
+// Min-sum on a check of any degree d (the wide build), its posteriors
+// reached through at(j) and its state 3 + ceil(d/32) words: mag1, mag2,
+// the slot of mag2, then the sign bits of slots 32k..32k+31 in word 3 + k.
+// Pass 1 forms each extrinsic input v = r - Cold and keeps the running
+// two-min and the sign-bit product; pass 2 forms v again (no posterior of
+// the row is written before it is read, and the old state is the
+// prefetched copy, so it is the same float), then the message and the
+// posterior v + Cnew, exactly as Minsum's two passes do.
+template <bool FAST_MAG>
+struct MinsumWide {
+  static constexpr int MAX_DEG = ct::kWide;
+  MinsumParams p;
+  float a, bt;
+
+  __device__ void begin(int t) {
+    a = p.ab ? p.ab[t] : p.alpha;
+    bt = p.ab ? p.ab[p.max_iters + t] : p.beta;
+  }
+
+  template <bool TRACK, class At>
+  __device__ bool update_wide(At at, int d, const uint32_t* old, bool zero,
+                              uint32_t* out, int ws) const {
+    uint32_t old1 = 0, old2 = 0;
+    int oldslot = 0;
+    if (!zero) {
+      old1 = old[0];
+      old2 = old[ws];
+      oldslot = (int)old[2 * ws];
+    }
+    // the message slot j sent last time; w holds its word of sign bits
+    auto cold = [&](int j, uint32_t w) {
+      return __uint_as_float((j == oldslot ? old2 : old1) |
+                             (((w >> (j & 31)) & 1u) << 31));
+    };
+    float min1 = INFINITY, min2 = INFINITY;
+    unsigned sg = 0;
+    bool par = false;
+    uint32_t w = 0;
+    for (int j = 0; j < d; ++j) {
+      if ((j & 31) == 0) w = zero ? 0u : old[(3 + (j >> 5)) * ws];
+      const float r = *at(j);
+      if constexpr (TRACK) par ^= r < 0.f;
+      const float x = __fsub_rn(r, cold(j, w));
+      const float ax = fabsf(x);
+      min2 = fminf(min2, fmaxf(min1, ax));
+      min1 = fminf(min1, ax);
+      sg ^= __float_as_uint(x);
+    }
+    float mag1, mag2;
+    if constexpr (FAST_MAG) {
+      mag1 = __fmul_rn(a, fminf(min1, kMagCap));
+      mag2 = __fmul_rn(a, fminf(min2, kMagCap));
+    } else {
+      mag1 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min1, kMagCap)), bt), 0.f);
+      mag2 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min2, kMagCap)), bt), 0.f);
+    }
+    bool flip = false;
+    int slot = -1;
+    uint32_t nw = 0;
+    for (int j = 0; j < d; ++j) {
+      if ((j & 31) == 0) w = zero ? 0u : old[(3 + (j >> 5)) * ws];
+      float* pj = at(j);
+      const float r = *pj;
+      const float x = __fsub_rn(r, cold(j, w));
+      const bool is_min = fabsf(x) == min1;
+      if (is_min && slot < 0) slot = j;
+      const uint32_t neg = (sg ^ __float_as_uint(x)) & kSign;
+      nw |= (neg >> 31) << (j & 31);
+      const float cn =
+          __uint_as_float(__float_as_uint(is_min ? mag2 : mag1) | neg);
+      const float y = __fadd_rn(x, cn);
+      *pj = y;
+      if constexpr (TRACK)
+        flip |= ((__float_as_uint(y) ^ __float_as_uint(r)) >> 31) != 0;
+      if ((j & 31) == 31 || j == d - 1) {
+        out[(3 + (j >> 5)) * ws] = nw;
+        nw = 0;
+      }
+    }
+    out[0] = __float_as_uint(mag1);
+    out[ws] = __float_as_uint(mag2);
+    out[2 * ws] = (uint32_t)slot;
+    return par || flip;
+  }
+};
+
+template <int DEG, bool FAST_MAG>
+struct RuleOf {
+  using type = Minsum<DEG, FAST_MAG>;
+};
+template <bool FAST_MAG>
+struct RuleOf<ct::kWide, FAST_MAG> {
+  using type = MinsumWide<FAST_MAG>;
+};
+
 template <int DEG, bool TRACK, bool FAST_MAG, bool XOR>
 __global__ void __launch_bounds__(512, 1)
 layered_qc_kernel(ct::Args a, MinsumParams p) {
-  Minsum<DEG, FAST_MAG> rule{p};
+  typename RuleOf<DEG, FAST_MAG>::type rule{p};
   ct::decode_tiles<TRACK, XOR>(a, rule);
 }
 
@@ -208,7 +308,8 @@ Kern pick_width(int dcb_max, int track, int fast_mag) {
   if (dcb_max <= 8) return pick_mode<8, XOR>(track, fast_mag);
   if (dcb_max <= 16) return pick_mode<16, XOR>(track, fast_mag);
   if (dcb_max <= 32) return pick_mode<32, XOR>(track, fast_mag);
-  return pick_mode<64, XOR>(track, fast_mag);
+  if (dcb_max <= kMaxDeg) return pick_mode<64, XOR>(track, fast_mag);
+  return pick_mode<ct::kWide, XOR>(track, fast_mag);
 }
 
 Kern pick(int dcb_max, int track, int fast_mag, int xor_perm) {
@@ -225,7 +326,7 @@ extern "C" {
 // kernel instance the other arguments pick (0: the plan does not fit).
 int layered_qc_clusters(int dcb_max, int track, int fast_mag, int xor_perm,
                         int cs, int threads, int smem, void* out) {
-  if (dcb_max > kMaxDeg || dcb_max < 1) return (int)cudaErrorInvalidValue;
+  if (dcb_max < 1) return (int)cudaErrorInvalidValue;
   return (int)ct::max_clusters(pick(dcb_max, track, fast_mag, xor_perm), cs,
                                threads, (size_t)smem, static_cast<int*>(out));
 }
@@ -245,7 +346,7 @@ int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
                       int fast_mag, int xor_perm, int cs, int lg_cs, int F,
                       int tiles, int stride, int nchip, int threads,
                       int smem, int clusters, void* stream) {
-  if (dcb_max > kMaxDeg || dcb_max < 1 || B < 1 || max_iters < 1)
+  if (dcb_max < 1 || B < 1 || max_iters < 1)
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);

@@ -65,7 +65,7 @@ struct Args {
 // more of the shared-memory and transcendental latency than 16: faster on
 // the CCSDS and DVB-S2 flooding legs of an H100.
 __host__ __device__ constexpr int max_threads(int max_deg) {
-  return max_deg <= 8 ? 1024 : 512;
+  return max_deg != ct::kWide && max_deg <= 8 ? 1024 : 512;
 }
 
 // Items [n0, R, F] (a block-row or block-column, a row zl of this rank, a
@@ -158,14 +158,20 @@ __device__ void syndrome(const Args& a, Shared& sh, const int* lptr,
   for (Walk w(threadIdx.x, blockDim.x, a.R, F); w.a < a.mb; w.next()) {
     if (w.f >= nf) continue;
     const int s0 = lptr[w.a], d = lptr[w.a + 1] - s0, zf = w.zf();
-    float r[D];
-#pragma unroll
-    for (int j = 0; j < D; ++j)
-      if (j < d) r[j] = *at<XOR>(sbase[s0 + j], soff[s0 + j], w.zl, zf, RF, F);
     bool par = false;
+    if constexpr (D == ct::kWide) {
+      for (int j = 0; j < d; ++j)
+        par ^= *at<XOR>(sbase[s0 + j], soff[s0 + j], w.zl, zf, RF, F) < 0.f;
+    } else {
+      float r[D];
 #pragma unroll
-    for (int j = 0; j < D; ++j)
-      if (j < d) par ^= r[j] < 0.f;
+      for (int j = 0; j < D; ++j)
+        if (j < d)
+          r[j] = *at<XOR>(sbase[s0 + j], soff[s0 + j], w.zl, zf, RF, F);
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (j < d) par ^= r[j] < 0.f;
+    }
     if (par) sh.part[w.f] = 1;
   }
 }

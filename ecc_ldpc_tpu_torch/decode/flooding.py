@@ -45,19 +45,20 @@ from .layered_qc import (
     _ptr,
     _raise_launch,
     _round4,
-    check_degree,
+    wide_scratch,
 )
 from .types import DecodeResult
 
-# the kernel's widest build (csrc/flooding.cu: 6-, 8-, 32- and 64-wide
-# instances; ROADMAP.md Queue 3); the plain version takes any degree
+# the kernel's widest register build (csrc/flooding.cu: 6-, 8-, 32- and
+# 64-wide instances); a wider row takes its wide build (plan width = the
+# row's degree), as the plain version takes any degree
 MAX_DC = 64
 # rows up to this degree take two frames a thread's item where F is even;
-# the 64-wide build takes one (its registers hold one frame's row)
+# the 64-wide and wide builds take one (one frame's row a thread)
 MAX_DC_PAIRS = 32
-WIDTHS = (6, 8, 32, MAX_DC)  # the builds' row widths (pick_width)
+WIDTHS = (6, 8, 32, MAX_DC)  # the register builds' row widths (pick_width)
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
-_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
          + [ctypes.c_int] * 8 + [ctypes.c_void_p])
 FLOODING_FORMS = ("chip", "global")
 # form "global": frames a tile at most (the earlier design's tile), each
@@ -186,7 +187,9 @@ class FloodingPlan:
     form: str       # "chip" or "global"
     llr_chip: bool  # the LLRs held on chip too
     words: int      # f32 words of one frame's state in the tile
-    width: int = 8  # the kernel build's row width (csrc/flooding.cu)
+    # the kernel build's row width (csrc/flooding.cu); above MAX_DC the
+    # wide build, given as the row's degree
+    width: int = 8
 
     @property
     def lanes(self) -> int:
@@ -226,7 +229,6 @@ def flooding_plan(graph: CompiledGraph, batch: int, kind: str = "minsum",
         raise KeyError(f"flooding kind must be one of {CN_KINDS}, got {kind!r}")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
-    check_degree(graph.name, graph.dc_max, MAX_DC, "flooding_plan")
     room = _SMEM_BLOCK - _SMEM_STATIC
 
     def smem(F: int, llr: bool) -> int:
@@ -246,7 +248,7 @@ def flooding_plan(graph: CompiledGraph, batch: int, kind: str = "minsum",
         raise ValueError(f"{graph.name}: {F} frames do not fit a block")
     llr_chip = form == "chip" and smem(F, True) <= room
     cap = 1024 if graph.dc_max <= 8 else 512  # csrc st::max_threads
-    width = next(w for w in WIDTHS if graph.dc_max <= w)
+    width = next((w for w in WIDTHS if graph.dc_max <= w), graph.dc_max)
     plan = FloodingPlan(F, 0, smem(F, llr_chip) if form == "chip" else 0,
                         -(-batch // F), sms, form, llr_chip,
                         _frame_words(graph, llr_chip), width)
@@ -307,7 +309,6 @@ def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
     check_args(graph, kind, alpha, beta)
     _check_llr(llr, graph.n, max_iters, "flooding_decode_cuda",
                "flooding_decode_plain")
-    check_degree(graph.name, graph.dc_max, MAX_DC, "flooding_decode_cuda")
     dev = llr.device
     B, n = llr.shape
     plan, blocks, inst, cn, vn = _prepared(graph, dev, B, kind,
@@ -316,6 +317,7 @@ def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
     slab = blocks * plan.words * plan.frames if plan.form == "global" else 0
     scratch = torch.empty(4 + slab, dtype=torch.int32, device=dev)
     at = scratch.data_ptr()
+    wide = wide_scratch(graph.dc_max, kind, blocks * plan.threads, dev)
     bits = torch.empty((B, n), dtype=torch.uint8, device=dev)
     post = (torch.empty((B, n), dtype=torch.float32, device=dev)
             if with_posteriors else None)
@@ -326,7 +328,7 @@ def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
         rc = lib.flooding_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
             iters.data_ptr(), at, cn.data_ptr(), vn.data_ptr(),
-            at + 16 if slab else None, n, graph.m, graph.dc_max,
+            at + 16 if slab else None, _ptr(wide), n, graph.m, graph.dc_max,
             graph.dv_max, B, max_iters, inst[1], float(alpha), float(beta),
             inst[2], plan.lanes, plan.frames, plan.tiles, int(plan.llr_chip),
             plan.threads, plan.smem, blocks,

@@ -43,13 +43,15 @@ from .layered_qc import (
     _plan_launch,
     _ptr,
     _raise_launch,
-    check_degree,
+    wide_scratch,
 )
 from .types import DecodeResult
 
-MAX_DEG = FLOODING_MAX_DEG  # the kernel's widest build (csrc/flooding_qc.cu)
+# the kernel's widest register build (csrc/flooding_qc.cu); wider rows take
+# its wide build
+MAX_DEG = FLOODING_MAX_DEG
 _RULE_IDS = {k: i for i, k in enumerate(CN_KINDS)}  # csrc/bp_rules.cuh
-_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
          + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
@@ -203,8 +205,6 @@ def _launch(graph: QCGraph, llr: torch.Tensor, kind: str, alpha, beta,
     check_args(graph, kind, alpha, beta)
     _check_llr(llr, graph.n, max_iters, "flooding_qc_decode_cuda",
                "flooding_qc_decode_plain")
-    check_degree(graph.name, graph.dcb_max, MAX_DEG,
-                 "flooding_qc_decode_cuda")
     dev, B = llr.device, llr.shape[0]
     tab = _device_tables(graph, dev, "flooding_kernel", _flooding_table)
     inst = (graph.dcb_max, _RULE_IDS[kind], int(early_term),
@@ -212,11 +212,13 @@ def _launch(graph: QCGraph, llr: torch.Tensor, kind: str, alpha, beta,
     plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
         "flooding_qc", inst, graph, llr, kind, early_term, with_posteriors,
         "flooding")
+    wide = wide_scratch(graph.dcb_max, kind,
+                        clusters * plan.cluster * plan.threads, dev)
     lib = _lib("flooding_qc", "flooding_qc_decode", _ARGS)
     with torch.cuda.device(dev):
         rc = lib.flooding_qc_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
-            iters.data_ptr(), *ptrs, tab.data_ptr(),
+            iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(wide),
             graph.Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             graph.dcb_max, inst[1], float(alpha), float(beta), *inst[2:],
             plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,

@@ -58,12 +58,13 @@ _SPA_TANH_CLIP = 1.0 - 1e-7  # keeps 2*atanh finite (layered.py:86)
 _MINSTAR_IDENTITY = 1e9      # box-plus identity: a degree-1 row's message
 _SIGN = -(1 << 31)           # the f32 sign bit as an int32
 CN_RULES = ("minsum", "spa", "minstar")
-# the cards' largest row degree by tile form (ROADMAP.md Queue 3): the
-# min-sum and exact-BP kernels (form "set", csrc/layered_qc.cu,
-# csrc/layered_exact.cu) build 8-, 16-, 32- and 64-wide instances, the
-# classic kernel (csrc/layered_classic.cu) 8, 16 and 32, the QC flooding
-# kernel (csrc/flooding_qc.cu, its MAX_DEG) 8 to 64. The plain versions
-# take any degree.
+# the cards' row widths by tile form: the min-sum and exact-BP kernels
+# (form "set", csrc/layered_qc.cu, csrc/layered_exact.cu) and the QC
+# flooding kernel (csrc/flooding_qc.cu, its MAX_DEG) hold a row in
+# registers in 8- to 64-wide builds and take any wider row in their wide
+# builds (the row walked in memory); the classic kernel
+# (csrc/layered_classic.cu) builds 8, 16 and 32 and is the one card limit
+# (ROADMAP.md Queue 3). The plain versions take any degree.
 MAX_DEG = 64
 MAX_DEG_CLASSIC = 32
 FLOODING_MAX_DEG = 64
@@ -116,7 +117,8 @@ def check_graph(graph: QCGraph) -> None:
 
 def check_degree(name: str, degree: int, cap: int, kernel: str) -> None:
     """Raise where a row of `degree` is wider than the card's `kernel`
-    builds (`cap`); the plain version decodes it."""
+    builds (`cap`: the classic kernel's 32); the plain version decodes
+    it."""
     if degree > cap:
         raise ValueError(
             f"{name}: row degree {degree} exceeds {kernel}'s limit {cap} on "
@@ -457,8 +459,26 @@ def column_homes(graph: QCGraph, chip: int) -> tuple:
 
 
 FORMS = ("set", "classic", "flooding")
-_FORM_MAX_DEG = dict(set=MAX_DEG, classic=MAX_DEG_CLASSIC,
-                     flooding=FLOODING_MAX_DEG)
+
+
+def min_sum_words(d: int) -> int:
+    """Words of the min-sum kernel's state a check of degree d
+    (csrc/layered_qc.cu: Minsum::NW, mag1, mag2, then the signs and the
+    slot of mag2 in one word to degree 16, two to 32, three to 64; the wide
+    build's MinsumWide, mag1, mag2, the slot, and ceil(d/32) words of
+    signs)."""
+    if d <= MAX_DEG:
+        return 3 if d <= 16 else 4 if d <= 32 else 5
+    return 3 + -(-d // 32)
+
+
+def wide_scratch(degree: int, cn: str, threads: int, device):
+    """The wide minstar builds' per-thread scratch (`degree` floats, the
+    graph's widest row, for each of `threads` threads of the grid: the
+    forward box-plus prefixes), or None where the launch needs none."""
+    if cn != "minstar" or degree <= MAX_DEG:
+        return None
+    return torch.empty(degree * threads, dtype=torch.float32, device=device)
 
 
 def _state_words(graph: QCGraph, form: str, llr: bool) -> int:
@@ -511,14 +531,13 @@ def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
         raise ValueError(f"batch must be >= 1, got {batch}")
     if graph.mb < 2 and form == "set":
         raise ValueError(f"{graph.name}: the tile kernels need >= 2 layers")
-    check_degree(graph.name, graph.dcb_max, _FORM_MAX_DEG[form],
-                 f"the {form} tile kernels")
+    if form == "classic":  # the other forms take any degree
+        check_degree(graph.name, graph.dcb_max, MAX_DEG_CLASSIC,
+                     "the classic tile kernels")
     Z, nb = graph.Z, graph.nb
-    # words a check (csrc/layered_qc.cu Minsum::NW: mag1, mag2, then the
-    # signs and the slot of mag2 in one word to degree 16, two to 32, three
-    # to 64; exact BP: every message)
+    # words a check (min_sum_words; exact BP: every message)
     d = graph.dcb_max
-    words = (3 if d <= 16 else 4 if d <= 32 else 5) if cn == "minsum" else d
+    words = min_sum_words(d) if cn == "minsum" else d
     tab = (12 * graph.num_block_edges + 4 * (graph.mb + 1) + 4 * nb)
     room = _SMEM_BLOCK - _SMEM_STATIC
     plans = []
@@ -642,7 +661,7 @@ def _lib(name: str, entry: str, argtypes):
 
 _QC_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
             + [ctypes.c_float] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-_EXACT_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+_EXACT_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
 _CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                  + [ctypes.c_float] * 2 + [ctypes.c_int] * 9
                  + [ctypes.c_void_p])
@@ -737,8 +756,8 @@ def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
     the other two only graphs that do not."""
     _check_llr(llr, graph.n, max_iters, who, "layered_decode_plain")
     check_graph(graph)
-    check_degree(graph.name, graph.dcb_max,
-                 MAX_DEG_CLASSIC if classic else MAX_DEG, who)
+    if classic:
+        check_degree(graph.name, graph.dcb_max, MAX_DEG_CLASSIC, who)
     if classic and graph.intra_layer_dup_free:
         raise ValueError(
             f"{graph.name}: no layer repeats a block-column; its kernels are "
@@ -856,11 +875,13 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
             int(graph.perm == "xor"))
     plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
         "layered_exact", inst, graph, llr, cn, early_term, with_posteriors)
+    wide = wide_scratch(graph.dcb_max, cn,
+                        clusters * plan.cluster * plan.threads, dev)
     lib = _lib("layered_exact", "layered_exact_decode", _EXACT_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_exact_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
-            iters.data_ptr(), *ptrs, tab.data_ptr(),
+            iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(wide),
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             *inst, plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
             plan.stride, plan.chip, plan.threads, plan.smem, clusters,

@@ -16,10 +16,13 @@ easy as 1, 2, 3", SC 2011) written in plain tensor ops on uint32 values
 held in int64 (each 32x32-bit product split at 16 bits, so no int64
 overflows): key (seed mod 2^32, seed >> 32 mod 2^32), counter (block j,
 global frame index mod 2^32, step, 2 x point + stream), stream 0 for the
-message bits and 1 for the noise. Block j of a frame gives message bits
-128 j .. 128 j + 127 (bit b of word t is bit 128 j + 32 t + b) or normals
-4 j .. 4 j + 3 (Box-Muller on words (0, 1) and (2, 3); a uniform is
-((word >> 8) + 1) / 2^24, 24 bits in (0, 1], so the log never sees 0).
+message bits and 1 for the channel's draws, whatever the channel (a third
+stream would collide: 2 x point + 2 is stream 0 of the next point). Block
+j of a frame gives message bits 128 j .. 128 j + 127 (bit b of word t is
+bit 128 j + 32 t + b), or normals 4 j .. 4 j + 3 (Box-Muller on words (0,
+1) and (2, 3)), or uniforms 4 j .. 4 j + 3 (one a word); a uniform is
+((word >> 8) + 1) / 2^24, 24 bits in (0, 1], so the log never sees 0. A
+channel takes `count` normals or uniforms a frame (chan/modem.Channel).
 Rows [a, b) of a batch are rows [a, b) of the whole batch drawn at once.
 The numbers differ from the JAX package's threefry, so curves are compared
 statistically. run_sweep's step-seeded torch.Generator stays as it is: as
@@ -89,11 +92,24 @@ def frame_bits(seed: int, point: int, step: int, frames: torch.Tensor,
     return bits.reshape(len(frames), -1)[:, :k].to(torch.uint8)
 
 
+def _unit(words: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms ((word >> 8) + 1) / 2^24 in (0, 1]."""
+    return ((words >> 8) + 1).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def frame_uniforms(seed: int, point: int, step: int, frames: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """f32 [B, n] uniforms in (0, 1] of the frames in `frames`, one a word
+    of the channel's stream."""
+    words = frame_words(seed, point, step, STREAM_NOISE, frames, -(-n // 4))
+    return _unit(words).reshape(len(frames), -1)[:, :n].contiguous()
+
+
 def frame_normals(seed: int, point: int, step: int, frames: torch.Tensor,
                   n: int) -> torch.Tensor:
     """f32 [B, n] standard normals of the frames in `frames`."""
     words = frame_words(seed, point, step, STREAM_NOISE, frames, -(-n // 4))
-    u = ((words >> 8) + 1).to(torch.float32) * (1.0 / (1 << 24))
+    u = _unit(words)
     r = torch.sqrt(-2.0 * torch.log(u[..., 0::2]))
     theta = (2.0 * math.pi) * u[..., 1::2]
     z = torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
@@ -107,13 +123,14 @@ def point_counters(pipeline, seed: int, point: int, step: int,
     """int64 [4] counters (COUNTERS) of `batch` frames of one grid point,
     frames frame_start .. frame_start + batch - 1, through `pipeline` (a
     sim.runner.Pipeline, on its device): their per-frame message bits and
-    noise, encode, BPSK over AWGN with the code's punctured and shortened
-    masks, decode, tally."""
+    channel draws (the pipeline's channel's kind and count), encode, the
+    channel, decode, tally."""
     frames = frame_start + torch.arange(batch, dtype=torch.int64,
                                         device=pipeline.device)
+    ch = pipeline.channel
+    draw = frame_normals if ch.draws == "normals" else frame_uniforms
     return pipeline.counts(frame_bits(seed, point, step, frames, pipeline.k),
-                           frame_normals(seed, point, step, frames,
-                                         pipeline.n), ebn0_db)
+                           draw(seed, point, step, frames, ch.count), ebn0_db)
 
 
 def make_sharded_step(pipeline, mesh, batch_per_rank: int,

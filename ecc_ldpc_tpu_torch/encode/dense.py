@@ -5,9 +5,19 @@ The host derives a systematic generator G from H by GF(2) elimination
 batch as one 0/1 matrix product followed by mod 2. PyTorch has no integer
 matmul on CUDA, so the product runs in f32, which is exact here: every
 sum is an integer of at most k, far below 2^24. For codes without a
-structured encoder (mackay1008, alist files).
+structured encoder (mackay1008, alist files, CCSDS AR4JA).
+
+Large codes (n * m above 64M cells, such as CCSDS k = 16384) pay a one-time
+elimination of seconds to minutes; DenseEncoder.build keeps their G on the
+host, bit-packed and content-addressed by a hash of H, under
+~/.cache/ecc_ldpc_tpu_torch/, in the JAX package's file format
+(G_<hash>.npz with G_packed, n and info_cols), so either package reads a
+file the other wrote.
 """
 from __future__ import annotations
+
+import hashlib
+import os
 
 import numpy as np
 import torch
@@ -15,9 +25,42 @@ import torch
 from ..codes.spec import CodeSpec
 from .gf2 import gf2_matmul, gf2_row_reduce
 
-# cells of H above which the JAX package caches G on the host (its
-# DenseEncoder.build); the port has no such cache yet
+# cells of H above which DenseEncoder.build caches G on the host (the JAX
+# package's threshold), and the most it eliminates (ecc_ldpc_tpu/encode/
+# dense.py LARGE_CELLS: CCSDS k = 16384 at rate 1/2 has 24576 x 40960,
+# ~1.0e9, while a DVB-S2 normal frame's H stays refused)
 _CACHE_CELLS = 64_000_000
+LARGE_CELLS = 1_200_000_000
+CACHE_DIR = ("~", ".cache", "ecc_ldpc_tpu_torch")
+
+
+def cache_path(spec: CodeSpec) -> str:
+    """The G cache file of `spec`: sha256 of [m, n] (int64) and each row's
+    columns (int32), first 24 hex digits, as the JAX package names it."""
+    h = hashlib.sha256()
+    h.update(np.int64([spec.m, spec.n]).tobytes())
+    for r in spec.row_cols:
+        h.update(np.asarray(r, np.int32).tobytes())
+    return os.path.join(os.path.expanduser(os.path.join(*CACHE_DIR)),
+                        f"G_{h.hexdigest()[:24]}.npz")
+
+
+def load_cached(path: str):
+    """(G uint8 [k, n], info_cols int32 [k]) from a cache file."""
+    with np.load(path) as z:
+        G = np.unpackbits(z["G_packed"], axis=1, count=int(z["n"]))
+        return G, np.asarray(z["info_cols"], np.int32)
+
+
+def save_cached(path: str, G: np.ndarray, info_cols: np.ndarray) -> None:
+    """Write a cache file: to a temporary name, then os.replace into place,
+    so a reader never sees half a file."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}.npz"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, G_packed=np.packbits(G, axis=1),
+                            n=np.int64(G.shape[1]), info_cols=info_cols)
+    os.replace(tmp, path)
 
 
 def systematic_generator(spec: CodeSpec, max_cells: int = _CACHE_CELLS):
@@ -49,13 +92,19 @@ class DenseEncoder:
         self._dev = {}
 
     @staticmethod
-    def build(spec: CodeSpec) -> "DenseEncoder":
-        if spec.n * spec.m > _CACHE_CELLS:
-            raise NotImplementedError(
-                f"{spec.name}: a {spec.m}x{spec.n} dense generator needs the "
-                f"JAX package's host-side G cache, which waits for ROADMAP.md "
-                f"Queue 1 step 3 (dense encoders)")
-        return DenseEncoder(*systematic_generator(spec))
+    def build(spec: CodeSpec, cache: bool = True) -> "DenseEncoder":
+        """The systematic generator of `spec`, from the host cache where
+        n * m exceeds 64M cells (eliminated and stored there on a miss, up
+        to LARGE_CELLS); cache=False eliminates anew and stores nothing."""
+        big = spec.n * spec.m > _CACHE_CELLS
+        path = cache_path(spec) if cache and big else None
+        if path is not None and os.path.exists(path):
+            return DenseEncoder(*load_cached(path))
+        G, info_cols = systematic_generator(
+            spec, max_cells=LARGE_CELLS if big else _CACHE_CELLS)
+        if path is not None:
+            save_cached(path, G, info_cols)
+        return DenseEncoder(G, info_cols)
 
     @property
     def k(self) -> int:

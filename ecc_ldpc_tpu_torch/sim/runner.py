@@ -165,9 +165,10 @@ class Pipeline:
     """message -> encode -> channel -> decode -> tally for one (code,
     decoder) pair on one device.
 
-    The message bits and the unit normals of the channel are the caller's:
-    counts(msg, noise, ebn0_db) -> int64 [4] (tally_counts) decodes them,
-    as the sharded sweep does with its per-frame draws
+    The message bits and the channel's draws (chan/modem.Channel: its
+    `draws`, normals or uniforms, and their `count` a frame) are the
+    caller's: counts(msg, noise, ebn0_db) -> int64 [4] (tally_counts)
+    decodes them, as the sharded sweep does with its per-frame draws
     (dist/montecarlo.py). run_sweep draws them from a torch.Generator:
     frames(gen, ebn0_db) -> (message, channel LLRs) of one batch, and
     step(gen, ebn0_db) -> tally of the same batch decoded."""
@@ -179,19 +180,18 @@ class Pipeline:
         self.n = n
         self.rate = rate
         self.encode = encode  # msg -> codeword bits
-        self.channel = channel  # build_channel's f(gen, cw, ebn0_db, noise)
+        self.channel = channel  # a chan/modem.Channel (build_channel)
         self.decode = decode  # llr -> (message estimate, iterations)
         self.batch = batch
         self.device = device
 
     def draw(self, gen: torch.Generator) -> tuple:
-        """(message bits uint8 [batch, k], unit normals f32 [batch, n])
-        from gen, in that order."""
+        """(message bits uint8 [batch, k], the channel's draws f32 [batch,
+        count]) from gen, in that order (for bpsk: n unit normals, the same
+        two calls as before the channel layer)."""
         msg = torch.randint(0, 2, (self.batch, self.k), generator=gen,
                             device=self.device, dtype=torch.uint8)
-        noise = torch.randn((self.batch, self.n), generator=gen,
-                            dtype=torch.float32, device=self.device)
-        return msg, noise
+        return msg, self.channel.draw(gen, self.batch, self.device)
 
     def llr(self, msg, noise, ebn0_db) -> torch.Tensor:
         return self.channel(None, self.encode(msg), ebn0_db, noise)
@@ -310,9 +310,10 @@ def sharded_step(spec: SweepSpec, mesh):
     4] counters, the same on every rank (dist.montecarlo.make_sharded_step).
     The reference's checks come first (runner.py:362-376): a ';retry='
     decoder, a grid or batch that does not divide over the mesh raise
-    ValueError; a channel other than bpsk raises as build_channel does. On
-    a card with several ranks, rank 0 builds the kernels before the others
-    load them, so that one nvcc runs per source, not one per rank."""
+    ValueError; every channel build_channel builds runs (its per-frame
+    draws: dist/montecarlo.py), and an uncoded bpsk/N code too. On a card
+    with several ranks, rank 0 builds the kernels before the others load
+    them, so that one nvcc runs per source, not one per rank."""
     from .. import _build
     from ..dist.montecarlo import COUNTERS, make_sharded_step
     from ..dist.ring import Ring
@@ -334,7 +335,7 @@ def sharded_step(spec: SweepSpec, mesh):
         if mesh.rank == 0:
             _build.build_all()
         torch.distributed.barrier(group=mesh.group)
-    pipeline = _ldpc_pipeline(spec, mesh.device)
+    pipeline = Pipeline.build(spec, mesh.device)
     nbytes = len(spec.ebn0_db) * len(COUNTERS) * 8
     with Ring(mesh.group, mesh.device, nbytes) as ring:
         yield pipeline, make_sharded_step(pipeline, mesh,

@@ -256,9 +256,10 @@ def test_emulation_bit_identical_to_plain(code, ebn0, cn, mode, layout):
 
 def test_degree_caps_are_the_cards():
     """Rows of 33-64 get a plan of the 64-wide builds (5 words of min-sum
-    check state); above 64 the card's wrappers and plans raise, naming
-    ROADMAP.md Queue 3, and the plain version decodes; the classic form
-    stops at 32."""
+    check state); above 64 the forms "set" and "flooding" plan their wide
+    builds (3 + ceil(d/32) words of min-sum check state), and the classic
+    form stops at 32, naming ROADMAP.md Queue 3; the plain version decodes
+    any degree."""
     from ecc_ldpc_tpu_torch.codes.qc import QCCode, expand_qc
 
     g = graph_of("dvbs2/16200/910")
@@ -270,9 +271,13 @@ def test_degree_caps_are_the_cards():
         k=65 * 4))
     assert wide.dcb_max == 67
     lq.check_graph(wide)  # the plain version takes any degree
-    for form in lq.FORMS:
-        with pytest.raises(ValueError, match="row degree 67 .*Queue 3"):
-            lq.tile_plan(wide, 8, form=form)
+    for form in ("set", "flooding"):
+        plan = lq.tile_plan(wide, 8, form=form)
+        assert plan.threads <= 512 and plan.smem <= lq._SMEM_BLOCK
+    assert lq.tile_plan(wide, 8, "minsum").stride % 4 == 0
+    assert lq.min_sum_words(67) == 6 and lq.min_sum_words(64) == 5
+    with pytest.raises(ValueError, match="row degree 67 .*Queue 3"):
+        lq.tile_plan(wide, 8, form="classic")
     with pytest.raises(ValueError, match="row degree 34 .*limit 32"):
         lq.tile_plan(g, 8, form="classic")
     llr = torch.ones((2, wide.n))
