@@ -234,14 +234,50 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      on meshes 1x1 and 2x1 through bench/sharded.py and through the CLI
      on 2x1 with --channel, under torch.distributed.run: identical
      counters, K5 launched on every rank of 2x1.
-Then the kernels line (the launches of phases 28-29 and 31-34 added to
+  35. precision kernels vs plain — K1a (roll on dvbs2/16200/12, xor on
+     8023an), K1c (spa, minstar) and K1b/K1c' (min-sum, spa on
+     ccsds/1024/12) with bf16 message storage, q:6:0.25 and q:4:1.0, fixed
+     and track, at 32 and 13 frames, and K1a's 8-, 16-, 32-, 64-wide and
+     wide builds once under q:6:0.25, each against its plain version with
+     the same precision: bits, ok and iterations identical, posteriors
+     after one sweep within EXACT_MAX_ULPS, min-sum's final posteriors
+     identical; each prints its plan (with its precision); then each leg
+     of 36 at its own shape (4096 frames).
+  36. precision timed — bench.PRECISION_LEGS through run_benchmark
+     (/25/noet, 4096 frames): min-sum and spa on dvbs2/64800/12 at 1.5 dB
+     with /pallas (bf16) and on q:6:0.25, and min-sum and spa on
+     ccsds/4096/12 at 2.5 dB on q:6:0.25 (K1b, K1c'): ms, launches, bound,
+     plain ms, FER <= 0.01 (< 0.5 on CCSDS, as its f32 legs); the
+     registers and spill of every instance of the three layered sources'
+     f32 and precision (_prec) libraries.
+  37. precision curves — layered/norm:0.8125/25 with backend pallas
+     (bf16) at the golden's points 0.95-1.1 dB must overlap the golden it
+     made, phase 8's f32 run printed beside it; on 80211n/1944/12 at its
+     golden's steepest point, 16384 frames, q:6:0.25 within 4x float
+     (or 1e-3) and q:3:1.0 above 10x q:6:0.25; one point through the
+     CLI's --backend pallas.
+  38. post-decode forms — bitflip/50 and gdbf/theta:-0.5/50 on
+     80211n/1944/12 and bitflip/50 on mackay1008 over the hard channel at
+     6.0 and 7.0 dB (every frame fails at 4 and 5), 4096 frames: card
+     against CPU on the same LLRs (majority identical; GDBF but for frames
+     within 1e-5 of theta), ms, FER falling; layered/norm:0.8125/50 with
+     and without /cleanup through the CLI at 1.5 dB, 65536 frames: the
+     cleanup's frame errors no more than the decoder's plus the frames it
+     made wrong (counted on the same batches regenerated), and the
+     cleanup of a 1.05 dB batch's failed rows on the card equal to the
+     CPU's; CRC24A over nr5g/bg1/384 (with_crc): 4096 frames on the card,
+     every CRC check equal to the bit-serial reference's, ok = syndrome
+     AND CRC.
+Then the kernels line (the launches of phases 28-29 and 31-38 added to
 the kernels that decode them, the families' errors to theirs, an entry
-with "width": 64 for each 64-wide instance timed in 27 and one with
-"width": "wide" for each wide instance timed in 30), nvidia-smi's line,
+with "width": 64 for each 64-wide instance timed in 27, one with
+"width": "wide" for each wide instance timed in 30 and one with its
+"precision" for each (kernel, precision) timed in 36), nvidia-smi's line,
 and the result line last.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import pathlib
@@ -265,6 +301,7 @@ from ecc_ldpc_tpu_torch.bench.throughput import (
     CCSDS_LEGS,
     CCSDS_PRODUCTION_SWEEP,
     EXACT_LEGS,
+    PRECISION_LEGS,
     SHARDED_MESHES,
     SHARDED_SWEEP,
     FLOODING_LEGS,
@@ -305,6 +342,7 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
     layered_exact_cuda,
     minsum_with_posteriors_cuda,
     plain_with_posteriors,
+    tpu_msg_dtype,
 )
 from ecc_ldpc_tpu_torch.encode.structured import build_encoder
 from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
@@ -651,6 +689,67 @@ MODEM_REFERENCES = [
 ]
 MODEM_SWEEP_BATCH = 1024  # the goldens' own batch: their frame counts exactly
 
+# 35. the message precisions through the layered kernels against their
+# plain versions: name -> the plain version's precision (decode/quant.py)
+PRECISIONS = {"bf16": ("bf16",), "q:6:0.25": ("q", 6, 0.25),
+              "q:4:1.0": ("q", 4, 1.0)}
+PRECISION_T = 10  # iterations a case (the plain versions walk each layer)
+# (kernels-line name, code, the spec's rule part, Eb/N0): K1a roll and xor,
+# K1c spa and minstar, K1b and K1c' spa; each precision, fixed and track,
+# at PRECISION_FRAMES frames
+PRECISION_CASES = [
+    ("layered_qc", "dvbs2/16200/12", "layered/norm:0.8125", 1.5),
+    ("layered_qc:xor", "8023an", "layered/norm:0.8125", 3.4),
+    ("layered_exact:spa", "dvbs2/16200/12", "layered/spa", 1.5),
+    ("layered_exact:minstar", "dvbs2/16200/12", "layered/minstar", 1.5),
+    ("layered_classic:minsum", "ccsds/1024/12", "layered/norm:0.8125", 1.5),
+    ("layered_classic:spa", "ccsds/1024/12", "layered/spa", 1.5),
+]
+PRECISION_FRAMES = (32, 13)
+# K1a's row widths once each under q:6:0.25, track mode: width -> (code,
+# Eb/N0); row degrees 8, 15, 28, 34 and 80
+PRECISION_WIDTHS = {"8": ("dvbs2/16200/12", 1.5),
+                    "16": ("dvbs2/16200/34", 3.2),
+                    "32": ("dvbs2/16200/89", 3.6),
+                    "64": ("dvbs2/16200/910", 4.3),
+                    "wide": ("sc/2/80/6/32", 6.0)}
+# 37. bf16 against the golden it made (the golden's decoder and points
+# 0.95-1.1 dB, as phase 8 runs f32); the q: ordering on 80211n/1944/12 at
+# its golden's steepest point; one point through the CLI
+PRECISION_GOLDEN_EBN0 = (0.95, 1.0, 1.05, 1.1)
+QUANT_ORDER_CODE = "80211n/1944/12"
+QUANT_ORDER_GOLDEN = ROOT / "curves" / "80211n_1944_12_tpu_golden.json"
+QUANT_ORDER_FRAMES = 16384
+QUANT_ORDER_DECODERS = ("layered/norm:0.8125/25",
+                        "layered/norm:0.8125/q:6:0.25/25",
+                        "layered/norm:0.8125/q:3:1.0/25")
+PRECISION_CLI_EBN0 = 1.05
+PRECISION_CLI_FRAMES = 8192
+# 38. bit flipping over the hard channel, card against CPU on the same
+# LLRs: (code, decoder); at 4.0 and 5.0 dB every frame of these codes
+# fails (FER 1.0 on the CPU at 256 frames), so the points are 6.0 and 7.0
+BITFLIP_CASES = [("80211n/1944/12", "bitflip/50"),
+                 ("80211n/1944/12", "gdbf/theta:-0.5/50"),
+                 ("mackay1008", "bitflip/50")]
+BITFLIP_EBN0 = (6.0, 7.0)
+BITFLIP_B = 4096
+GDBF_NEAR_THETA = 1e-5
+# the cleanup at the production point, through the CLI, against the same
+# decoder without it on the same draws; card against CPU on the failed
+# rows of a batch at CLEANUP_HARD_EBN0, where many rows fail
+CLEANUP_CODE = "dvbs2/64800/12"
+CLEANUP_DECODER = "layered/norm:0.8125/50"
+CLEANUP_EBN0 = 1.5
+CLEANUP_FRAMES = 65536
+CLEANUP_BATCH = 4096
+CLEANUP_HARD_EBN0 = 1.05
+# CRC24A over NR base graph 1 at Z = 384, at a point where some frames fail
+CRC_CODE = "nr5g/bg1/384"
+CRC_NAME = "24a"
+CRC_DECODER = "layered/norm:0.8125/25"
+CRC_B = 4096
+CRC_EBN0 = 1.0
+
 
 T_START = time.perf_counter()
 
@@ -694,9 +793,12 @@ def tile_line(wrapper, B: int) -> dict:
     launched, at most those resident by cudaOccupancyMaxActiveClusters; K2:
     its form, frames a tile, tiles and the blocks launched), and whether
     the last tile is ragged."""
-    plan, resident = wrapper.last_plan
-    return dict(plan=dict(plan.as_dict(), resident=resident),
+    plan, resident = wrapper.last_plan[:2]
+    line = dict(plan=dict(plan.as_dict(), resident=resident),
                 ragged=B % plan.frames != 0)
+    if len(wrapper.last_plan) > 2:  # the layered kernels' message precision
+        line["plan"]["precision"] = wrapper.last_plan[2]
+    return line
 
 
 def frozen(res, max_iters: int) -> int:
@@ -2083,6 +2185,452 @@ def dist_path(dev) -> list:
     }]
 
 
+def precision_kwargs(precision) -> dict:
+    """A kernel wrapper's msg_dtype / quant for a plain version's
+    precision (decode/quant.py)."""
+    if precision is None:
+        return {}
+    if precision == ("bf16",):
+        return dict(msg_dtype=torch.bfloat16)
+    return dict(quant=tuple(precision[1:]))
+
+
+def with_precision(fn):
+    """A with-posteriors kernel wrapper taking the plain version's
+    `precision` argument, for compare_posteriors."""
+    def run(graph, llr, precision=None, **kw):
+        return fn(graph, llr, **kw, **precision_kwargs(precision))
+
+    run.__name__ = fn.__name__
+    return run
+
+
+PRECISION_KERNELS = {
+    "layered_qc": (with_precision(minsum_with_posteriors_cuda),
+                   layered_decode_cuda),
+    "layered_exact": (with_precision(exact_with_posteriors_cuda),
+                      layered_exact_cuda),
+    "layered_classic": (with_precision(classic_with_posteriors_cuda),
+                        layered_classic_cuda),
+}
+
+
+def spec_precision(graph, kw):
+    """The precision a parsed layered spec decodes with: q: from `quant`,
+    /pallas the TPU kernel's storage (tpu_msg_dtype), else None."""
+    if kw.get("quant"):
+        return ("q", *kw["quant"])
+    if kw.get("backend") == "pallas" and (
+            tpu_msg_dtype(graph, kw.get("cn", "minsum")) == torch.bfloat16):
+        return ("bf16",)
+    return None
+
+
+def layered_source(graph, cn: str):
+    """(source, kernels-line name, the TPU function's line) of the layered
+    kernel that decodes `graph` with rule `cn`."""
+    if not graph.intra_layer_dup_free:
+        return ("layered_classic", f"layered_classic:{cn}",
+                "415" if cn == "minsum" else "630")
+    if cn == "minsum":
+        return "layered_qc", "layered_qc", "146"
+    return "layered_exact", f"layered_exact:{cn}", "501"
+
+
+def compare_precision(source: str, graph, llr, kw, precision) -> dict:
+    """The layered kernel of csrc/<source>.cu with `precision` against
+    the plain version with it: bits, ok and iterations identical, one
+    sweep's posteriors within EXACT_MAX_ULPS, and min-sum's final ones
+    identical. The line carries the plan and its precision."""
+    kernel_fn, wrapper = PRECISION_KERNELS[source]
+    cn = kw.get("cn", "minsum")
+    dkw = dict(max_iters=kw.get("max_iters", 25),
+               early_term=kw.get("early_term", True), cn=cn,
+               precision=precision)
+    if source != "layered_exact":
+        dkw.update(alpha=kw.get("alpha", 1.0), beta=kw.get("beta", 0.0))
+    return compare_posteriors(kernel_fn, plain_with_posteriors, graph, llr,
+                              dkw, final_exact=cn == "minsum", tiles=wrapper)
+
+
+def precision_kernels_path(dev) -> dict:
+    """Phase 35: every precision kernel case (K1a roll and xor, K1c spa
+    and minstar, K1b and K1c' spa; bf16, q:6:0.25 and q:4:1.0; fixed and
+    track; 32 and 13 frames) and each K1a row width once under q:6:0.25
+    against the plain versions on the card; then each timed leg of 36 at
+    its own shape (one plain call's ms). Returns {"errs": the largest
+    error per (kernels-line name, precision), "parity": the timed legs'
+    compare lines}."""
+    t0 = time.perf_counter()
+    errs, lines = {}, []
+    for name, code, rule, ebn0 in PRECISION_CASES:
+        source = name.split(":")[0]
+        for pname, precision in PRECISIONS.items():
+            for mode in ("fixed", "track"):
+                spec_str = f"{rule}/{PRECISION_T}" + (
+                    "/noet" if mode == "fixed" else "")
+                for B in PRECISION_FRAMES:
+                    x = make_inputs(code, spec_str, B, ebn0, dev, seed=1)
+                    r = compare_precision(source, x.graph, x.llr, x.kw,
+                                          precision)
+                    key = (name.replace(":xor", ""), pname)
+                    errs[key] = max(errs.get(key, 0.0), r["max_abs_err"])
+                    lines.append(r)
+                    emit("precision_vs_plain", kernel=name, code=code,
+                         precision=pname, decoder=spec_str, ebn0_db=ebn0,
+                         **r)
+                    del x
+    for width, (code, ebn0) in PRECISION_WIDTHS.items():
+        spec_str = f"layered/norm:0.8125/{PRECISION_T}"
+        x = make_inputs(code, spec_str, 32, ebn0, dev, seed=1)
+        r = compare_precision("layered_qc", x.graph, x.llr, x.kw,
+                              PRECISIONS["q:6:0.25"])
+        key = ("layered_qc", "q:6:0.25")
+        errs[key] = max(errs.get(key, 0.0), r["max_abs_err"])
+        emit("precision_vs_plain", kernel="layered_qc", width=width,
+             code=code, precision="q:6:0.25", decoder=spec_str, **r)
+        del x
+    parity = {}
+    for leg, cfg in PRECISION_LEGS.items():
+        x = make_inputs(**cfg, device=dev, seed=0)
+        precision = spec_precision(x.graph, x.kw)
+        if precision is None:
+            raise AssertionError(f"{leg}: {cfg['decoder']} stores f32")
+        source = layered_source(x.graph, x.kw.get("cn", "minsum"))[0]
+        parity[leg] = r = compare_precision(source, x.graph, x.llr, x.kw,
+                                            precision)
+        lines.append(r)
+        emit("precision_vs_plain", kernel=source, case=f"{leg}_bench_shape",
+             decoder=cfg["decoder"], **r)
+        del x
+    check_plans("precision", lines)
+    emit("precision_kernels", seconds=time.perf_counter() - t0,
+         cases=len(lines) + len(PRECISION_WIDTHS))
+    return dict(errs=errs, parity=parity)
+
+
+def instance_ptxas(report: str) -> dict:
+    """{kernel instance: "registers, spill" line} of a ptxas -v report."""
+    out, fn = {}, None
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn and ("spill stores" in ln or "registers" in ln):
+            out[fn] = (out.get(fn, "") + " " + ln.strip()).strip()
+    return out
+
+
+def precision_timed_path(dev, ptxas: dict, parity: dict, errs: dict) -> list:
+    """Phase 36: PRECISION_LEGS through run_benchmark (dvbs2/64800/12,
+    B = 4096, 1.5 dB, 25 fixed iterations): ms, launches, bound, one plain
+    call's ms, FER <= 0.01; and the registers and spill of every instance
+    of the layered sources' f32 and precision libraries. Returns the
+    kernels-line entries, one per (kernel, precision)."""
+    for lib, (src, _) in _build.LIBRARIES.items():
+        if src not in ("layered_qc", "layered_exact", "layered_classic"):
+            continue
+        fns = instance_ptxas(ptxas[lib])
+        emit("precision_ptxas", library=lib, instances=len(fns),
+             max_spill_stores=max(
+                 int(v.split(" bytes spill stores")[0].split()[-1])
+                 for v in fns.values()), kernels=fns)
+    out = []
+    for leg, cfg in PRECISION_LEGS.items():
+        cn = parse_decoder_spec(cfg["decoder"]).get("cn", "minsum")
+        graph = choose_graph(get_code(cfg["code"]), cfg["decoder"])
+        src, name, line = layered_source(graph, cn)
+        wrapper = WRAPPERS[src]
+        fer_max = (EXACT_FER_MAX if graph.intra_layer_dup_free
+                   else CCSDS_FER_MAX)
+        before = wrapper.launches
+        smi_before = smi_sample()
+        res = run_benchmark(**cfg, device=dev)
+        launches = wrapper.launches - before
+        plan = tile_line(wrapper, res.batch)["plan"]
+        pname = plan["precision"]
+        fer = res.frame_errors / res.batch
+        emit("precision_bench", leg=leg, kernel=name, decoder=cfg["decoder"],
+             plan=plan, plain_ms=parity[leg]["plain_ms"],
+             **bench_line(res, launches, smi_before))
+        if launches <= 0 or pname == "f32":
+            raise AssertionError(f"{leg}: no {pname} launch of {name}")
+        if not fer <= fer_max:
+            raise AssertionError(f"{leg}: FER {fer} above {fer_max}")
+        out.append({
+            "name": name, "precision": pname, "route": "cuda",
+            "source": f"ecc_ldpc_tpu_torch/csrc/{src}.cu",
+            "replaces": f"ecc_ldpc_tpu/decode/pallas/layered_qc.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(errs.get((name, pname), 0.0),
+                               parity[leg]["max_abs_err"]),
+            "ms": res.wall_s_per_batch * 1e3,
+            "plain_ms": parity[leg]["plain_ms"],
+            "bound_ms": res.bound_ms, "bound_by": res.roofline_form,
+            "library_ms": None, "code": res.code, "batch": res.batch,
+            "plan": plan,
+        })
+    return out
+
+
+def precision_curves_path(dev, f32_golden_run: list) -> None:
+    """Phase 37: layered/norm:0.8125/25 with backend "pallas" (bf16 on
+    dvbs2/64800/12) at the golden's points 0.95-1.1 dB must overlap the
+    golden it made, with phase 8's f32 run printed beside it; on
+    80211n/1944/12 at its golden's steepest point, 16384 frames, q:6:0.25
+    within 4x float (or 1e-3) and q:3:1.0 above 10x q:6:0.25; one point of
+    the same bf16 sweep through the CLI's --backend pallas."""
+    t0 = time.perf_counter()
+    with open(GOLDEN) as f:
+        golden = [PointResult.from_json(d) for d in json.load(f)]
+    before = layered_decode_cuda.launches_by_precision["bf16"]
+    swept = run_sweep(SweepSpec(
+        code="dvbs2/64800/12", decoder=SWEEP_DECODER,
+        ebn0_db=PRECISION_GOLDEN_EBN0, batch=2048, backend="pallas",
+        stopping=StoppingRule(min_frame_errors=100, max_frames=32768)),
+        device=dev)
+    bf16_launches = layered_decode_cuda.launches_by_precision["bf16"] - before
+    overlap = curves_overlap(swept, golden, "fer")
+    f32 = {round(p.ebn0_db, 6): p for p in f32_golden_run}
+    for pr in swept:
+        g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
+        f = f32.get(round(pr.ebn0_db, 6))
+        emit("bf16_vs_golden", decoder=SWEEP_DECODER, backend="pallas",
+             **point_line(pr), golden_fer=g.fer, golden_fer_ci=g.fer_ci,
+             f32_fer=f.fer if f else None, f32_fer_ci=f.fer_ci if f else None)
+    emit("bf16_vs_golden", overlap=overlap, bf16_launches=bf16_launches)
+    if bf16_launches <= 0:
+        raise AssertionError("the pallas sweep never stored bf16 messages")
+    if not overlap:
+        raise AssertionError("the bf16 sweep misses the golden it made")
+    # the q: ordering at the steepest point of the 80211n/1944/12 golden
+    with open(QUANT_ORDER_GOLDEN) as f:
+        pts = sorted((PointResult.from_json(d) for d in json.load(f)),
+                     key=lambda p: p.ebn0_db)
+    drops = [np.log10(a.fer / max(b.fer, 1e-12)) / (b.ebn0_db - a.ebn0_db)
+             for a, b in zip(pts, pts[1:])]
+    ebn0 = pts[int(np.argmax(drops))].ebn0_db
+    fers = {}
+    for dec in QUANT_ORDER_DECODERS:
+        (pr,) = run_sweep(SweepSpec(
+            code=QUANT_ORDER_CODE, decoder=dec, ebn0_db=(ebn0,), batch=4096,
+            stopping=StoppingRule(min_frame_errors=10 ** 9,
+                                  max_frames=QUANT_ORDER_FRAMES)), device=dev)
+        fers[dec] = pr.fer
+        emit("quant_ordering", code=QUANT_ORDER_CODE, **point_line(pr),
+             decoder=dec)
+    f_float, f_q6, f_q3 = (fers[d] for d in QUANT_ORDER_DECODERS)
+    if not f_q6 <= 4 * max(f_float, 1e-3):
+        raise AssertionError(f"q:6:0.25 FER {f_q6} above 4x float {f_float}")
+    if not f_q3 > 10 * f_q6:
+        raise AssertionError(f"q:3:1.0 FER {f_q3} not above 10x {f_q6}")
+    # one point through the CLI's --backend pallas
+    before = layered_decode_cuda.launches_by_precision["bf16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp) / "bf16.json"
+        rc = cli_main([
+            "sweep", "--code", "dvbs2/64800/12", "--decoder", SWEEP_DECODER,
+            "--backend", "pallas", "--ebn0", str(PRECISION_CLI_EBN0),
+            "--batch", "2048", "--min-frame-errors", "1000000",
+            "--max-frames", str(PRECISION_CLI_FRAMES), "--out", str(out)])
+        (pr,) = [PointResult.from_json(d) for d in json.loads(out.read_text())]
+    launches = layered_decode_cuda.launches_by_precision["bf16"] - before
+    overlap = curves_overlap([pr], golden, "fer")
+    emit("bf16_cli", rc=rc, **point_line(pr), bf16_launches=launches,
+         overlap=overlap, seconds=time.perf_counter() - t0)
+    if rc != 0 or launches <= 0 or not overlap:
+        raise AssertionError(f"the CLI's --backend pallas point: rc {rc}, "
+                             f"{launches} bf16 launches, overlap {overlap}")
+
+
+def bitflip_path(dev) -> None:
+    """Phase 38a: bitflip/50 and gdbf/theta:-0.5/50 over the hard channel
+    at BITFLIP_B frames, card against CPU on the same LLRs (majority
+    flipping identical; GDBF identical but for frames whose metric came
+    within GDBF_NEAR_THETA of theta), the card's ms, FER falling with
+    Eb/N0."""
+    from ecc_ldpc_tpu_torch.decode.bitflip import decode_bitflip
+
+    for code, dec in BITFLIP_CASES:
+        kw = parse_decoder_spec(dec)
+        variant = "maj" if kw["kind"] == "bitflip" else "gdbf"
+        args = dict(variant=variant, theta=kw.get("theta", 0.0),
+                    max_iters=kw["max_iters"],
+                    early_term=kw.get("early_term", True))
+        graph = choose_graph(get_code(code), dec)
+        fers = []
+        for pi, ebn0 in enumerate(BITFLIP_EBN0):
+            spec = SweepSpec(code=code, decoder=dec, ebn0_db=(ebn0,),
+                             batch=BITFLIP_B, channel="hard")
+            pipe = Pipeline.build(spec, dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(step_seed(spec.seed, 0, pi, 0))
+            msg, llr = pipe.frames(gen, ebn0)
+            decode_bitflip(graph, llr, **args)  # warm-up
+            card, ms = timed(decode_bitflip, graph, llr, **args)
+            cpu, margin = decode_bitflip(graph, llr.cpu(), margin=True,
+                                         **args)
+            same = ((card.bits.cpu() == cpu.bits).all(1)
+                    & (card.ok.cpu() == cpu.ok)
+                    & (card.iterations.cpu() == cpu.iterations))
+            differ = torch.nonzero(~same).squeeze(1).tolist()
+            near = torch.nonzero(margin < GDBF_NEAR_THETA).squeeze(1).tolist()
+            msg_hat = message_of(code, card.bits)
+            fer = float((msg_hat != msg).any(1).float().mean())
+            fers.append(fer)
+            emit("bitflip", code=code, decoder=dec, ebn0_db=ebn0,
+                 channel="hard", frames=BITFLIP_B, ms=ms, fer=fer,
+                 ok_frames=int(card.ok.sum()),
+                 mean_iters=card.iterations.float().mean().item(),
+                 frames_differing=differ, frames_near_theta=near)
+            if variant == "maj" and differ:
+                raise AssertionError(f"{dec}: card and CPU differ on "
+                                     f"frames {differ}")
+            if not set(differ) <= set(near):
+                raise AssertionError(f"{dec}: frames {differ} differ, only "
+                                     f"{near} come near theta")
+        if not fers[1] < fers[0]:
+            raise AssertionError(f"{code} {dec}: FER {fers} does not fall")
+
+
+def message_of(code: str, bits):
+    """The message bits a decoded batch of `code` carries (its encoder's
+    extract_message)."""
+    from ecc_ldpc_tpu_torch.bench.throughput import _encoder
+
+    return _encoder(code).extract_message(bits)
+
+
+def cleanup_path(dev) -> None:
+    """Phase 38b: CLEANUP_DECODER with and without /cleanup through the
+    CLI on the same draws; the same batches regenerated: the cleanup's FER
+    no higher than the decoder's but for frames it made wrong (counted);
+    card against CPU on the failed rows of a batch at CLEANUP_HARD_EBN0."""
+    from ecc_ldpc_tpu_torch.decode.cleanup import bitflip_cleanup
+
+    t0 = time.perf_counter()
+    points = {}
+    for dec in (CLEANUP_DECODER, CLEANUP_DECODER + "/cleanup"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = pathlib.Path(tmp) / "cleanup.json"
+            rc = cli_main([
+                "sweep", "--code", CLEANUP_CODE, "--decoder", dec,
+                "--ebn0", str(CLEANUP_EBN0), "--batch", str(CLEANUP_BATCH),
+                "--min-frame-errors", "1000000",
+                "--max-frames", str(CLEANUP_FRAMES), "--out", str(out)])
+            (points[dec],) = [PointResult.from_json(d)
+                              for d in json.loads(out.read_text())]
+        if rc != 0:
+            raise AssertionError(f"{dec}: the CLI exits {rc}")
+        emit("cleanup_cli", decoder=dec, **point_line(points[dec]))
+    spec = SweepSpec(code=CLEANUP_CODE, decoder=CLEANUP_DECODER,
+                     ebn0_db=(CLEANUP_EBN0,), batch=CLEANUP_BATCH)
+    pipe = Pipeline.build(spec, dev)
+    graph = choose_graph(get_code(CLEANUP_CODE), CLEANUP_DECODER)
+    dec = get_decoder(graph, CLEANUP_DECODER, device=dev)
+    counts = dict(wrong=0, wrong_after=0, made_wrong=0, repaired=0,
+                  failed_rows=0)
+    for step in range(CLEANUP_FRAMES // CLEANUP_BATCH):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(step_seed(spec.seed, 0, 0, step))
+        msg, llr = pipe.frames(gen, CLEANUP_EBN0)
+        res = dec(llr)
+        bits, _ = bitflip_cleanup(graph, res.bits)
+        before_w = (message_of(CLEANUP_CODE, res.bits)
+                    != msg).any(1)
+        after_w = (message_of(CLEANUP_CODE, bits)
+                   != msg).any(1)
+        counts["wrong"] += int(before_w.sum())
+        counts["wrong_after"] += int(after_w.sum())
+        counts["made_wrong"] += int((after_w & ~before_w).sum())
+        counts["repaired"] += int((before_w & ~after_w).sum())
+        counts["failed_rows"] += int((~res.ok).sum())
+    plain, clean = points[CLEANUP_DECODER], points[CLEANUP_DECODER + "/cleanup"]
+    emit("cleanup", ebn0_db=CLEANUP_EBN0, frames=CLEANUP_FRAMES, **counts,
+         cli_frame_errors=plain.frame_errors,
+         cli_cleanup_frame_errors=clean.frame_errors)
+    if (counts["wrong"], counts["wrong_after"]) != (plain.frame_errors,
+                                                    clean.frame_errors):
+        raise AssertionError("the regenerated batches do not give the CLI's "
+                             "counts")
+    if not clean.frame_errors <= plain.frame_errors + counts["made_wrong"]:
+        raise AssertionError("the cleanup raised the FER beyond the frames "
+                             "it made wrong")
+    # card against CPU on a batch where many rows fail
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(step_seed(spec.seed, 0, 1, 0))
+    _, llr = pipe.frames(gen, CLEANUP_HARD_EBN0)
+    res = dec(llr)
+    failed = torch.nonzero(~res.ok).squeeze(1)
+    rows = res.bits.index_select(0, failed)
+    card_bits, card_ok = bitflip_cleanup(graph, rows)
+    cpu_bits, cpu_ok = bitflip_cleanup(graph, rows.cpu())
+    same = (torch.equal(card_bits.cpu(), cpu_bits)
+            and torch.equal(card_ok.cpu(), cpu_ok))
+    emit("cleanup_vs_cpu", ebn0_db=CLEANUP_HARD_EBN0, failed_rows=len(failed),
+         repaired_rows=int(card_ok.sum()), same=same,
+         bits_flipped=int((card_bits != rows).sum()),
+         seconds=time.perf_counter() - t0)
+    if len(failed) == 0 or not same:
+        raise AssertionError(f"cleanup card vs CPU: {len(failed)} failed "
+                             f"rows, identical {same}")
+
+
+def crc_ref_batch(bits: np.ndarray, name: str) -> np.ndarray:
+    """The bit-serial long division of codes/crc.crc_bits_ref, one
+    register a row, stepped over every row together: uint8 [B, r]."""
+    from ecc_ldpc_tpu_torch.codes.crc import POLYNOMIALS
+
+    r, poly = POLYNOMIALS[name]
+    top, reg = 1 << r, np.zeros(len(bits), np.int64)
+    for col in np.concatenate([bits.astype(np.int64).T,
+                               np.zeros((r, len(bits)), np.int64)]):
+        reg = (reg << 1) | col
+        reg = np.where(reg & top, reg ^ (top | poly), reg)
+    return np.stack([(reg >> (r - 1 - i)) & 1 for i in range(r)],
+                    1).astype(np.uint8)
+
+
+def crc_path(dev) -> None:
+    """Phase 38c: with_crc(build_ecc(CRC_CODE), CRC_NAME): CRC_B payloads
+    encoded and decoded on the card; the CRC of every decoded message
+    equal to the bit-serial reference's, and ok = syndrome AND CRC."""
+    from ecc_ldpc_tpu_torch.codes.crc import crc_bits_ref, make_crc, with_crc
+    from ecc_ldpc_tpu_torch.ecc import build_ecc
+
+    ecc = build_ecc(CRC_CODE, CRC_DECODER, device=dev)
+    wrapped = with_crc(ecc, CRC_NAME)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(38)
+    payload = torch.randint(0, 2, (CRC_B, wrapped.k_payload), generator=gen,
+                            device=dev, dtype=torch.uint8)
+    cw = wrapped.encode(payload)
+    llr = wrapped.transmit(gen, cw, CRC_EBN0)
+    res = wrapped.decode(llr)
+    inner = ecc.decode(llr)
+    msg_crc = ecc.extract_message(res.bits)
+    _, check = make_crc(CRC_NAME, wrapped.k_payload, dev)
+    card_check = check(msg_crc).cpu().numpy()
+    host = msg_crc.cpu().numpy()
+    k = wrapped.k_payload
+    ref = crc_ref_batch(host[:, :k], CRC_NAME)
+    for i in range(4):  # the batched register is crc_bits_ref's division
+        if not np.array_equal(ref[i], crc_bits_ref(host[i, :k], CRC_NAME)):
+            raise AssertionError("the batched reference differs")
+    ref_check = (ref == host[:, k:]).all(1)
+    ok_rule = torch.equal(res.ok, inner.ok & check(msg_crc))
+    payload_ok = (wrapped.extract_payload(res.bits) == payload).all(1)
+    emit("crc", code=CRC_CODE, crc=CRC_NAME, frames=CRC_B, ebn0_db=CRC_EBN0,
+         syndrome_ok=int(inner.ok.sum()), crc_ok=int(card_check.sum()),
+         ok=int(res.ok.sum()), payload_ok=int(payload_ok.sum()),
+         crc_equals_reference=bool(np.array_equal(card_check, ref_check)),
+         ok_is_syndrome_and_crc=ok_rule)
+    if not np.array_equal(card_check, ref_check) or not ok_rule:
+        raise AssertionError("the CRC check differs from the bit-serial "
+                             "reference, or ok is not syndrome AND CRC")
+    if not 0 < int(res.ok.sum()) < CRC_B:
+        raise AssertionError("the CRC batch decodes all frames or none")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on the card")
@@ -2242,6 +2790,7 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     if not overlap:
         raise AssertionError("the sweep's FER curve misses the golden curve")
+    f32_golden_run = swept  # printed beside the bf16 run of phase 37
 
     # 9. the production sweep's own inputs: its first batch, as run_sweep
     # draws it, through the primary's kernel and plain version; then the
@@ -2575,9 +3124,27 @@ def main() -> int:
     for k, v in modem_dist_path().items():
         key = "layered_qc" if k == "layered_qc" else "ring"
         added[key] = added.get(key, 0) + v
+    # phases 35-38: the precision cases (comparisons, not counted), each
+    # timed leg's launches (36), then K1a's launches in 37-38 by precision:
+    # the f32 ones to the f32 min-sum entry, the others to K1a's entry of
+    # their precision
+    prec = precision_kernels_path(dev)
+    precision = precision_timed_path(
+        dev, {k: v["ptxas"] for k, v in built.items()}, prec["parity"],
+        prec["errs"])
+    k1a = collections.Counter(layered_decode_cuda.launches_by_precision)
+    precision_curves_path(dev, f32_golden_run)
+    bitflip_path(dev)
+    cleanup_path(dev)
+    crc_path(dev)
+    k1a = collections.Counter(layered_decode_cuda.launches_by_precision) - k1a
+    for k in precision:
+        if k["name"] == "layered_qc":
+            k["launches"] += k1a[k["precision"]]
+    added["layered_qc"] = added.get("layered_qc", 0) + k1a["f32"]
     for k in kernels:
         k["launches"] += added.get(k["name"], 0)
-    kernels += wide_rows["wide"]
+    kernels += wide_rows["wide"] + precision
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,6 +6,13 @@ the package (git-ignored), named by a hash of its source, the shared
 csrc/*.cuh headers and the flags, so an edited source is rebuilt and a
 built one is reused. Nothing is built or
 loaded when a module is imported.
+
+The three layered sources build twice: <name> is their f32 library and
+<name>_prec, built with -DLAYERED_PREC=1, the library of their message
+precisions (bf16, the q: grid; csrc/cluster_tile.cuh). Apart, the f32
+kernels keep their own code and register allocation, and the libraries
+build side by side; layered_exact's precision build, the longest, comes
+in two halves (circulant, and _xor), one nvcc each.
 """
 from __future__ import annotations
 
@@ -26,6 +33,15 @@ NVCC_FLAGS = (
 )
 KERNEL_SOURCES = ("layered_qc", "layered_exact", "layered_classic", "flooding",
                   "flooding_qc", "ring")
+# library -> (its source, its own nvcc flags): every source, and the
+# precision build of each layered one
+LIBRARIES = {name: (name, ()) for name in KERNEL_SOURCES}
+LIBRARIES.update({f"{name}_prec": (name, ("-DLAYERED_PREC=1",))
+                  for name in KERNEL_SOURCES[:3]})
+LIBRARIES["layered_exact_prec"] = ("layered_exact",
+                                   ("-DLAYERED_PREC=1", "-DLAYERED_PERM=1"))
+LIBRARIES["layered_exact_prec_xor"] = ("layered_exact",
+                                       ("-DLAYERED_PREC=1", "-DLAYERED_PERM=2"))
 
 
 def nvcc_path() -> str:
@@ -40,18 +56,23 @@ def nvcc_path() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + LIBRARIES[name][1]
+
+
 def library_path(name: str) -> pathlib.Path:
     # the tag covers the shared headers too, so editing one rebuilds
-    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+    src = (CSRC / f"{LIBRARIES[name][0]}.cu").read_bytes() + b"".join(
         h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    tag = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def build_all(names=KERNEL_SOURCES) -> dict:
-    """Build every named source that is not built yet, one nvcc process per
-    source, all started together. Returns {name: {"seconds", "ptxas"}}
-    (seconds 0.0 and the stored ptxas report for a library already built)."""
+def build_all(names=tuple(LIBRARIES)) -> dict:
+    """Build every named library that is not built yet, one nvcc process
+    per library, all started together. Returns {name: {"seconds",
+    "ptxas"}} (seconds 0.0 and the stored ptxas report for a library
+    already built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
     t0 = time.perf_counter()
@@ -63,7 +84,8 @@ def build_all(names=KERNEL_SOURCES) -> dict:
                          "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
+               str(CSRC / f"{LIBRARIES[name][0]}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, lib)

@@ -9,7 +9,10 @@ other, so a drift of the card's clock or temperature falls on both alike.
 Each process builds its own tree's kernels, times the legs through its own
 tree's bench.throughput.run_benchmark and prints one JSON line per leg.
 Then one line per leg: each tree's time (the mean of its two runs' medians)
-and this / other - 1. Leg names are bench.profile's: the keys of LEGS,
+and this / other - 1; then, per layered kernel source, each tree's
+registers and spill stores of every kernel instance from its build's
+`-Xptxas -v` report, and whether they agree. Leg names are
+bench.profile's: the keys of LEGS,
 EXACT_LEGS and FLOODING_LEGS, ccsds_<rule> and 8023an_<mode>, and
 mackay_spa and mackay_minstar (the mackay leg's shape with spa/25/noet and
 minstar/25/noet); a leg that a tree lacks is skipped there.
@@ -57,6 +60,34 @@ def time_tree(root: pathlib.Path, legs) -> dict:
     return times
 
 
+SPILL_SOURCES = ("layered_qc", "layered_exact", "layered_classic")
+
+
+def _instance(fn: str) -> str:
+    """A kernel's mangled name without its anonymous namespace, whose tag
+    differs from tree to tree (_GLOBAL__N__<tag>_<file>_cu_<8 hex>)."""
+    return fn.split("_cu_", 1)[1][8:] if "_cu_" in fn else fn
+
+
+def spill_report(root: pathlib.Path, name: str) -> dict:
+    """{kernel instance: (registers, spill store bytes)} from the ptxas
+    report of the library `name` (its f32 build) that the tree at root
+    built last."""
+    logs = sorted((root / "build" / "kernels").glob(f"lib{name}-*.log"),
+                  key=lambda p: p.stat().st_mtime)
+    out, fn = {}, None
+    for ln in logs[-1].read_text().splitlines() if logs else ():
+        if "Compiling entry function" in ln:
+            fn = _instance(ln.split("'")[1])
+        elif fn and "bytes spill stores" in ln:
+            spill = int(ln.split(" bytes spill stores")[0].split()[-1])
+            out[fn] = (None, spill)
+        elif fn and "Used" in ln and "registers" in ln:
+            regs = int(ln.split("Used ")[1].split()[0])
+            out[fn] = (regs, out.get(fn, (None, 0))[1])
+    return out
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if len(args) < 2:
@@ -73,6 +104,12 @@ def main(argv=None) -> int:
         print(json.dumps({"leg": leg, "other_ms": ms["other"],
                           "this_ms": ms["this"], "change": b / a - 1}),
               flush=True)
+    for name in SPILL_SOURCES:
+        a, b = spill_report(other, name), spill_report(HERE, name)
+        print(json.dumps({"ptxas": name, "same": a == b,
+                          "max_spill": [max((v[1] for v in r.values()),
+                                            default=None) for r in (a, b)],
+                          "other": a, "this": b}), flush=True)
     return 0
 
 

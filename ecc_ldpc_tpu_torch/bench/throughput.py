@@ -80,6 +80,23 @@ CCSDS_LEGS = {
              batch=4096, ebn0_db=2.5)
     for cn in ("minsum", "spa", "minstar")
 }
+# The message precisions (fixed 25 iterations): on the headline's code,
+# batch and Eb/N0, min-sum and spa with the TPU kernel's bf16 storage
+# (/pallas on dvbs2/64800/12) and on the q:6:0.25 grid; on the CCSDS legs'
+# shape, min-sum and spa on the q:6:0.25 grid (the TPU kernel stored
+# ccsds/4096/12 in f32, so /pallas is f32 there).
+PRECISION_LEGS = {
+    **{f"{cn}_{p}": dict(
+        code="dvbs2/64800/12",
+        decoder=("layered/norm:0.8125" if cn == "minsum" else f"layered/{cn}")
+        + ("/25/noet/pallas" if p == "bf16" else "/q:6:0.25/25/noet"),
+        batch=4096, ebn0_db=1.5)
+       for cn in ("minsum", "spa") for p in ("bf16", "q6")},
+    **{f"ccsds_{cn}_q6": dict(
+        CCSDS_LEGS[cn], decoder=CCSDS_LEGS[cn]["decoder"].replace(
+            "/25/noet", "/q:6:0.25/25/noet"))
+       for cn in ("minsum", "spa")},
+}
 # The IEEE 802.3an legs (8023an: n = 2048, k = 1723, Z = 64 XOR-permutation
 # blocks, 192 block-edges, row degree 32): the JAX package's family leg
 # (bench/families.py:29), layered, and the same with flooding min-sum, the

@@ -101,6 +101,7 @@ def cmd_sweep(args) -> int:
                     min_frame_errors=args.min_frame_errors,
                     max_frames=args.max_frames,
                 ),
+                backend=args.backend,
                 channel=args.channel,
             )
             if mesh is not None:
@@ -209,6 +210,12 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (the plain "
                          "PyTorch path)")
+    sp.add_argument("--backend", default=None,
+                    help="decoder backend (the JAX package's flag): pallas "
+                         "stores a layered decoder's messages as the TPU's "
+                         "kernel did (bf16 on dvbs2/64800, f32 elsewhere); "
+                         "auto and xla store f32; xla-mm (the TPU's "
+                         "incidence-matmul form) raises")
     sp.add_argument("--verbose", "-v", action="store_true")
     sp.add_argument("--ebn0", required=True, help="'0:4:0.5' or '1,2,3'")
     sp.add_argument("--channel", default="bpsk",

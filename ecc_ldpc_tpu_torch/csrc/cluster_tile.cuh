@@ -47,7 +47,8 @@
 //               uint32_t* out, int ws);
 //     r: the check's d posteriors in, its new posteriors out; old: its last
 //     messages' words in the prefetched slab (word stride ws), all zeros
-//     when `zero`; out: the same words in HBM.
+//     when `zero`; out: the same words in HBM (in the precision library,
+//     the messages rounded by the rule's Prec q).
 // or, for rows wider than the register builds (MAX_DEG == kWide):
 //   template <bool TRACK, class At>
 //   bool update_wide(At at, int d, const uint32_t* old, bool zero,
@@ -60,6 +61,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,7 +69,58 @@
 
 #include "qc_index.cuh"
 
+// The layered sources build twice (ecc_ldpc_tpu_torch/_build.py): with
+// LAYERED_PREC 0 the f32 library, whose device code is the f32 kernels'
+// alone, and with LAYERED_PREC 1 the precision library, whose kernels
+// take a Prec beside their parameters (WithPrec) and round as it says. So
+// the rounding code never shares a register allocation with the f32
+// kernels, and the libraries build side by side. LAYERED_PERM 1 or 2
+// keeps a library to the circulant or the xor instances (layered_exact.cu's
+// precision build comes in two such halves, which build in parallel).
+#ifndef LAYERED_PREC
+#define LAYERED_PREC 0
+#endif
+#ifndef LAYERED_PERM
+#define LAYERED_PERM 0
+#endif
+
 namespace ct {
+
+constexpr bool kPrec = LAYERED_PREC;
+
+// Message precision (decode/quant.py), uniform over a launch: kind 0 is
+// f32 (no rounding), 1 the bf16 round trip of the TPU kernel's message
+// and LLR storage, 2 the q:BITS:STEP grid. The precision kernels round the
+// LLRs as a tile loads them and every message a rule stores; `post` says
+// whether a set-form layer adds the rounded message to the posteriors
+// (q:, and bf16 in track mode) or the unrounded one (bf16 fixed mode).
+// Both roundings are odd functions, Q(-m) = -Q(m) with the sign of zero
+// kept, so K1a's compressed state (two magnitudes and the sign bits)
+// rounds its two magnitudes and stays the stored messages exactly. The q:
+// grid is the JAX package's quantize in its op order: a true division,
+// round half to even, the clip to +-lim, the product with step, then x's
+// sign bit.
+struct Prec {
+  int kind = 0;
+  int post = 0;
+  float step = 1.f, lim = 0.f;
+
+  __device__ __forceinline__ float operator()(float x) const {
+    if (kind == 1) return __bfloat162float(__float2bfloat16_rn(x));
+    if (kind == 2) {
+      const float q = fminf(fmaxf(rintf(__fdiv_rn(x, step)), -lim), lim);
+      return copysignf(__fmul_rn(q, step), x);
+    }
+    return x;
+  }
+};
+
+// A precision kernel's parameters: its f32 kernel's, and the precision
+template <class P>
+struct WithPrec {
+  P p;
+  Prec q;
+};
 
 namespace cg = cooperative_groups;
 
@@ -314,7 +367,9 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
     for (int i = tid; i < nf * ncol * Z; i += nth) {
       const int z = i % Z, c = (i / Z) % ncol, f = i / (Z * ncol);
       const int col = c * cs + rank;
-      *var(col, z, f) = a.llr[(size_t)(b0 + f) * n + col * Z + z];
+      float x = a.llr[(size_t)(b0 + f) * n + col * Z + z];
+      if constexpr (kPrec) x = rule.q(x);
+      *var(col, z, f) = x;
     }
     sync_tile(cs);
     if constexpr (TRACK) {

@@ -34,7 +34,10 @@
 //               messages Cold (all zeros in iteration 0), computes
 //               v = r - Cold and the new messages with the check rule
 //               (csrc/bp_rules.cuh, count signs: v < 0), and writes C = Cnew
-//               and D = Cnew - Cold;
+//               and D = Cnew - Cold (the precision library, LAYERED_PREC 1:
+//               C = Q(Cnew) and D = Q(Cnew) - Cold in every mode, by its
+//               ct::Prec, bf16 or q:, and the LLRs rounded as the tile
+//               loads them);
 //   barrier;
 //   accumulate  slot by slot in the oracle's order, every thread adds its
 //               checks' D to the posteriors they read, with a barrier before
@@ -86,9 +89,22 @@ struct ClassicParams {
   int dmax;         // the graph's largest row degree (D's rows)
 };
 
+#if LAYERED_PREC
+using Params = ct::WithPrec<ClassicParams>;
+#else
+using Params = ClassicParams;
+#endif
+
 template <int MAX_DEG, int RULE, bool TRACK>
 __global__ void __launch_bounds__(st::max_threads(MAX_DEG), 1)
+#if LAYERED_PREC
+layered_classic_kernel(st::Args a, Params w) {
+  const ClassicParams p = w.p;
+  const ct::Prec q = w.q;
+#else
 layered_classic_kernel(st::Args a, ClassicParams p) {
+  const ct::Prec q{};  // the f32 library rounds nothing
+#endif
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ st::Shared sh;
   const int F = a.F, RF = a.R * F, cs = a.cs, mb = a.mb, nb = a.nb;
@@ -118,7 +134,11 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
     if (tile >= a.tiles) break;
     const int b0 = tile * F;
     const int nf = min(F, a.B - b0);  // live frames (the last tile is ragged)
-    st::move<true>(a, sh, rank, b0, nf, 0);
+    if constexpr (ct::kPrec) {
+      st::move_in_rounded(a, sh, rank, b0, nf, q);
+    } else {
+      st::move<true>(a, sh, rank, b0, nf, 0);
+    }
     ct::sync_tile(cs);
     if constexpr (TRACK) {
       // done_0: frames whose channel hard decisions already satisfy H
@@ -166,6 +186,7 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
 #pragma unroll
           for (int j = 0; j < MAX_DEG; ++j) {
             if (j < d) {
+              if constexpr (ct::kPrec) v[j] = q(v[j]);  // Q(Cnew)
               C[(s0 + j) * RF + zf] = v[j];
               D[j * RF + zf] = __fsub_rn(v[j], cold[j]);
             }
@@ -217,7 +238,7 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
   ct::sync_tile(cs);
 }
 
-using Kern = void (*)(st::Args, ClassicParams);
+using Kern = void (*)(st::Args, Params);
 
 template <int MAX_DEG, int RULE>
 Kern pick_mode(int track) {
@@ -261,15 +282,20 @@ int layered_classic_clusters(int dcb_max, int rule, int track, int cs,
 // tiles, threads, smem; decode/layered_qc.tile_plan, form "classic") on
 // `clusters` resident clusters; tab is layer_ptr [mb+1], column [BE],
 // shift [BE] and the accumulate's barrier masks [mb]; counter one int (the
-// launch zeroes it). post may be null. Returns a cudaError_t (0 on a
+// launch zeroes it). post may be null. The message precision: prec 0
+// (f32; the f32 library takes nothing else), 1 (bf16) or 2 (the q: grid of
+// `step` and +-lim levels; both the precision library's); the accumulate
+// form adds Q(Cnew) - Cold in every mode. Returns a cudaError_t (0 on a
 // successful launch).
 int layered_classic_decode(void* llr, void* bits, void* post, void* ok,
                            void* iters, void* counter, void* tab, void* ab,
                            int Z, int mb, int nb, int BE, int B, int max_iters,
                            int dcb_max, float alpha, float beta, int rule,
                            int track, int cs, int lg_cs, int F, int tiles,
-                           int threads, int smem, int clusters, void* stream) {
-  if (bad(dcb_max, rule)) return (int)cudaErrorInvalidValue;
+                           int threads, int smem, int clusters, int prec,
+                           float step, float lim, void* stream) {
+  if (bad(dcb_max, rule) || (LAYERED_PREC ? prec < 1 || prec > 2 : prec != 0))
+    return (int)cudaErrorInvalidValue;
   st::Args a;
   a.llr = static_cast<const float*>(llr);
   a.bits = static_cast<uint8_t*>(bits);
@@ -281,7 +307,12 @@ int layered_classic_decode(void* llr, void* bits, void* post, void* ok,
   a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
   a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
   a.tiles = tiles;
-  ClassicParams p{static_cast<const float*>(ab), alpha, beta, dcb_max};
+  ClassicParams cp{static_cast<const float*>(ab), alpha, beta, dcb_max};
+#if LAYERED_PREC
+  const Params p{cp, ct::Prec{prec, 1, step, lim}};
+#else
+  const Params& p = cp;
+#endif
   return (int)st::launch(pick(dcb_max, rule, track), a, p, clusters, threads,
                          (size_t)smem, static_cast<cudaStream_t>(stream));
 }

@@ -35,7 +35,11 @@
 //                    degree 1: 1e9), clipped to +-1e12; 3(d-2) box-plus
 //                    per check, 4 transcendentals each.
 // and the posterior is written as v + Cnew (set form: a dup-free layer
-// writes each column once).
+// writes each column once). The precision library (LAYERED_PREC 1,
+// csrc/cluster_tile.cuh) rounds by its ct::Prec (bf16 or q:): the LLRs as
+// the tile loads them, each message stored as Q(Cnew), and the posterior
+// adds Q(Cnew) under q: and in bf16 track mode, Cnew in bf16 fixed mode
+// (K1a's contract); the f32 library's kernels are unchanged.
 //
 // One build each for rows of up to 8, 16, 32 and 64 slots (decode/
 // layered_qc.MAX_DEG); the 64-wide one spills at 512 threads (PERF.md).
@@ -101,6 +105,7 @@ struct ExactParams {
 template <int DEG, int RULE>
 struct Exact {
   static constexpr int MAX_DEG = DEG;
+  ct::Prec q;  // the precision library's rounding
 
   __device__ void begin(int) {}
 
@@ -163,8 +168,15 @@ struct Exact {
             bwd = boxplus(bwd, r[j]);
           }
         }
-        out[j * ws] = __float_as_uint(cn);
-        r[j] = __fadd_rn(r[j], cn);
+        if constexpr (ct::kPrec) {
+          // stored: Q(Cnew); the posterior adds it where q.post, else Cnew
+          const float cq = q(cn);
+          out[j * ws] = __float_as_uint(cq);
+          r[j] = __fadd_rn(r[j], q.post ? cq : cn);
+        } else {
+          out[j * ws] = __float_as_uint(cn);
+          r[j] = __fadd_rn(r[j], cn);
+        }
       }
     }
   }
@@ -179,6 +191,7 @@ template <int RULE>
 struct ExactWide {
   static constexpr int MAX_DEG = ct::kWide;
   float* scratch;  // minstar: slot j's prefix of thread g at j * T + g
+  ct::Prec q;      // as Exact's
 
   __device__ void begin(int) {}
 
@@ -193,8 +206,14 @@ struct ExactWide {
     bool par = false, flip = false;
     // write slot j's message cn and posterior v + cn; r the posterior read
     auto emit = [&](float* pj, float r, float x, float cn, int j) {
+      float add = cn;
+      if constexpr (ct::kPrec) {  // as Exact's
+        const float cq = q(cn);
+        if (q.post) add = cq;
+        cn = cq;
+      }
       out[j * ws] = __float_as_uint(cn);
-      const float y = __fadd_rn(x, cn);
+      const float y = __fadd_rn(x, add);
       *pj = y;
       if constexpr (TRACK)
         flip |= ((__float_as_uint(y) ^ __float_as_uint(r)) >> 31) != 0;
@@ -270,14 +289,28 @@ struct RuleOf<ct::kWide, RULE> {
   __device__ static type make(const ExactParams& p) { return type{p.scratch}; }
 };
 
+#if LAYERED_PREC
+using Params = ct::WithPrec<ExactParams>;
+
+template <int DEG, int RULE, bool TRACK, bool XOR>
+__global__ void __launch_bounds__(512, 1)
+layered_exact_kernel(ct::Args a, Params w) {
+  auto rule = RuleOf<DEG, RULE>::make(w.p);
+  rule.q = w.q;
+  ct::decode_tiles<TRACK, XOR>(a, rule);
+}
+#else
+using Params = ExactParams;
+
 template <int DEG, int RULE, bool TRACK, bool XOR>
 __global__ void __launch_bounds__(512, 1)
 layered_exact_kernel(ct::Args a, ExactParams p) {
   auto rule = RuleOf<DEG, RULE>::make(p);
   ct::decode_tiles<TRACK, XOR>(a, rule);
 }
+#endif
 
-using Kern = void (*)(ct::Args, ExactParams);
+using Kern = void (*)(ct::Args, Params);
 
 template <int DEG, bool XOR>
 Kern pick_rule(int minstar, int track) {
@@ -297,9 +330,16 @@ Kern pick_width(int dcb_max, int minstar, int track) {
   return pick_rule<ct::kWide, XOR>(minstar, track);
 }
 
+// null where the library holds no instance of the permutation
+// (LAYERED_PERM, csrc/cluster_tile.cuh)
 Kern pick(int dcb_max, int minstar, int track, int xor_perm) {
-  return xor_perm ? pick_width<true>(dcb_max, minstar, track)
-                  : pick_width<false>(dcb_max, minstar, track);
+#if LAYERED_PERM != 1
+  if (xor_perm) return pick_width<true>(dcb_max, minstar, track);
+#endif
+#if LAYERED_PERM != 2
+  if (!xor_perm) return pick_width<false>(dcb_max, minstar, track);
+#endif
+  return nullptr;
 }
 
 }  // namespace
@@ -323,8 +363,9 @@ int layered_exact_clusters(int dcb_max, int minstar, int track, int xor_perm,
 // clusters * cs * mb * stride words, spill clusters * (nb - nchip) * Z * F
 // floats, home the plan's column homes, counter one int (the launch zeroes it). post may
 // be null; scratch, for minstar on rows wider than 64, holds dcb_max floats
-// for each thread of the grid (else null). Returns a cudaError_t (0 on a
-// successful launch).
+// for each thread of the grid (else null). The message precision (prec,
+// post_round, step, lim) is layered_qc_decode's. Returns a cudaError_t (0
+// on a successful launch).
 int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
                          void* iters, void* state, void* spill, void* home,
                          void* counter, void* tab, void* scratch,
@@ -332,8 +373,10 @@ int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
                          int dcb_max, int minstar, int track, int xor_perm,
                          int cs, int lg_cs, int F, int tiles, int stride,
                          int nchip, int threads, int smem, int clusters,
+                         int prec, int post_round, float step, float lim,
                          void* stream) {
-  if (dcb_max < 1 || B < 1 || max_iters < 1)
+  if (dcb_max < 1 || B < 1 || max_iters < 1 ||
+      (LAYERED_PREC ? prec < 1 || prec > 2 : prec != 0))
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);
@@ -351,7 +394,12 @@ int layered_exact_decode(void* llr, void* bits, void* post, void* ok,
   a.tiles = tiles; a.stride = stride; a.nchip = nchip;
   if (minstar && dcb_max > kMaxDeg && scratch == nullptr)
     return (int)cudaErrorInvalidValue;
-  ExactParams p{static_cast<float*>(scratch)};
+  ExactParams ep{static_cast<float*>(scratch)};
+#if LAYERED_PREC
+  const Params p{ep, ct::Prec{prec, post_round, step, lim}};
+#else
+  const Params& p = ep;
+#endif
   return (int)ct::launch(pick(dcb_max, minstar, track, xor_perm), a, p,
                          clusters, threads, (size_t)smem,
                          static_cast<cudaStream_t>(stream));

@@ -47,6 +47,16 @@
 // magnitude is the running two-min with |v| == min1 ? mag2 : mag1; the
 // posterior is written as v + Cnew.
 //
+// Message precision: built with LAYERED_PREC 1 (the precision library,
+// csrc/cluster_tile.cuh) the kernels take a ct::Prec, uniform over the
+// launch (bf16, the TPU kernel's message and LLR storage, or q:BITS:STEP),
+// round the LLRs as the tile loads them, and keep Q(mag1) and Q(mag2) in
+// the state, which is Q of every stored message since Q is odd; the
+// posterior adds Q(Cnew) under q: and in bf16 track mode, and the
+// unrounded Cnew in bf16 fixed mode (ecc_ldpc_tpu/decode/pallas/
+// layered_qc.py:394 against :376-380). The f32 library's kernels are the
+// code above, unchanged.
+//
 // What bounds it on an H100: the true bound (what chip_smoke.py reports)
 // is the larger of
 //   bytes: 4 B of LLR in + 1 B of bits out per bit per frame
@@ -103,6 +113,7 @@ struct Minsum {
   using Mask = ct::SignMask<DEG>;
   MinsumParams p;
   float a, bt;
+  ct::Prec q;  // the precision library's rounding
 
   __device__ void begin(int t) {
     a = p.ab ? p.ab[t] : p.alpha;
@@ -161,6 +172,17 @@ struct Minsum {
       mag1 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min1, kMagCap)), bt), 0.f);
       mag2 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min2, kMagCap)), bt), 0.f);
     }
+    if constexpr (ct::kPrec) {
+      // the stored messages are Q(Cnew) = sign | Q(mag); the posterior
+      // takes the rounded message where q.post, else the unrounded one
+      const float q1 = q(mag1), q2 = q(mag2);
+      out[0] = __float_as_uint(q1);
+      out[ws] = __float_as_uint(q2);
+      if (q.post) {
+        mag1 = q1;
+        mag2 = q2;
+      }
+    }
     // pass 2: messages out, posteriors as v + Cnew
     Mask newsg = 0;
     int slot = -1;
@@ -177,8 +199,10 @@ struct Minsum {
         r[j] = __fadd_rn(x, cn);
       }
     }
-    out[0] = __float_as_uint(mag1);
-    out[ws] = __float_as_uint(mag2);
+    if constexpr (!ct::kPrec) {
+      out[0] = __float_as_uint(mag1);
+      out[ws] = __float_as_uint(mag2);
+    }
     if constexpr (NW == 3) {
       out[2 * ws] = (uint32_t)newsg | ((uint32_t)slot << 16);
     } else if constexpr (NW == 4) {
@@ -205,6 +229,7 @@ struct MinsumWide {
   static constexpr int MAX_DEG = ct::kWide;
   MinsumParams p;
   float a, bt;
+  ct::Prec q;  // as Minsum's
 
   __device__ void begin(int t) {
     a = p.ab ? p.ab[t] : p.alpha;
@@ -248,6 +273,15 @@ struct MinsumWide {
       mag1 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min1, kMagCap)), bt), 0.f);
       mag2 = fmaxf(__fsub_rn(__fmul_rn(a, fminf(min2, kMagCap)), bt), 0.f);
     }
+    if constexpr (ct::kPrec) {  // as Minsum's
+      const float q1 = q(mag1), q2 = q(mag2);
+      out[0] = __float_as_uint(q1);
+      out[ws] = __float_as_uint(q2);
+      if (q.post) {
+        mag1 = q1;
+        mag2 = q2;
+      }
+    }
     bool flip = false;
     int slot = -1;
     uint32_t nw = 0;
@@ -271,8 +305,10 @@ struct MinsumWide {
         nw = 0;
       }
     }
-    out[0] = __float_as_uint(mag1);
-    out[ws] = __float_as_uint(mag2);
+    if constexpr (!ct::kPrec) {
+      out[0] = __float_as_uint(mag1);
+      out[ws] = __float_as_uint(mag2);
+    }
     out[2 * ws] = (uint32_t)slot;
     return par || flip;
   }
@@ -287,19 +323,36 @@ struct RuleOf<ct::kWide, FAST_MAG> {
   using type = MinsumWide<FAST_MAG>;
 };
 
+#if LAYERED_PREC
+using Params = ct::WithPrec<MinsumParams>;
+
+template <int DEG, bool TRACK, bool FAST_MAG, bool XOR>
+__global__ void __launch_bounds__(512, 1)
+layered_qc_kernel(ct::Args a, Params w) {
+  typename RuleOf<DEG, FAST_MAG>::type rule{w.p};
+  rule.q = w.q;
+  ct::decode_tiles<TRACK, XOR>(a, rule);
+}
+#else
+using Params = MinsumParams;
+
 template <int DEG, bool TRACK, bool FAST_MAG, bool XOR>
 __global__ void __launch_bounds__(512, 1)
 layered_qc_kernel(ct::Args a, MinsumParams p) {
   typename RuleOf<DEG, FAST_MAG>::type rule{p};
   ct::decode_tiles<TRACK, XOR>(a, rule);
 }
+#endif
 
-using Kern = void (*)(ct::Args, MinsumParams);
+using Kern = void (*)(ct::Args, Params);
 
 template <int DEG, bool XOR>
 Kern pick_mode(int track, int fast_mag) {
   if (track) return layered_qc_kernel<DEG, true, false, XOR>;
+#if !LAYERED_PREC
+  // the precision library takes the general magnitude (the same floats)
   if (fast_mag) return layered_qc_kernel<DEG, false, true, XOR>;
+#endif
   return layered_qc_kernel<DEG, false, false, XOR>;
 }
 
@@ -336,8 +389,11 @@ int layered_qc_clusters(int dcb_max, int track, int fast_mag, int xor_perm,
 // (cs, F, tiles, stride, nchip, threads, smem; decode/layered_qc.
 // tile_plan) on `clusters` resident clusters; state holds clusters * cs *
 // mb * stride words, spill clusters * (nb - nchip) * Z * F floats, home the
-// plan's column homes, counter one int (the launch zeroes it). post may be null. Returns
-// a cudaError_t (0 on a successful launch).
+// plan's column homes, counter one int (the launch zeroes it). post may be null. The
+// message precision: prec 0 (f32; the f32 library takes nothing else), 1
+// (bf16) or 2 (the q: grid of `step` and +-lim levels; both the precision
+// library's), post_round whether the posteriors take the rounded message
+// (ct::Prec). Returns a cudaError_t (0 on a successful launch).
 int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
                       void* state, void* spill, void* home, void* counter,
                       void* tab, void* ab, int Z,
@@ -345,8 +401,10 @@ int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
                       int dcb_max, float alpha, float beta, int track,
                       int fast_mag, int xor_perm, int cs, int lg_cs, int F,
                       int tiles, int stride, int nchip, int threads,
-                      int smem, int clusters, void* stream) {
-  if (dcb_max < 1 || B < 1 || max_iters < 1)
+                      int smem, int clusters, int prec, int post_round,
+                      float step, float lim, void* stream) {
+  if (dcb_max < 1 || B < 1 || max_iters < 1 ||
+      (LAYERED_PREC ? prec < 1 || prec > 2 : prec != 0))
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);
@@ -362,7 +420,12 @@ int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
   a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
   a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
   a.tiles = tiles; a.stride = stride; a.nchip = nchip;
-  MinsumParams p{static_cast<const float*>(ab), alpha, beta, max_iters};
+  MinsumParams mp{static_cast<const float*>(ab), alpha, beta, max_iters};
+#if LAYERED_PREC
+  const Params p{mp, ct::Prec{prec, post_round, step, lim}};
+#else
+  const Params& p = mp;
+#endif
   return (int)ct::launch(pick(dcb_max, track, fast_mag, xor_perm), a, p,
                          clusters, threads, (size_t)smem,
                          static_cast<cudaStream_t>(stream));

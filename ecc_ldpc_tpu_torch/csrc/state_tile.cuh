@@ -201,6 +201,22 @@ __device__ void move(const Args& a, const Shared& sh, int rank, int b0,
   }
 }
 
+// The LLRs in as move<true> moves them (copy 0), each rounded by q: the
+// layered precision kernels' load.
+__device__ __forceinline__ void move_in_rounded(const Args& a,
+                                                const Shared& sh, int rank,
+                                                int b0, int nf,
+                                                const ct::Prec& q) {
+  const int cs = a.cs, Z = a.Z, n = a.nb * Z;
+  const int ncol = (a.nb - rank + cs - 1) / cs;
+  for (int i = threadIdx.x; i < nf * ncol * Z; i += blockDim.x) {
+    const int z = i % Z, c = (i / Z) % ncol, f = i / (Z * ncol);
+    const int col = c * cs + rank;
+    float* p = sh.peer[z & (cs - 1)] + (col * a.R + (z >> a.lg_cs)) * a.F + f;
+    *p = q(a.llr[(size_t)(b0 + f) * n + col * Z + z]);
+  }
+}
+
 // After the final syndrome's reduce: rank 0 writes ok and iterations.
 __device__ __forceinline__ void results(const Args& a, const Shared& sh,
                                         int rank, int b0, int nf, bool track) {

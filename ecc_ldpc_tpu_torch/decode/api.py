@@ -1,13 +1,22 @@
 """Decoder construction + compact decoder-spec strings (port of
-ecc_ldpc_tpu/decode/api.py for the layered and flooding families).
+ecc_ldpc_tpu/decode/api.py: every form its parse_decoder_spec accepts).
 
   layered/norm:0.8125/25/noet        fixed 25 iterations, alpha 0.8125
   layered/norm:0.8125/25             early termination (exact stop rule)
   layered/offset:0.15/25             offset min-sum
   layered/sched:dvbs2_64800_12_T25_op2   learned per-iteration schedule
   layered/spa/50, layered/minstar/25 layered exact BP (tanh rule, box-plus)
+  layered/norm:0.8125/q:5:0.5/25     fixed-point emulation: LLRs and
+                                     messages on a 5-bit grid of step 0.5
+  layered/norm:0.8125/25/pallas      the TPU kernel's message storage
+                                     (bf16 where it stored bf16:
+                                     layered_qc.tpu_msg_dtype)
+  layered/norm:0.8125/50/cleanup     a bit-flip cleanup after the decode
+                                     (QC graphs; decode/cleanup.py)
   minsum/norm:0.8125/25              flooding normalized min-sum
   spa/50, minstar/25                 flooding exact BP
+  bitflip/50                         majority bit flipping (hard decision)
+  gdbf/theta:-0.5/50                 gradient-descent bit flipping
   layered/norm:0.8125/50;retry=spa/50
                                      frames the primary fails are decoded
                                      again by the fallback (with_retry)
@@ -19,12 +28,19 @@ csrc/layered_classic.cu: e.g. `--code ccsds/4096/12 --decoder
 "layered/norm:0.8125/50;retry=layered/spa/50"` sends both the primary and
 the fallback there.
 
-The port has one decoder per device and no backend choice: a CUDA tensor
-goes through the CUDA kernels, a CPU tensor through the plain version. The
-spec parts `pallas`, `xla` and `auto` are parsed and have no effect;
-`xla-mm` (the incidence-matmul form) exists only for the TPU and raises.
+The port has one decoder per device: a CUDA tensor goes through the CUDA
+kernels, a CPU tensor through the plain version. The backend part selects
+the message precision of a layered decoder only: `pallas` means the
+storage the TPU's Pallas kernel used (bf16 on dvbs2/64800, f32 elsewhere),
+and `auto` and `xla` store f32 (the port's `auto` is the JAX package's CPU
+route, not its TPU route). `q:` is the JAX package's XLA-tier emulation
+and, as there, refuses `pallas` and every kind but layered. For flooding
+kinds the backend has no effect; bit flipping refuses `pallas`; `xla-mm`
+(the incidence-matmul form) exists only for the TPU and raises.
 Flooding kinds decode a QCGraph with decode/flooding_qc (K3) and a
-CompiledGraph with decode/flooding (K2).
+CompiledGraph with decode/flooding (K2); bit flipping, cleanup and CRC
+(codes/crc.py) run as tensor ops on the LLRs' device (the JAX package has
+no Pallas kernel for them).
 """
 from __future__ import annotations
 
@@ -32,20 +48,8 @@ import numpy as np
 import torch
 
 from .cn_ops import CN_KINDS
-from .layered_qc import make_layered_decoder
+from .layered_qc import make_layered_decoder, tpu_msg_dtype
 from .types import DecodeResult
-
-# decoder-spec parts the JAX package has and the port does not yet
-_WAITING = {
-    "cleanup": "ROADMAP.md Queue 1 step 10 (post-processing: cleanup)",
-    "q:": "ROADMAP.md Queue 1 step 11 (quantization emulation)",
-    "kind": "ROADMAP.md Queue 1 step 10 (bit flipping)",
-}
-
-
-def _waiting(what: str, spec: str):
-    return NotImplementedError(
-        f"{spec!r}: {what} is not ported yet; it waits for {_WAITING[what]}")
 
 
 def parse_decoder_spec(spec: str) -> dict:
@@ -68,7 +72,11 @@ def parse_decoder_spec(spec: str) -> dict:
         elif p.startswith("theta:"):
             kw["theta"] = float(p[6:])  # gdbf flip threshold
         elif p.startswith("q:"):
-            raise _waiting("q:", spec)
+            bits_s, step_s = p[2:].split(":")
+            bits = int(bits_s)
+            if not 2 <= bits <= 16:
+                raise ValueError(f"quantizer bits out of range in {p!r}")
+            kw["quant"] = (bits, float(step_s))  # fixed-point emulation
         elif p.startswith("sched:"):
             sched = p[6:]
         elif p in ("spa", "minstar", "minsum") and kind == "layered":
@@ -76,7 +84,7 @@ def parse_decoder_spec(spec: str) -> dict:
         elif p == "noet":
             kw["early_term"] = False
         elif p == "cleanup":
-            raise _waiting("cleanup", spec)
+            kw["cleanup"] = True
         elif p in ("pallas", "xla", "xla-mm", "auto"):
             kw["backend"] = p
         elif p.isdigit():
@@ -105,14 +113,30 @@ def parse_decoder_spec(spec: str) -> dict:
 
 
 def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
-                 theta: float = 0.0, max_iters: int = 25,
+                 theta: float = 0.0, quant=None, max_iters: int = 25,
                  early_term: bool = True, backend: str = "auto",
-                 cn: str = "minsum", device="cuda"):
+                 cleanup: bool = False, cn: str = "minsum", device="cuda"):
     """Build `decode(llr[B, n]) -> DecodeResult` for one graph: layered on
-    a QCGraph, or flooding minsum/spa/minstar on a QCGraph (K3) or a
-    CompiledGraph (K2). `theta` belongs to gdbf, which is not ported."""
+    a QCGraph, flooding minsum/spa/minstar on a QCGraph (K3) or a
+    CompiledGraph (K2), or bit flipping (`bitflip`, `gdbf` with threshold
+    `theta`) on either. The routing of the JAX package's make_decoder
+    (decode/api.py:54-98 there): cleanup=True (QC graphs) wraps the
+    decoder in decode/cleanup.with_cleanup; `quant` = (bits, step) is a
+    layered option and refuses backend "pallas"; bit flipping refuses
+    "pallas". For a layered decoder backend "pallas" stores messages as
+    the TPU's kernel did (tpu_msg_dtype), "auto" and "xla" in f32."""
     from ..graph.qc import QCGraph
 
+    if cleanup:
+        if not isinstance(graph, QCGraph):
+            raise TypeError("cleanup=True needs a QCGraph (roll form)")
+        from .cleanup import with_cleanup
+
+        inner = make_decoder(
+            graph, kind, alpha=alpha, beta=beta, theta=theta, quant=quant,
+            max_iters=max_iters, early_term=early_term, backend=backend,
+            cn=cn, device=device)
+        return with_cleanup(inner, graph)
     if backend == "xla-mm":
         raise ValueError(
             "backend 'xla-mm' is the incidence-matmul form, which exists only "
@@ -120,19 +144,40 @@ def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
             "gathers on the card — drop '/xla-mm'")
     if backend not in ("auto", "pallas", "xla"):
         raise KeyError(f"unknown backend {backend!r}")
-    if kind in ("bitflip", "gdbf"):
-        raise _waiting("kind", f"{kind}/...")
-    if kind == "layered":
-        return make_layered_decoder(
-            graph, alpha=alpha, beta=beta, max_iters=max_iters,
-            early_term=early_term, cn=cn, device=device,
-        )
-    if kind not in CN_KINDS:
-        raise KeyError(f"unknown decoder kind {kind!r}")
-    if cn != "minsum":
+    if cn != "minsum" and kind != "layered":
         raise KeyError(
             f"cn={cn!r} selects the layered sweep's check-node rule; for "
             f"flooding use kind='spa'/'minstar' directly")
+    if quant is not None:
+        if kind != "layered":
+            raise KeyError(
+                f"quant=(bits, step) is a layered-decoder option "
+                f"(got kind={kind!r})")
+        if backend == "pallas":
+            raise KeyError(
+                "quant emulation is the layered decoder's fixed-point grid — "
+                "drop the /pallas override (the TPU kernel's rounding is "
+                "bf16 message storage)")
+    if kind in ("bitflip", "gdbf"):
+        if backend == "pallas":
+            raise KeyError(f"{kind!r} has no Pallas tier in the JAX package "
+                           f"— drop the /pallas override")
+        from .bitflip import make_bitflip_decoder
+
+        return make_bitflip_decoder(
+            graph, variant="maj" if kind == "bitflip" else "gdbf",
+            theta=theta, max_iters=max_iters, early_term=early_term,
+            device=device)
+    if kind == "layered":
+        msg_dtype = (tpu_msg_dtype(graph, cn)
+                     if backend == "pallas" and isinstance(graph, QCGraph)
+                     else torch.float32)
+        return make_layered_decoder(
+            graph, alpha=alpha, beta=beta, max_iters=max_iters,
+            early_term=early_term, cn=cn, device=device, msg_dtype=msg_dtype,
+            quant=quant)
+    if kind not in CN_KINDS:
+        raise KeyError(f"unknown decoder kind {kind!r}")
     kw = dict(kind=kind, alpha=alpha, beta=beta, max_iters=max_iters,
               early_term=early_term, device=device)
     if isinstance(graph, QCGraph):

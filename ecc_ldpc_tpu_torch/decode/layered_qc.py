@@ -39,9 +39,17 @@ the ones PyTorch's CUDA elementwise ops call.
 
 All visit block-rows in QCGraph.layer_order and each row's edges in
 layer_edges order, as the JAX package does.
+
+Message precision (decode/quant.py): every decoder here also stores its
+messages and LLRs in bf16 (`msg_dtype`, the Pallas kernel's storage,
+which `tpu_msg_dtype` picks as the TPU did) or on the q:BITS:STEP grid
+(`quant`), the plain version by `precision` (plain_with_posteriors), the
+kernels from their precision libraries (_build.LIBRARIES: the sources
+built with -DLAYERED_PREC=1), so the f32 libraries stay as they were.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -51,6 +59,7 @@ import torch
 
 from ..device import resolve_device
 from ..graph.qc import PERMS, QCGraph, var_index
+from .quant import BF16, check_precision, describe, quant_limit, rounder
 from .types import DecodeResult
 
 _MAG_CAP = 1e12
@@ -250,7 +259,7 @@ def _syndrome_fail_plain(layers, total: torch.Tensor, Z: int) -> torch.Tensor:
 
 
 def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
-                 reverse=False):
+                 reverse=False, store=None, post_rounded=False):
     """One layered iteration, in place on total [n, B] and C [BE, Z, B],
     with check rule `rule` (V [d, Z, B] -> Cnew). With `frozen` (bool [B],
     track mode) frozen frames keep their state exactly and the on-the-fly
@@ -261,7 +270,13 @@ def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
     the accumulate form of decode/xla/layered.py:187-234: every slot's
     rolled posterior is read first, then each slot in layer order (reverse
     for minstar: `reverse`) adds Cnew - Cold to its posteriors, and a sign
-    flip is checked after each slot's add."""
+    flip is checked after each slot's add.
+
+    `store` (decode/quant.rounder of a precision, or None for f32) rounds
+    each message before it is stored, Q(Cnew), after track mode's freeze
+    (Q(Cold) is Cold). The accumulate form then adds Q(Cnew) - Cold; the
+    set form adds Q(Cnew) where `post_rounded` (q:, and bf16 in track
+    mode), else the unrounded Cnew (the TPU kernel's bf16 fixed mode)."""
     B = total.shape[1]
     track = frozen is not None
     fail = torch.zeros(B, dtype=torch.bool, device=total.device)
@@ -277,8 +292,11 @@ def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
         Cnew = rule(V)
         if track:
             Cnew = torch.where(keep, Cold, Cnew)
+        Cq = Cnew if store is None else store(Cnew)
+        if post_rounded:
+            Cnew = Cq
         if accumulate:
-            delta = Cnew - Cold
+            delta = Cq - Cold
             for j in (range(d - 1, -1, -1) if reverse else range(d)):
                 ij = idx[j * Z:(j + 1) * Z]
                 old = total[ij]
@@ -295,26 +313,43 @@ def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
             else:
                 new = V + Cnew
             total[idx] = new.view(d * Z, B)
-        C[eids] = Cnew
+        C[eids] = Cq
     return fail
 
 
 def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                           beta=0.0, max_iters: int = 25,
-                          early_term: bool = True, cn: str = "minsum"):
+                          early_term: bool = True, cn: str = "minsum",
+                          precision=None):
     """(DecodeResult, posteriors f32 [B, n]) of the plain layered decode
-    of llr f32 [B, n], on llr's device."""
+    of llr f32 [B, n], on llr's device.
+
+    `precision` (decode/quant.py): None (f32), ("bf16",) the TPU kernel's
+    bf16 message and LLR storage, or ("q", bits, step) the fixed-point
+    emulation of `layered/q:BITS:STEP`. Both round the LLRs loaded into
+    the posteriors (the start-of-decode syndrome and the hard decisions
+    read them) and every stored message; the set form's posterior takes
+    the rounded message under q: and in bf16 track mode, the unrounded one
+    in bf16 fixed mode (ecc_ldpc_tpu/decode/pallas/layered_qc.py:394,
+    :376-380), and the accumulate form adds Q(Cnew) - Cold in every mode."""
     check_graph(graph)
     B = llr.shape[0]
     Z = graph.Z
     alphas, betas, _ = _schedule(alpha, beta, max_iters, cn)
+    precision = check_precision(precision)
+    store = rounder(precision)
     layers = _device_tables(graph, llr.device, "plain", _plain_layers)
     total = llr.to(torch.float32).t().contiguous()  # [n, B]
+    if store is not None:
+        total = store(total)
     C = torch.zeros((graph.num_block_edges, Z, B), dtype=torch.float32,
                     device=llr.device)
     # graphs with a column repeated in a layer: count signs, accumulate form
     dup = not graph.intra_layer_dup_free
     form = dict(accumulate=dup, reverse=dup and cn == "minstar")
+    if precision is not None:
+        form.update(store=store,
+                    post_rounded=post_rounded(precision, early_term))
 
     def rule(t):
         return _check_rule(cn, float(alphas[t]), float(betas[t]),
@@ -341,12 +376,20 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
 
 def layered_decode_plain(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                          beta=0.0, max_iters: int = 25,
-                         early_term: bool = True,
-                         cn: str = "minsum") -> DecodeResult:
+                         early_term: bool = True, cn: str = "minsum",
+                         precision=None) -> DecodeResult:
     """llr f32 [B, n] -> DecodeResult, in plain PyTorch on llr's device."""
     return plain_with_posteriors(graph, llr, alpha=alpha, beta=beta,
                                  max_iters=max_iters, early_term=early_term,
-                                 cn=cn)[0]
+                                 cn=cn, precision=precision)[0]
+
+
+def post_rounded(precision, track: bool) -> bool:
+    """Whether a set-form layer adds the rounded message Q(Cnew) to the
+    posteriors: under q: always; under bf16 in track mode only, since the
+    TPU kernel's fixed mode adds the unrounded one and stores the rounded
+    (ecc_ldpc_tpu/decode/pallas/layered_qc.py:394 against :376-380)."""
+    return precision is not None and (precision != BF16 or track)
 
 
 def _kernel_table(graph: QCGraph, device):
@@ -644,8 +687,17 @@ def classic_barriers(graph: QCGraph, cn: str) -> list:
     return masks
 
 
+def _source(name: str) -> str:
+    """The source (csrc/<source>.cu, the prefix of its C symbols) of the
+    library `name`: itself, or the layered source a _prec library builds."""
+    from .. import _build
+
+    return _build.LIBRARIES[name][0]
+
+
 def _lib(name: str, entry: str, argtypes):
-    """The built library for csrc/<name>.cu with `entry`'s signature set."""
+    """The built library `name` (_build.LIBRARIES) with `entry`'s
+    signature set."""
     from .. import _build
 
     lib = _build.load(name)
@@ -653,18 +705,34 @@ def _lib(name: str, entry: str, argtypes):
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
+        err = getattr(lib, f"{_source(name)}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
     return lib
 
 
+def _library(source: str, precision, perm: str = "roll") -> str:
+    """The library of a layered source for a precision: its f32 build, or
+    (bf16, q:) its precision build, the xor half where it has one."""
+    from .. import _build
+
+    if precision is None:
+        return source
+    xor = f"{source}_prec_xor"
+    return xor if perm == "xor" and xor in _build.LIBRARIES else f"{source}_prec"
+
+
+# each entry ends in the message precision (prec, post_round, step, lim;
+# the classic kernel's without post_round) and the stream
+_PREC_ARGS = [ctypes.c_int] * 2 + [ctypes.c_float] * 2
 _QC_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-            + [ctypes.c_float] * 2 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-_EXACT_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 19 + [ctypes.c_void_p]
+            + [ctypes.c_float] * 2 + [ctypes.c_int] * 12 + _PREC_ARGS
+            + [ctypes.c_void_p])
+_EXACT_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 19 + _PREC_ARGS
+               + [ctypes.c_void_p])
 _CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 9
-                 + [ctypes.c_void_p])
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 10
+                 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _RESIDENT = {}  # (library, kernel instance, plan shape, card) -> clusters
 _SMS = {}       # card -> its SM count
 
@@ -672,16 +740,17 @@ _SMS = {}       # card -> its SM count
 def resident_clusters(name: str, inst: tuple, plan: TilePlan,
                       device: torch.device) -> int:
     """cudaOccupancyMaxActiveClusters for the kernel instance `inst` of
-    csrc/<name>.cu launched by `plan` on `device` (queried once). Raises
-    when no cluster of the plan fits."""
+    the library `name` launched by `plan` on `device` (queried once).
+    Raises when no cluster of the plan fits."""
     key = (name, inst, plan.cluster, plan.threads, plan.smem, str(device))
     if key not in _RESIDENT:
         # the instance's ints, then cs, threads and smem, then the result
-        lib = _lib(name, f"{name}_clusters",
+        entry = f"{_source(name)}_clusters"
+        lib = _lib(name, entry,
                    [ctypes.c_int] * (len(inst) + 3) + [ctypes.c_void_p])
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            rc = getattr(lib, f"{name}_clusters")(
+            rc = getattr(lib, entry)(
                 *inst, plan.cluster, plan.threads, plan.smem,
                 ctypes.addressof(out))
         if rc != 0:
@@ -769,8 +838,37 @@ def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
 
 
 def _raise_launch(lib, name: str, rc: int) -> None:
-    err = getattr(lib, f"{name}_error_string")(rc).decode()
+    err = getattr(lib, f"{_source(name)}_error_string")(rc).decode()
     raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} ({err})")
+
+
+def kernel_precision(msg_dtype=torch.float32, quant=None):
+    """The precision (decode/quant.py) of a kernel wrapper's `msg_dtype`
+    (torch.float32 or torch.bfloat16, as the JAX package's
+    make_layered_pallas_decoder takes it, LLRs stored alike) or `quant`
+    (bits, step): None, ("bf16",) or ("q", bits, step). Raises on both at
+    once: bf16 storage and the q: grid are two different roundings."""
+    if msg_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"msg_dtype must be torch.float32 or torch.bfloat16, "
+                        f"got {msg_dtype}")
+    if quant is not None:
+        if msg_dtype != torch.float32:
+            raise ValueError(
+                "pass msg_dtype=torch.bfloat16 or quant=(bits, step), not "
+                "both: bf16 storage and the q: grid are two roundings")
+        return check_precision(("q", *quant))
+    return BF16 if msg_dtype == torch.bfloat16 else None
+
+
+def _prec_args(precision, track: bool) -> tuple:
+    """(prec, post_round, step, lim) of csrc/cluster_tile.cuh's ct::Prec."""
+    if precision is None:
+        return 0, 0, 1.0, 0.0
+    post = int(post_rounded(precision, track))
+    if precision == BF16:
+        return 1, post, 1.0, 0.0
+    _, bits, step = precision
+    return 2, post, step, quant_limit(bits)
 
 
 def _minsum_args(graph: QCGraph, alpha, beta, max_iters: int,
@@ -798,9 +896,11 @@ def _minsum_args(graph: QCGraph, alpha, beta, max_iters: int,
 
 def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
                    max_iters: int, early_term: bool, cn: str,
-                   with_posteriors: bool = False):
+                   with_posteriors: bool = False, msg_dtype=torch.float32,
+                   quant=None):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     layered min-sum kernel on the current stream."""
+    precision = kernel_precision(msg_dtype, quant)
     if cn != "minsum":
         raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
                          f"spa and minstar are layered_exact_cuda's")
@@ -811,9 +911,10 @@ def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
     tab = _device_tables(graph, dev, "kernel", _kernel_table)
     inst = (graph.dcb_max, int(early_term), int(fast_mag),
             int(graph.perm == "xor"))
+    name = _library("layered_qc", precision)
     plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
-        "layered_qc", inst, graph, llr, cn, early_term, with_posteriors)
-    lib = _lib("layered_qc", "layered_qc_decode", _QC_ARGS)
+        name, inst, graph, llr, cn, early_term, with_posteriors)
+    lib = _lib(name, "layered_qc_decode", _QC_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_qc_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
@@ -822,50 +923,59 @@ def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
             graph.dcb_max, a0, b0,
             *inst[1:], plan.cluster, plan.lg_cluster, plan.frames,
             plan.tiles, plan.stride, plan.chip, plan.threads, plan.smem,
-            clusters,
+            clusters, *_prec_args(precision, early_term),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        _raise_launch(lib, "layered_qc", rc)
+        _raise_launch(lib, name, rc)
     layered_decode_cuda.launches += 1
     layered_decode_cuda.launches_by_perm[graph.perm] += 1
-    layered_decode_cuda.last_plan = plan, clusters
+    layered_decode_cuda.launches_by_precision[describe(precision)] += 1
+    layered_decode_cuda.last_plan = plan, clusters, describe(precision)
     return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                         beta=0.0, max_iters: int = 25,
-                        early_term: bool = True,
-                        cn: str = "minsum") -> DecodeResult:
+                        early_term: bool = True, cn: str = "minsum",
+                        msg_dtype=torch.float32, quant=None) -> DecodeResult:
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
     the layered min-sum kernel on the current stream (the exact rules are
-    layered_exact_cuda's), its roll or xor instantiation by graph.perm.
-    Raises on anything the kernel does not take; never falls back to the
-    plain version."""
+    layered_exact_cuda's), its roll or xor instantiation by graph.perm,
+    with messages (and LLRs) stored in f32, in bf16 (`msg_dtype`) or on
+    the q: grid (`quant` = (bits, step); kernel_precision). Raises on
+    anything the kernel does not take; never falls back to the plain
+    version."""
     return _launch_minsum(graph, llr, alpha, beta, max_iters, early_term,
-                          cn)[0]
+                          cn, msg_dtype=msg_dtype, quant=quant)[0]
 
 
 def minsum_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                 alpha=1.0, beta=0.0, max_iters: int = 25,
-                                early_term: bool = True, cn: str = "minsum"):
+                                early_term: bool = True, cn: str = "minsum",
+                                msg_dtype=torch.float32, quant=None):
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the layered
     min-sum kernel, for holding it against plain_with_posteriors."""
     return _launch_minsum(graph, llr, alpha, beta, max_iters, early_term, cn,
-                          with_posteriors=True)
+                          with_posteriors=True, msg_dtype=msg_dtype,
+                          quant=quant)
 
 
 layered_decode_cuda.launches = 0
 # per block permutation: the roll and xor instantiations are kernels apart
 layered_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
-# the last launch's (TilePlan, clusters resident), for printing
+# per message precision ("f32", "bf16", "q:BITS:STEP")
+layered_decode_cuda.launches_by_precision = collections.Counter()
+# the last launch's (TilePlan, clusters resident, precision), for printing
 layered_decode_cuda.last_plan = None
 
 
 def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
-                  early_term: bool, cn: str, with_posteriors: bool = False):
+                  early_term: bool, cn: str, with_posteriors: bool = False,
+                  msg_dtype=torch.float32, quant=None):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     exact-BP layered kernel on the current stream."""
+    precision = kernel_precision(msg_dtype, quant)
     if cn not in ("spa", "minstar"):
         raise ValueError(f"the exact-BP kernel runs spa or minstar, not {cn!r}")
     _check_cuda_input(graph, llr, max_iters, "layered_exact_cuda")
@@ -873,11 +983,12 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
     tab = _device_tables(graph, dev, "kernel", _kernel_table)
     inst = (graph.dcb_max, int(cn == "minstar"), int(early_term),
             int(graph.perm == "xor"))
+    name = _library("layered_exact", precision, graph.perm)
     plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
-        "layered_exact", inst, graph, llr, cn, early_term, with_posteriors)
+        name, inst, graph, llr, cn, early_term, with_posteriors)
     wide = wide_scratch(graph.dcb_max, cn,
                         clusters * plan.cluster * plan.threads, dev)
-    lib = _lib("layered_exact", "layered_exact_decode", _EXACT_ARGS)
+    lib = _lib(name, "layered_exact_decode", _EXACT_ARGS)
     with torch.cuda.device(dev):
         rc = lib.layered_exact_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
@@ -885,42 +996,49 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
             Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             *inst, plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
             plan.stride, plan.chip, plan.threads, plan.smem, clusters,
+            *_prec_args(precision, early_term),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        _raise_launch(lib, "layered_exact", rc)
+        _raise_launch(lib, name, rc)
     layered_exact_cuda.launches += 1
     layered_exact_cuda.frames += B
     layered_exact_cuda.launches_by_perm[graph.perm] += 1
     layered_exact_cuda.frames_by_perm[graph.perm] += B
-    layered_exact_cuda.last_plan = plan, clusters
+    layered_exact_cuda.launches_by_precision[describe(precision)] += 1
+    layered_exact_cuda.last_plan = plan, clusters, describe(precision)
     return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def layered_exact_cuda(graph: QCGraph, llr: torch.Tensor, *,
                        max_iters: int = 25, early_term: bool = True,
-                       cn: str = "spa") -> DecodeResult:
+                       cn: str = "spa", msg_dtype=torch.float32,
+                       quant=None) -> DecodeResult:
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
     the exact-BP layered kernel (csrc/layered_exact.cu) on the current
-    stream. Raises on anything the kernel does not take; never falls back
-    to the plain version."""
-    return _launch_exact(graph, llr, max_iters, early_term, cn)[0]
+    stream, messages stored as layered_decode_cuda's. Raises on anything
+    the kernel does not take; never falls back to the plain version."""
+    return _launch_exact(graph, llr, max_iters, early_term, cn,
+                         msg_dtype=msg_dtype, quant=quant)[0]
 
 
 def exact_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                max_iters: int = 25, early_term: bool = True,
-                               cn: str = "spa"):
+                               cn: str = "spa", msg_dtype=torch.float32,
+                               quant=None):
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the
     exact-BP layered kernel: layered_exact_cuda plus the posteriors it
     leaves, for holding the kernel against plain_with_posteriors."""
     return _launch_exact(graph, llr, max_iters, early_term, cn,
-                         with_posteriors=True)
+                         with_posteriors=True, msg_dtype=msg_dtype,
+                         quant=quant)
 
 
 layered_exact_cuda.launches = 0
 layered_exact_cuda.frames = 0  # frames decoded: the retry fallback's load
 layered_exact_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 layered_exact_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
+layered_exact_cuda.launches_by_precision = collections.Counter()
 layered_exact_cuda.last_plan = None
 
 
@@ -934,10 +1052,12 @@ def _classic_table(graph: QCGraph, device, cn: str):
 
 def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
                     max_iters: int, early_term: bool, cn: str,
-                    with_posteriors: bool = False):
+                    with_posteriors: bool = False, msg_dtype=torch.float32,
+                    quant=None):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     layered kernel for graphs that repeat a block-column in a layer."""
     alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
+    precision = kernel_precision(msg_dtype, quant)
     if graph.perm != "roll":
         raise ValueError(
             f"{graph.name}: layered_classic_cuda's accumulate form reads "
@@ -951,10 +1071,11 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
     ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
           if per_iter else None)
     inst = (graph.dcb_max, CN_RULES.index(cn), int(early_term))
+    name = _library("layered_classic", precision)
     plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
-        "layered_classic", inst, graph, llr, cn, early_term, with_posteriors,
-        "classic")
-    lib = _lib("layered_classic", "layered_classic_decode", _CLASSIC_ARGS)
+        name, inst, graph, llr, cn, early_term, with_posteriors, "classic")
+    lib = _lib(name, "layered_classic_decode", _CLASSIC_ARGS)
+    prec, _, step, lim = _prec_args(precision, early_term)
     with torch.cuda.device(dev):
         rc = lib.layered_classic_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
@@ -962,44 +1083,48 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
             graph.Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             graph.dcb_max, float(alphas[0]), float(betas[0]), *inst[1:],
             plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
-            plan.threads, plan.smem, clusters,
-            torch.cuda.current_stream(dev).cuda_stream,
+            plan.threads, plan.smem, clusters, prec,
+            step, lim, torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        _raise_launch(lib, "layered_classic", rc)
+        _raise_launch(lib, name, rc)
     layered_classic_cuda.launches += 1
     layered_classic_cuda.frames += B
     layered_classic_cuda.by_rule[cn] += 1
     layered_classic_cuda.frames_by_rule[cn] += B
-    layered_classic_cuda.last_plan = plan, clusters
+    layered_classic_cuda.launches_by_precision[describe(precision)] += 1
+    layered_classic_cuda.last_plan = plan, clusters, describe(precision)
     return DecodeResult(bits=bits, ok=ok.bool(), iterations=iters), post
 
 
 def layered_classic_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                          beta=0.0, max_iters: int = 25,
-                         early_term: bool = True,
-                         cn: str = "minsum") -> DecodeResult:
+                         early_term: bool = True, cn: str = "minsum",
+                         msg_dtype=torch.float32, quant=None) -> DecodeResult:
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
     the layered kernel for graphs that repeat a block-column in a layer
     (csrc/layered_classic.cu: min-sum, spa and minstar in the accumulate
-    form with count signs) on the current stream. Raises on anything the
-    kernel does not take, dup-free graphs included; never falls back to
-    the plain version."""
+    form with count signs) on the current stream, messages stored as
+    layered_decode_cuda's. Raises on anything the kernel does not take,
+    dup-free graphs included; never falls back to the plain version."""
     return _launch_classic(graph, llr, alpha, beta, max_iters, early_term,
-                           cn)[0]
+                           cn, msg_dtype=msg_dtype, quant=quant)[0]
 
 
 def classic_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                  alpha=1.0, beta=0.0, max_iters: int = 25,
-                                 early_term: bool = True, cn: str = "minsum"):
+                                 early_term: bool = True, cn: str = "minsum",
+                                 msg_dtype=torch.float32, quant=None):
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the classic
     layered kernel, for holding it against plain_with_posteriors."""
     return _launch_classic(graph, llr, alpha, beta, max_iters, early_term,
-                           cn, with_posteriors=True)
+                           cn, with_posteriors=True, msg_dtype=msg_dtype,
+                           quant=quant)
 
 
 layered_classic_cuda.launches = 0
 layered_classic_cuda.frames = 0
+layered_classic_cuda.launches_by_precision = collections.Counter()
 # per rule: one kernel serves a retry decoder's primary and its fallback
 layered_classic_cuda.by_rule = dict.fromkeys(CN_RULES, 0)         # launches
 layered_classic_cuda.frames_by_rule = dict.fromkeys(CN_RULES, 0)  # frames
@@ -1008,7 +1133,8 @@ layered_classic_cuda.last_plan = None
 
 def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
                          max_iters: int = 25, early_term: bool = True,
-                         cn: str = "minsum", device="cuda"):
+                         cn: str = "minsum", device="cuda",
+                         msg_dtype=torch.float32, quant=None):
     """decode(llr [B, n]) -> DecodeResult. The decoder runs the plain
     version on CPU tensors and a CUDA kernel on CUDA tensors: on graphs
     that repeat a block-column in a layer the classic kernel for every
@@ -1016,9 +1142,14 @@ def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
     in its roll or xor instantiation by graph.perm (a xor graph that
     repeats a block-column in a layer raises, on every device).
     `device` (default "cuda", which raises when CUDA is absent) is where
-    its tables are built up front. Exact rules ignore alpha/beta."""
+    its tables are built up front. Exact rules ignore alpha/beta.
+    Messages and LLRs are stored in f32, in bf16 (`msg_dtype`, the TPU
+    kernel's storage: tpu_msg_dtype) or on the q: grid (`quant` = (bits,
+    step)), on either device (kernel_precision)."""
     check_graph(graph)
     _schedule(alpha, beta, max_iters, cn)
+    prec = dict(msg_dtype=msg_dtype, quant=quant)
+    precision = kernel_precision(**prec)
     dev = resolve_device(device)
     kw = dict(alpha=alpha, beta=beta, max_iters=max_iters,
               early_term=early_term, cn=cn)
@@ -1029,12 +1160,54 @@ def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
 
     def decode(llr: torch.Tensor) -> DecodeResult:
         if llr.device.type == "cpu":
-            return layered_decode_plain(graph, llr, **kw)
+            return layered_decode_plain(graph, llr, precision=precision, **kw)
         if not graph.intra_layer_dup_free:
-            return layered_classic_cuda(graph, llr, **kw)
+            return layered_classic_cuda(graph, llr, **kw, **prec)
         if cn == "minsum":
-            return layered_decode_cuda(graph, llr, **kw)
+            return layered_decode_cuda(graph, llr, **kw, **prec)
         return layered_exact_cuda(graph, llr, max_iters=max_iters,
-                                  early_term=early_term, cn=cn)
+                                  early_term=early_term, cn=cn, **prec)
 
     return decode
+
+
+# The JAX package's Pallas layered kernel holds one tile of 128 frames in
+# VMEM (ecc_ldpc_tpu/decode/pallas/layered_qc.py:70-99, `supports`): a
+# sublane dim Z * R of at most 1024, R = 8 / gcd(Z, 8) packed replicas,
+# and at most 118 MiB of state.
+_TPU_TILE = 128
+_TPU_SUBLANES = 1024
+_TPU_STATE_BYTES = 118 * 1024 * 1024
+
+
+def _tpu_fits(graph: QCGraph, msg_bytes: int, cn: str) -> bool:
+    """The JAX kernel's `supports(graph, batch_tile=128, msg_bytes, kind=cn)`
+    with its LLRs stored as its messages (llr_bytes = msg_bytes)."""
+    if graph.perm != "roll":
+        return False
+    R = 8 // int(np.gcd(graph.Z, 8))
+    if graph.Z * R > _TPU_SUBLANES:
+        return False
+    vrow = graph.dcb_max
+    if cn == "minstar" and not graph.intra_layer_dup_free:
+        vrow *= 2
+    state = graph.Z * R * _TPU_TILE * (
+        msg_bytes * graph.num_block_edges + 4 * graph.nb
+        + msg_bytes * graph.nb + graph.nb + 4 * vrow)
+    return state <= _TPU_STATE_BYTES
+
+
+def tpu_msg_dtype(graph: QCGraph, cn: str = "minsum") -> torch.dtype:
+    """The message (and LLR) storage the JAX package's Pallas layered
+    kernel took for `graph` and rule `cn` on the TPU (decode/api.py:141-145
+    there): torch.bfloat16 where the kernel fits its VMEM with 2-byte
+    storage and not with 4-byte, else torch.float32. So f32 covers the
+    graphs it fits at f32, xor graphs (its xor kernel stores f32) and the
+    graphs it refuses at either width (ccsds/*, Z * R > 1024), on which
+    the JAX package raises for `/pallas`; the port carries no VMEM
+    envelope, so it decodes them, in f32."""
+    if cn not in CN_RULES:
+        raise KeyError(f"layered cn must be minsum/spa/minstar, got {cn!r}")
+    if _tpu_fits(graph, 2, cn) and not _tpu_fits(graph, 4, cn):
+        return torch.bfloat16
+    return torch.float32

@@ -14,7 +14,10 @@ same compact spec strings the CLI uses.
 The default decoder is the JAX package's, flooding `minsum/norm:0.8125/25`:
 on a QC code it runs the QC flooding kernel (K3), on an unstructured code
 such as `mackay1008` the flooding kernel (K2), or their plain versions
-with device="cpu".
+with device="cpu". Any decoder spec of decode/api.py passes through (the
+message precisions `q:B:S` and `/pallas`, `/cleanup`, `bitflip`, `gdbf`),
+and codes/crc.with_crc(ecc, "24a") wraps a facade so its payloads carry a
+CRC.
 """
 from __future__ import annotations
 

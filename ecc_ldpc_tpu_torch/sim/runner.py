@@ -64,6 +64,10 @@ class SweepSpec:
     batch: int = 256
     seed: int = 0
     stopping: StoppingRule = StoppingRule()
+    # decoder backend override (decode/api.make_decoder): "pallas" stores a
+    # layered decoder's messages as the TPU's kernel did; None keeps the
+    # spec's own
+    backend: Optional[str] = None
     channel: str = "bpsk"  # channel-spec string (chan/modem.py)
 
     def point_key(self, ebn0: float) -> str:
@@ -222,7 +226,8 @@ def _ldpc_pipeline(spec: SweepSpec, dev: torch.device) -> Pipeline:
     channel = build_channel(code, spec.channel)
     graph = choose_graph(code, spec.decoder)
     enc = build_encoder(code)
-    dec = get_decoder(graph, spec.decoder, device=dev)
+    overrides = {"backend": spec.backend} if spec.backend else {}
+    dec = get_decoder(graph, spec.decoder, device=dev, **overrides)
 
     def decode(llr):
         res = dec(llr)

@@ -55,10 +55,18 @@ def test_not_ported_yet_names_its_roadmap_step(tmp_path, capsys):
     for cmd in ("findsnr", "trap", "bench", "learn"):
         assert main([cmd, "--code", "dvbs2/64800/12"]) == 2
         assert "ROADMAP.md Queue 1 step" in capsys.readouterr().err
-    # the bit-flipping decoders are not ported yet
-    with pytest.raises(NotImplementedError, match="step 10"):
-        main(["sweep", "--code", "dvbs2/16200/12", "--decoder", "bitflip/50",
-              "--ebn0", "1.0", "--device", "cpu"])
+    # the bit-flipping decoders are ported: a sweep on the CPU, and the
+    # JAX package's KeyError for a /pallas override
+    bf = tmp_path / "bitflip.json"
+    assert main(["sweep", "--code", "dvbs2/16200/12", "--decoder",
+                 "bitflip/5", "--ebn0", "1.0", "--batch", "2",
+                 "--max-frames", "2", "--device", "cpu",
+                 "--out", str(bf)]) == 0
+    (pt,) = json.loads(bf.read_text())
+    assert pt["decoder"] == "bitflip/5" and pt["frames"] == 2
+    with pytest.raises(KeyError, match="Pallas"):
+        main(["sweep", "--code", "dvbs2/16200/12", "--decoder", "bitflip/5",
+              "--backend", "pallas", "--ebn0", "1.0", "--device", "cpu"])
     cfg = tmp_path / "cfg.json"
     cfg.write_text(json.dumps({"code": "dvbs2/16200/12",
                                "decoder": "layered/norm:0.8125/2",

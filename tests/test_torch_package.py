@@ -58,7 +58,8 @@ def test_port_imports_no_jax():
               "graph.compile", "decode.cn_ops", "decode.flooding",
               "decode.flooding_qc", "codes.ccsds", "codes.girth",
               "codes.qc", "dist", "dist.mesh", "dist.montecarlo",
-              "dist.ring", "bench.ring", "bench.sharded"):
+              "dist.ring", "bench.ring", "bench.sharded", "decode.quant",
+              "decode.cleanup", "decode.bitflip", "codes.crc"):
         assert f"ecc_ldpc_tpu_torch.{m}" in mods, m
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -119,18 +120,42 @@ def test_build_paths():
     assert "ring" in _build.KERNEL_SOURCES
 
 
+def test_precision_libraries():
+    """Each layered source builds a precision library of its own
+    (-DLAYERED_PREC=1; layered_exact's in a circulant and a xor half),
+    beside its f32 library, whose flags are the parent's; the wrappers
+    pick the library by precision and block permutation."""
+    from ecc_ldpc_tpu_torch.decode.layered_qc import _library, _source
+
+    for src in ("layered_qc", "layered_exact", "layered_classic"):
+        assert _build.LIBRARIES[src] == (src, ())
+        assert "-DLAYERED_PREC=1" in _build.LIBRARIES[f"{src}_prec"][1]
+        assert (_build.library_path(f"{src}_prec")
+                != _build.library_path(src))
+        assert _library(src, None, "xor") == src
+        assert _source(f"{src}_prec") == src
+    assert _library("layered_qc", ("bf16",), "xor") == "layered_qc_prec"
+    assert _library("layered_exact", ("q", 5, 0.5),
+                    "xor") == "layered_exact_prec_xor"
+    assert _library("layered_exact", ("bf16",)) == "layered_exact_prec"
+    assert "-DLAYERED_PERM=2" in _build.LIBRARIES["layered_exact_prec_xor"][1]
+    assert set(_build.LIBRARIES) >= set(_build.KERNEL_SOURCES)
+
+
 def test_spec_parsing_limits():
     kw = parse_decoder_spec("layered/sched:dvbs2_64800_12_T25_op2")
     assert kw["max_iters"] == 25 and kw["alpha"].dtype == np.float32
     assert parse_decoder_spec("layered/norm:0.8125/25/noet") == dict(
         kind="layered", alpha=0.8125, max_iters=25, early_term=False)
-    # what still waits: quantization, cleanup and the bit-flipping kinds,
-    # also behind ;retry=; the TPU's incidence-matmul backend is refused
+    # quantization, cleanup and the bit-flipping kinds (also behind
+    # ;retry=) decode: a noiseless frame passes at once; the TPU's
+    # incidence-matmul backend is refused
     graph = compile_qc_graph(get_code("dvbs2/16200/12"))
-    for bad in ("layered/q:5:0.5/25", "layered/norm:0.8/25/cleanup",
-                "bitflip/50", "layered/norm:0.8/25;retry=gdbf/theta:-0.5/50"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_decoder(graph, bad, device="cpu")
+    llr = torch.full((2, graph.n), 3.0)
+    for spec in ("layered/q:5:0.5/25", "layered/norm:0.8/25/cleanup",
+                 "bitflip/50", "layered/norm:0.8/25;retry=gdbf/theta:-0.5/50"):
+        res = get_decoder(graph, spec, device="cpu")(llr)
+        assert bool(res.ok.all()) and not bool(res.bits.any()), spec
     with pytest.raises(ValueError, match="only for the TPU"):
         get_decoder(graph, "minsum/25/xla-mm", device="cpu")
     with pytest.raises(ValueError):

@@ -235,5 +235,9 @@ def test_ecc_facade_round_trip():
     out = ecc.decode(ecc.transmit(gen, ecc.encode(msg), 4.0))
     assert torch.equal(ecc.extract_message(out.bits), msg)
     assert bool(out.ok.all())
-    with pytest.raises(NotImplementedError, match="step 10"):
-        build_ecc("mackay1008", "gdbf/theta:-0.5/50", device="cpu")
+    # GDBF on the same code: hard-decision flipping at a high Eb/N0
+    ecc = build_ecc("mackay1008", "gdbf/theta:-0.5/50", device="cpu")
+    msg = torch.randint(0, 2, (3, ecc.k), generator=gen, dtype=torch.uint8)
+    out = ecc.decode(ecc.transmit(gen, ecc.encode(msg), 9.0))
+    assert torch.equal(ecc.extract_message(out.bits), msg)
+    assert bool(out.ok.all())
