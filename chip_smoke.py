@@ -268,7 +268,34 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      CPU's; CRC24A over nr5g/bg1/384 (with_crc): 4096 frames on the card,
      every CRC check equal to the bit-serial reference's, ok = syndrome
      AND CRC.
-Then the kernels line (the launches of phases 28-29 and 31-38 added to
+  39. learn — the CLI's `learn` at full width on the card:
+     dvbs2/64800/12, T = 25, batch 16, 3 steps over 1.8-2.6 dB (the
+     production schedule's code, T and band): seconds a step, peak memory
+     above what earlier phases left allocated, the losses finite, the
+     parameters in the clip region; on the first training batch
+     (regenerated) the twin's final hard decisions equal to the plain
+     layered decoder's with count signs; the trained
+     schedule through K1a (make_decoder, 25 iterations, no early
+     termination) on 256 frames at 2.2 dB, bits, ok and iterations equal
+     to its plain version's.
+  40. findsnr — the CLI's `findsnr` of layered/norm:0.8125/25 at FER 1e-2
+     on dvbs2/64800/12 (bracket 0.9-1.4 dB, 0.02 dB, 2048 frames a step,
+     16384 a probe): the answer inside 1.05-1.25 dB (the golden's 1.10 and
+     1.20 dB points, with a margin); the probes printed.
+  41. trap — harvest() of dvbs2/64800/12 with layered/norm:0.8125/25 at 1.1
+     dB (2048 frames, K1a) and of mackay1008 with the default
+     minsum/norm:0.8125/25 at 2.0 dB (8192 frames, K2): the summaries; the
+     histogram total equal to the failed frames counted again on the
+     card; every stored failure's b equal to the weight of H e computed
+     on the card; the CLI's `trap --out` report equal to the library's.
+  42. bench — the CLI's `bench` (decode only, dvbs2/64800/12
+     layered/norm:0.8125/25/noet, 4096 frames, with --profile-dir),
+     `--pipeline` and `--ab` (the plain and learned schedules, noet) at
+     1024 frames, bench.scaling over the host's cards, and `sweep
+     --profile-dir`: the JSON lines, and both traces naming K1a's kernel.
+     The launches of 39-42 are counted per phase (zeroed before, read
+     after).
+Then the kernels line (the launches of phases 28-29 and 31-42 added to
 the kernels that decode them, the families' errors to theirs, an entry
 with "width": 64 for each 64-wide instance timed in 27, one with
 "width": "wide" for each wide instance timed in 30 and one with its
@@ -278,6 +305,8 @@ and the result line last.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import pathlib
@@ -750,6 +779,34 @@ CRC_DECODER = "layered/norm:0.8125/25"
 CRC_B = 4096
 CRC_EBN0 = 1.0
 
+
+# phases 39-42: the four entry points of slice 13
+# 39. NOMS training at full width (the production schedule's code, T and
+# band; its JSON: 55 steps of batch 16), a few steps
+LEARN_CODE = "dvbs2/64800/12"
+LEARN_ARGS = ["--ebn0", "1.8:2.6", "--iters", "25", "--steps", "3",
+              "--batch", "16", "--seed", "0"]
+LEARN_BAND = (1.8, 2.6)
+LEARN_DECODE_FRAMES = 256  # the trained schedule through K1a and plain
+LEARN_DECODE_EBN0 = 2.2
+# 40. the operating point of the golden's decoder at FER 1e-2: between the
+# golden's last point above it (1.10 dB) and its first below (1.20 dB),
+# with 0.05 dB of margin (f32 messages against the golden's bf16)
+FINDSNR_ARGS = ["--code", "dvbs2/64800/12", "--decoder",
+                "layered/norm:0.8125/25", "--target-fer", "1e-2",
+                "--bracket", "0.9:1.4", "--tol-db", "0.02", "--batch",
+                "2048", "--max-frames", "16384", "-v"]
+FINDSNR_BAND = (1.05, 1.25)
+# 41. trapping sets: (code, decoder, Eb/N0, frames, batch)
+TRAP_CASES = [("dvbs2/64800/12", "layered/norm:0.8125/25", 1.1, 2048, 2048),
+              ("mackay1008", "minsum/norm:0.8125/25", 2.0, 8192, 2048)]
+TRAP_SEED = 7
+# 42. the bench modes and the profiler traces
+BENCH_CODE = "dvbs2/64800/12"
+BENCH_DECODER = "layered/norm:0.8125/25/noet"
+BENCH_AB_DECODERS = ("layered/norm:0.8125/25/noet",
+                     "layered/sched:dvbs2_64800_12_T25/noet")
+K1A_KERNEL = "layered_qc_kernel"  # K1a's symbol in a profiler trace
 
 T_START = time.perf_counter()
 
@@ -2631,6 +2688,270 @@ def crc_path(dev) -> None:
         raise AssertionError("the CRC batch decodes all frames or none")
 
 
+def run_cli(argv: list) -> tuple:
+    """(exit code, standard output lines, seconds) of one CLI call in this
+    process (the kernels' counters see its launches)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    return rc, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def learn_path(dev) -> dict:
+    """Phase 39: `cli learn` at full width on the card (dvbs2/64800/12, T =
+    25, batch 16, the production schedule's band): seconds a step, peak
+    memory above what was allocated before it, the loss finite and the
+    parameters in the clip region; on the first training batch the twin's
+    final hard decisions against the plain layered decoder with count
+    signs; the trained schedule through K1a (make_decoder, 25 iterations,
+    no early termination) against its plain version on
+    LEARN_DECODE_FRAMES frames. K1a's launches in the phase."""
+    from ecc_ldpc_tpu_torch.decode.api import make_decoder
+    from ecc_ldpc_tpu_torch.decode.layered_qc import layered_decode_plain
+    from ecc_ldpc_tpu_torch.learn import load_schedule, unrolled_posteriors
+    from ecc_ldpc_tpu_torch.learn.noms import (
+        ALPHA_MAX,
+        ALPHA_MIN,
+        training_batch,
+    )
+
+    layered_decode_cuda.launches = 0
+    out = ROOT / "build" / "learned_dvbs2_64800_12_T25.json"
+    out.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    # what earlier phases left allocated counts in the peak; the training's
+    # own peak is the rise above it
+    base = torch.cuda.memory_allocated(dev)
+    rc, lines, wall = run_cli(["learn", "--code", LEARN_CODE, *LEARN_ARGS,
+                               "--out", str(out), "-v"])
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    steps = [ln.split() for ln in lines if ln.startswith("  step ")]
+    step_s = [float(w[-2]) for w in steps]
+    losses = [float(w[3].rstrip(",")) for w in steps]
+    d = json.loads(out.read_text())
+    params = load_schedule(str(out))
+    a, b = params.alphas, params.betas
+    in_region = bool(np.all(a >= ALPHA_MIN) and np.all(a <= ALPHA_MAX)
+                     and np.all(b >= 0.0))
+    emit("learn", rc=rc, code=LEARN_CODE, args=LEARN_ARGS, seconds=wall,
+         step_s=step_s, losses=losses, peak_bytes=peak,
+         peak_gib=peak / 2**30, allocated_before_bytes=base,
+         alphas=d["alphas"], betas=d["betas"],
+         in_clip_region=in_region, out=lines[-2:])
+    if rc != 0 or len(losses) != 3 or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"learn: rc {rc}, losses {losses}")
+    if not in_region:
+        raise AssertionError("learn: a parameter left the clip region")
+
+    spec = get_code(LEARN_CODE)
+    graph = compile_qc_graph(spec)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    _, cw, llr = training_batch(gen, build_encoder(spec), spec.k, spec.rate,
+                                16, LEARN_BAND, dev)
+    with torch.no_grad():
+        post, twin_ms = timed(unrolled_posteriors, graph, llr, a, b,
+                              remat=False)
+    (plain, ptot), plain_ms = timed(plain_with_posteriors, graph, llr,
+                                    alpha=a, beta=b, max_iters=params.iters,
+                                    early_term=False, sign_mode="count")
+    twin_bits = (post[-1] < 0).to(torch.uint8)
+    same_bits = torch.equal(twin_bits, plain.bits)
+    emit("learn_twin_vs_plain", frames=16, twin_ms=twin_ms,
+         plain_ms=plain_ms, bits_identical=same_bits,
+         posteriors_identical=same_floats(post[-1], ptot),
+         max_abs_err=(post[-1] - ptot).abs().max().item(),
+         frame_errors=int((plain.bits != cw).any(1).sum()))
+    if not same_bits:
+        raise AssertionError("the twin's hard decisions differ from the "
+                             "plain decoder's with count signs")
+
+    x = make_inputs(LEARN_CODE, BENCH_DECODER, LEARN_DECODE_FRAMES,
+                    LEARN_DECODE_EBN0, dev, seed=39)
+    dec = make_decoder(graph, "layered", alpha=a, beta=b,
+                       max_iters=params.iters, early_term=False, device=dev)
+    kern, kern_ms = timed(dec, x.llr)
+    plain, plain_ms = timed(layered_decode_plain, graph, x.llr, alpha=a,
+                            beta=b, max_iters=params.iters,
+                            early_term=False)
+    same = (torch.equal(kern.bits, plain.bits)
+            and torch.equal(kern.ok, plain.ok)
+            and torch.equal(kern.iterations, plain.iterations))
+    errors, cw_errors = x.frame_errors(kern.bits)
+    launches = layered_decode_cuda.launches
+    emit("learn_schedule_k1a", frames=LEARN_DECODE_FRAMES,
+         ebn0_db=LEARN_DECODE_EBN0, kernel_ms=kern_ms, plain_ms=plain_ms,
+         identical=same, frame_errors=errors,
+         codeword_frame_errors=cw_errors, launches=launches)
+    if not same:
+        raise AssertionError("K1a and its plain version differ on the "
+                             "trained schedule")
+    if launches <= 0:
+        raise AssertionError("the trained schedule never launched K1a")
+    return {"layered_qc": launches}
+
+
+def findsnr_path(dev) -> dict:
+    """Phase 40: `cli findsnr` on the golden's decoder at FER 1e-2; the
+    answer inside FINDSNR_BAND. K1a's launches in the phase."""
+    layered_decode_cuda.launches = 0
+    rc, lines, wall = run_cli(["findsnr", *FINDSNR_ARGS])
+    op = json.loads(lines[-1])
+    probes = [ln.strip() for ln in lines if ln.startswith("  probe ")]
+    launches = layered_decode_cuda.launches
+    emit("findsnr", rc=rc, seconds=wall, probes=probes, result=op,
+         band=FINDSNR_BAND, launches=launches)
+    lo, hi = FINDSNR_BAND
+    if rc != 0 or not lo <= op["ebn0_db"] <= hi:
+        raise AssertionError(f"findsnr: rc {rc}, {op['ebn0_db']} dB outside "
+                             f"{FINDSNR_BAND}")
+    if launches <= 0:
+        raise AssertionError("findsnr never launched K1a")
+    return {"layered_qc": launches}
+
+
+def trap_path(dev) -> dict:
+    """Phase 41: harvest() of each TRAP_CASES case on the card, summary
+    printed; the histogram total equal to the frames whose bits differ from
+    the codeword, counted again on the device on the same frames
+    (harvest_batch); every stored failure's b equal to the weight of H e
+    computed on the device; the CLI's `trap --out` report equal to the
+    library's. K1a's and K2's launches in the harvests."""
+    from ecc_ldpc_tpu_torch.ecc import build_ecc
+    from ecc_ldpc_tpu_torch.sim.microscope import harvest, harvest_batch
+
+    added = collections.Counter()
+    for code, decoder, ebn0, frames, batch in TRAP_CASES:
+        layered_decode_cuda.launches = 0
+        flooding_decode_cuda.launches = 0
+        t0 = time.perf_counter()
+        rep = harvest(code, decoder, ebn0_db=ebn0, frames=frames,
+                      batch=batch, seed=TRAP_SEED, device=dev)
+        wall = time.perf_counter() - t0
+        launches = {"layered_qc": layered_decode_cuda.launches,
+                    "flooding:minsum": flooding_decode_cuda.launches}
+        added.update(launches)
+        ecc = build_ecc(code, decoder, device=dev)
+        failed, step = 0, 0
+        for start in range(0, frames, batch):
+            b = min(batch, frames - start)
+            cw, llr = harvest_batch(ecc, TRAP_SEED, step, b, ebn0, dev)
+            failed += int((ecc.decode(llr).bits != cw).any(1).sum().item())
+            step += 1
+        rows = torch.as_tensor(np.concatenate(
+            [np.full(len(r), i) for i, r in enumerate(ecc.spec.row_cols)]),
+            device=dev)
+        cols = torch.as_tensor(np.concatenate(ecc.spec.row_cols),
+                               dtype=torch.long, device=dev)
+        e = torch.zeros((len(rep.failures), ecc.n), dtype=torch.int32,
+                        device=dev)
+        for i, f in enumerate(rep.failures):
+            e[i, list(f.vn_set)] = 1
+        synd = torch.zeros((len(rep.failures), ecc.spec.m), dtype=torch.int32,
+                           device=dev).index_add_(1, rows, e[:, cols])
+        b_card = (synd % 2).sum(1).tolist()
+        b_ok = b_card == [f.b for f in rep.failures]
+        total = sum(rep.histogram.values())
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "trap.json"
+            rc, lines, cli_s = run_cli([
+                "trap", "--code", code, "--decoder", decoder, "--ebn0",
+                str(ebn0), "--frames", str(frames), "--batch", str(batch),
+                "--seed", str(TRAP_SEED), "--out", str(path)])
+            cli_json = json.loads(path.read_text())
+        emit("trap", code=code, decoder=decoder, ebn0_db=ebn0, frames=frames,
+             seconds=wall, frames_per_s=frames / wall,
+             summary=rep.summary().splitlines(), histogram_total=total,
+             failed_on_card=failed, stored=len(rep.failures),
+             b_equals_card_syndrome=b_ok, launches=launches, cli_rc=rc,
+             cli_seconds=cli_s,
+             cli_equals_library=cli_json == json.loads(json.dumps(
+                 rep.to_json())))
+        if total != failed or not failed:
+            raise AssertionError(f"trap {code}: histogram total {total}, "
+                                 f"{failed} failed frames on the card")
+        if not b_ok:
+            raise AssertionError(f"trap {code}: a failure's b differs from "
+                                 f"its syndrome weight on the card")
+        if rc != 0 or cli_json != json.loads(json.dumps(rep.to_json())):
+            raise AssertionError(f"trap {code}: the CLI's report differs")
+        if sum(launches.values()) <= 0:
+            raise AssertionError(f"trap {code}: no kernel launched")
+    return dict(added)
+
+
+def trace_names(prof: pathlib.Path, name: str) -> list:
+    """The Chrome traces in prof whose events include a kernel named
+    `name`."""
+    hits = []
+    for path in sorted(prof.glob("trace_*.json")):
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        if any(name in str(ev.get("name", "")) for ev in events):
+            hits.append(path.name)
+    return hits
+
+
+def bench_path(dev) -> dict:
+    """Phase 42: `cli bench` (decode only, the headline's code and decoder
+    at 4096 frames, with --profile-dir), --pipeline and --ab (two arms) at
+    1024 frames, bench.scaling over the host's cards, and `cli sweep
+    --profile-dir`: each JSON line printed, each trace naming K1a's
+    kernel. K1a's and K2's launches in the phase."""
+    from ecc_ldpc_tpu_torch.bench.scaling import run_scaling
+
+    layered_decode_cuda.launches = 0
+    flooding_decode_cuda.launches = 0
+    base = ["--code", BENCH_CODE]
+    lines_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prof_bench = pathlib.Path(tmp) / "bench"
+        prof_sweep = pathlib.Path(tmp) / "sweep"
+        runs = {
+            "bench": ["bench", *base, "--decoder", BENCH_DECODER, "--batch",
+                      "4096", "--profile-dir", str(prof_bench)],
+            "pipeline": ["bench", "--pipeline", *base, "--decoder",
+                         BENCH_DECODER, "--batch", "1024"],
+            "ab": ["bench", "--ab", *base, "--batch", "1024",
+                   *[a for d in BENCH_AB_DECODERS for a in ("--decoder", d)]],
+            "sweep": ["sweep", *base, "--decoder", SWEEP_DECODER, "--ebn0",
+                      "1.2", "--batch", "2048", "--max-frames", "2048",
+                      "--profile-dir", str(prof_sweep)],
+        }
+        for key, argv in runs.items():
+            smi_before = smi_sample()
+            rc, lines, wall = run_cli(argv)
+            line = json.loads(lines[-1]) if key != "sweep" else lines[-1]
+            lines_out[key] = line
+            emit("bench", mode=key, rc=rc, seconds=wall, line=line,
+                 smi_before=smi_before, smi_after=smi_sample())
+            if rc != 0:
+                raise AssertionError(f"cli {key}: rc {rc}")
+        traces = {"bench": trace_names(prof_bench, K1A_KERNEL),
+                  "sweep": trace_names(prof_sweep, K1A_KERNEL)}
+        sizes = {k: sum(p.stat().st_size for p in d.glob("trace_*.json"))
+                 for k, d in (("bench", prof_bench), ("sweep", prof_sweep))}
+    rows = run_scaling()
+    for row in rows:
+        emit("bench", mode="scaling", line=row)
+    emit("bench_traces", traces_naming_k1a=traces, trace_bytes=sizes)
+    if not all(traces.values()):
+        raise AssertionError(f"a --profile-dir trace lacks {K1A_KERNEL}")
+    ab = lines_out["ab"]
+    if len(ab["arms"]) != 2 or not all(a["mbps"] > 0 for a in ab["arms"]):
+        raise AssertionError("bench --ab: not two timed arms")
+    if not 0.0 <= lines_out["pipeline"]["decode_share"] <= 1.0:
+        raise AssertionError("bench --pipeline: decode share outside [0, 1]")
+    if len(rows) != torch.cuda.device_count() or rows[0]["efficiency"] != 1.0:
+        raise AssertionError(f"bench.scaling: rows {rows}")
+    launches = {"layered_qc": layered_decode_cuda.launches,
+                "flooding:minsum": flooding_decode_cuda.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"bench: a kernel never launched {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on the card")
@@ -3142,6 +3463,11 @@ def main() -> int:
         if k["name"] == "layered_qc":
             k["launches"] += k1a[k["precision"]]
     added["layered_qc"] = added.get("layered_qc", 0) + k1a["f32"]
+    # phases 39-42: each phase's K1a and K2 launches (counts zeroed before
+    # each and read after it; K1a all f32)
+    for path in (learn_path, findsnr_path, trap_path, bench_path):
+        for k, v in path(dev).items():
+            added[k] = added.get(k, 0) + v
     for k in kernels:
         k["launches"] += added.get(k["name"], 0)
     kernels += wide_rows["wide"] + precision

@@ -23,11 +23,17 @@ after a warm-up call; busy time is the sum of the device activities
 / window. Run with tracing
 off, the same decodes are timed by bench/throughput.py; the difference is
 the profiler's cost.
+
+`trace(profile_dir)` is the CLI's --profile-dir: a torch.profiler window
+around a block, exported as a Chrome trace into the directory.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
+import os
+import pathlib
 import time
 
 import torch
@@ -45,6 +51,27 @@ from .throughput import (
     XOR_PRODUCTION_SWEEP,
     make_inputs,
 )
+
+
+@contextlib.contextmanager
+def trace(profile_dir):
+    """Profile the enclosed block iff profile_dir is set: torch.profiler
+    records the host and, where a card is present, its kernels, and the
+    window is written to profile_dir/trace_<pid>_<n>.json (Chrome trace
+    format, for chrome://tracing or Perfetto; n counts the files already
+    there). Yields the path, or None when profile_dir is unset."""
+    if not profile_dir:
+        yield None
+        return
+    out = pathlib.Path(profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / f"trace_{os.getpid()}_{len(list(out.glob('trace_*.json')))}.json"
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(str(path))
 
 
 def _profiled(fn, steps: int, dev: torch.device, top: int = 8) -> dict:

@@ -320,13 +320,28 @@ def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
                        msg=msg, cw=cw, llr=llr)
 
 
+def event_seconds(fn) -> float:
+    """Seconds of one call of fn() on the current stream's clock: CUDA
+    events recorded before and after it, the second waited on."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
 def run_benchmark(code: str = "dvbs2/64800/12",
                   decoder: str = "layered/norm:0.8125/25/noet",
                   batch: int = 4096, ebn0_db: float = 1.5, device="cuda",
                   tries: int = 5, seed: int = 0,
-                  source: str = None) -> BenchResult:
+                  source: str = None, profile_dir: str = None) -> BenchResult:
     """Decoded Mbit/s on the card for one (code, decoder, batch, Eb/N0);
-    `source` as make_inputs takes it."""
+    `source` as make_inputs takes it. With `profile_dir` the timed decodes
+    run under bench/profile.trace (a Chrome trace written there)."""
+    from .profile import trace
+
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("run_benchmark times the card; it has no CPU mode")
@@ -334,14 +349,9 @@ def run_benchmark(code: str = "dvbs2/64800/12",
     res = x.decode(x.llr)  # warm-up (and the build, on first use)
     torch.cuda.synchronize(dev)
     times = []
-    for _ in range(tries):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        x.decode(x.llr)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
+    with trace(profile_dir):
+        for _ in range(tries):
+            times.append(event_seconds(lambda: x.decode(x.llr)))
     wall = float(np.median(times))
     iteration_sum = int(res.iterations.sum().item())
     frame_errors, cw_errors = x.frame_errors(res.bits)

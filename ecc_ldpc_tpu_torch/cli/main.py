@@ -1,5 +1,6 @@
-"""Command line of the port (port of ecc_ldpc_tpu/cli/main.py:21-132 and the
-sweep, compare, plot and codes subcommands). Usage:
+"""Command line of the port (port of ecc_ldpc_tpu/cli/main.py: every
+subcommand, sweep, compare, plot, codes, findsnr, trap, bench and learn).
+Usage:
 
   python -m ecc_ldpc_tpu_torch.cli sweep \\
       --code dvbs2/64800/12 \\
@@ -12,9 +13,22 @@ sweep, compare, plot and codes subcommands). Usage:
   python -m ecc_ldpc_tpu_torch.cli codes --info nr5g/bg1/384 --threshold \\
       wimax/2304/56
 
-Sweeps run on the card (`--device cuda`, the default) or, with
-`--device cpu`, through the plain PyTorch path. Result files are the JAX
-package's (PointResult JSON), so either package's compare reads them.
+  python -m ecc_ldpc_tpu_torch.cli findsnr --code dvbs2/64800/12 \\
+      --decoder layered/norm:0.8125/25 --target-fer 1e-2 --bracket 0.9:1.4 \\
+      --tol-db 0.02 --batch 2048 --max-frames 16384 -v
+  python -m ecc_ldpc_tpu_torch.cli trap --code mackay1008 --ebn0 2.0 \\
+      --frames 8192 --out trap.json
+  python -m ecc_ldpc_tpu_torch.cli learn --code dvbs2/64800/12 \\
+      --ebn0 1.8:2.6 --iters 25 --steps 55 --batch 16 --out sched.json
+  python -m ecc_ldpc_tpu_torch.cli bench --code dvbs2/64800/12 \\
+      --decoder layered/norm:0.8125/25/noet --batch 4096 [--pipeline | --ab]
+
+Every subcommand with --code runs on the card (`--device cuda`, the
+default) or, with `--device cpu`, through the plain PyTorch path; `bench`
+times the card and refuses the CPU. `--profile-dir DIR` writes a
+torch.profiler Chrome trace of the run into DIR (bench/profile.trace).
+Result and schedule files are the JAX package's, so either package reads
+them.
 
 The sharded sweep runs one process per rank on a BATCHxSNR mesh:
 
@@ -31,14 +45,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-# subcommands of the JAX package's CLI that the port does not have yet
-_WAITING = {
-    "findsnr": "ROADMAP.md Queue 1 step 14 (sim/findsnr.py)",
-    "trap": "ROADMAP.md Queue 1 step 14 (sim/microscope.py)",
-    "bench": "ROADMAP.md Queue 1 step 14 (bench/ ab, pipeline; the port's "
-             "benchmark is bench/throughput.py, driven by chip_smoke.py)",
-    "learn": "ROADMAP.md Queue 1 step 14 (learn/noms.py)",
-}
+# the Eb/N0 of `bench`'s decode-only run: the JAX package's run_benchmark
+# default, which its bench subcommand uses
+BENCH_EBN0_DB = 2.5
 
 
 def parse_ebn0(text) -> tuple:
@@ -59,6 +68,7 @@ def parse_ebn0(text) -> tuple:
 
 
 def cmd_sweep(args) -> int:
+    from ..bench.profile import trace
     from ..sim import StoppingRule, SweepSpec, format_table, run_sweep
     from ..sim.report import save_results
 
@@ -89,28 +99,30 @@ def cmd_sweep(args) -> int:
             print(format_table([pr]).splitlines()[-1], flush=True)
 
     all_results = []
-    for code in args.code:
-        for decoder in args.decoder:
-            spec = SweepSpec(
-                code=code,
-                decoder=decoder,
-                ebn0_db=parse_ebn0(args.ebn0),
-                batch=args.batch,
-                seed=args.seed,
-                stopping=StoppingRule(
-                    min_frame_errors=args.min_frame_errors,
-                    max_frames=args.max_frames,
-                ),
-                backend=args.backend,
-                channel=args.channel,
-            )
-            if mesh is not None:
-                all_results += run_sweep_sharded(
-                    spec, mesh, resume_path=args.resume, progress=progress)
-            else:
-                all_results += run_sweep(spec, device=args.device,
-                                         resume_path=args.resume,
-                                         progress=progress)
+    with trace(args.profile_dir):
+        for code in args.code:
+            for decoder in args.decoder:
+                spec = SweepSpec(
+                    code=code,
+                    decoder=decoder,
+                    ebn0_db=parse_ebn0(args.ebn0),
+                    batch=args.batch,
+                    seed=args.seed,
+                    stopping=StoppingRule(
+                        min_frame_errors=args.min_frame_errors,
+                        max_frames=args.max_frames,
+                    ),
+                    backend=args.backend,
+                    channel=args.channel,
+                )
+                if mesh is not None:
+                    all_results += run_sweep_sharded(
+                        spec, mesh, resume_path=args.resume,
+                        progress=progress)
+                else:
+                    all_results += run_sweep(spec, device=args.device,
+                                             resume_path=args.resume,
+                                             progress=progress)
     if joined:
         import torch.distributed
 
@@ -189,18 +201,157 @@ def cmd_codes(args) -> int:
     return 0
 
 
-def cmd_waiting(args) -> int:
-    print(f"{args.cmd}: not ported yet; it waits for "
-          f"{_WAITING[args.cmd]}", file=sys.stderr)
-    return 2
+def cmd_findsnr(args) -> int:
+    """Inverse sweep: bisect the Eb/N0 hitting a target FER. Coding gain
+    between two configs = the difference of their answers."""
+    import json
+
+    from ..bench.profile import trace
+    from ..sim.findsnr import find_operating_point
+
+    lo, hi = (float(x) for x in args.bracket.split(":")[:2])
+    with trace(args.profile_dir):
+        for code in args.code:
+            for decoder in args.decoder:
+                op = find_operating_point(
+                    code, decoder, target_fer=args.target_fer,
+                    bracket=(lo, hi), tol_db=args.tol_db, batch=args.batch,
+                    max_frames_per_probe=args.max_frames,
+                    channel=args.channel, backend=args.backend,
+                    seed=args.seed, device=args.device,
+                    progress=(lambda e, f, ci, n: print(
+                        f"  probe {e:+.3f} dB: FER {f:.3e} "
+                        f"[{ci[0]:.1e},{ci[1]:.1e}] over {n} frames",
+                        flush=True)) if args.verbose else None,
+                )
+                print(json.dumps(op.json_dict()))
+    return 0
 
 
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(prog="ecc-sim-torch", description=__doc__,
-                                formatter_class=argparse.RawDescriptionHelpFormatter)
-    sub = p.add_subparsers(dest="cmd", required=True)
+def cmd_learn(args) -> int:
+    """Train a per-iteration min-sum schedule (learn/noms.py) and write a
+    schedule JSON loadable with learn.load_schedule(path) (in either
+    package) or usable as make_decoder(alpha=..., beta=...)."""
+    import json
+    import time
 
-    sp = sub.add_parser("sweep", help="Monte-Carlo BER/FER sweep")
+    from ..bench.profile import trace
+    from ..learn import train_noms
+
+    if args.alpha_only and args.beta_only:
+        raise SystemExit(
+            "--alpha-only and --beta-only together freeze every parameter "
+            "— nothing to train"
+        )
+    code = args.code[0]
+    # --ebn0 here is a TRAINING BAND, not a sweep grid: 'lo:hi' is the
+    # band's endpoints (parse_ebn0's 1-dB default step would collapse
+    # '1.8:2.6' to a single point), and a comma list contributes its
+    # min/max.
+    if ":" in args.ebn0:
+        ebn0 = [float(x) for x in args.ebn0.split(":")[:2]]
+    else:
+        ebn0 = parse_ebn0(args.ebn0)
+    band = (min(ebn0), max(ebn0))
+    last = [time.perf_counter()]
+
+    def progress(step, loss):
+        # the step's seconds: its loss came back to the host at its end
+        now = time.perf_counter()
+        print(f"  step {step}: loss {loss:.4f}, {now - last[0]:.3f} s",
+              flush=True)
+        last[0] = now
+
+    with trace(args.profile_dir):
+        params, losses = train_noms(
+            code, iters=args.iters, steps=args.steps, batch=args.batch,
+            seed=args.seed, ebn0_range=band, init_alpha=args.init_alpha,
+            lr=args.lr, learn_alpha=not args.beta_only,
+            learn_beta=not args.alpha_only, device=args.device,
+            progress=progress if args.verbose else None,
+        )
+    out = {
+        "code": code,
+        "decoder": "layered min-sum",
+        "iters": args.iters,
+        "alphas": [round(float(a), 6) for a in params.alphas],
+        "betas": [round(float(b), 6) for b in params.betas],
+        "trained": {
+            "objective": "multi-iteration soft-BER (learn/noms.py)",
+            "init_alpha": args.init_alpha, "steps": args.steps,
+            "batch": args.batch, "lr": args.lr, "seed": args.seed,
+            "ebn0_range_db": list(band),
+        },
+        "caveats": "code-specific; beta-bearing schedules are "
+                   "SNR-band-specific - use within ebn0_range_db",
+    }
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(f"loss {losses[:3].mean():.4f} -> {losses[-5:].mean():.4f}; "
+          f"wrote {args.out}")
+    print(f"use: decode.make_decoder(graph, 'layered', "
+          f"alpha=learn.load_schedule({args.out!r}).alphas, "
+          f"beta=..., max_iters={args.iters})")
+    return 0
+
+
+def cmd_trap(args) -> int:
+    """Harvest and classify decoder failures as (a, b) trapping sets."""
+    from ..bench.profile import trace
+    from ..sim.microscope import harvest
+
+    with trace(args.profile_dir):
+        rep = harvest(args.code[0], args.decoder[0], ebn0_db=args.ebn0,
+                      frames=args.frames, batch=args.batch, seed=args.seed,
+                      channel=args.channel, backend=args.backend,
+                      device=args.device)
+    print(rep.summary())
+    if args.out:
+        import json
+
+        with open(args.out, "w") as f:
+            json.dump(rep.to_json(), f, indent=1)
+        print(f"report -> {args.out}")
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """Decoded throughput on the card: decode only (bench/throughput.py),
+    --pipeline (bench/pipeline.py) or --ab over the --code x --decoder
+    grid (bench/ab.py)."""
+    from ..bench.profile import trace
+
+    code, decoder = args.code[0], args.decoder[0]
+    if args.ab:
+        from ..bench.ab import ab_compare
+
+        arms = [(c, d) for c in args.code for d in args.decoder]
+        if len(arms) < 2:
+            raise SystemExit("--ab needs >=2 (code, decoder) combos — "
+                             "repeat --code and/or --decoder")
+        with trace(args.profile_dir):
+            res = ab_compare(arms, batch=args.batch, device=args.device)
+        print(res.json_line())
+        return 0
+    if args.pipeline:
+        from ..bench.pipeline import run_pipeline_benchmark
+
+        with trace(args.profile_dir):
+            res = run_pipeline_benchmark(code=code, decoder=decoder,
+                                         batch=args.batch, device=args.device)
+        print(res.json_line())
+        return 0
+    from ..bench.throughput import run_benchmark
+
+    print(run_benchmark(code=code, decoder=decoder, batch=args.batch,
+                        ebn0_db=BENCH_EBN0_DB, device=args.device,
+                        profile_dir=args.profile_dir).json_line())
+    return 0
+
+
+def _common(sp) -> None:
+    """The flags every simulating subcommand shares (the JAX CLI's
+    common(), plus --device)."""
     sp.add_argument("--code", action="append", default=None,
                     help="code spec string (repeatable)")
     sp.add_argument("--decoder", action="append", default=None,
@@ -216,7 +367,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernel did (bf16 on dvbs2/64800, f32 elsewhere); "
                          "auto and xla store f32; xla-mm (the TPU's "
                          "incidence-matmul form) raises")
+    sp.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace here")
     sp.add_argument("--verbose", "-v", action="store_true")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="ecc-sim-torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("sweep", help="Monte-Carlo BER/FER sweep")
+    _common(sp)
     sp.add_argument("--ebn0", required=True, help="'0:4:0.5' or '1,2,3'")
     sp.add_argument("--channel", default="bpsk",
                     help="channel spec (chan/modem.py): bpsk, hard, "
@@ -262,19 +424,60 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the 4-cycle census (O(sum col_deg^2))")
     sp.set_defaults(fn=cmd_codes)
 
-    for name, step in _WAITING.items():
-        sp = sub.add_parser(name, help=f"not ported yet ({step})")
-        sp.set_defaults(fn=cmd_waiting)
+    sp = sub.add_parser(
+        "findsnr", help="find the Eb/N0 hitting a target FER (inverse sweep)")
+    _common(sp)
+    sp.add_argument("--target-fer", type=float, default=1e-2)
+    sp.add_argument("--bracket", default="0:6",
+                    help="'lo:hi' Eb/N0 search bracket in dB")
+    sp.add_argument("--tol-db", type=float, default=0.05)
+    sp.add_argument("--max-frames", type=int, default=65536,
+                    help="frame budget per probe point")
+    sp.add_argument("--channel", default="bpsk",
+                    help="channel spec (chan/modem.py)")
+    sp.set_defaults(fn=cmd_findsnr)
+
+    sp = sub.add_parser(
+        "trap", help="harvest + classify decoder failures as (a,b) "
+                     "trapping sets (error-floor microscopy)")
+    _common(sp)
+    sp.add_argument("--ebn0", type=float, required=True)
+    sp.add_argument("--frames", type=int, default=1 << 14)
+    sp.add_argument("--channel", default="bpsk")
+    sp.add_argument("--out", default=None, help="write report JSON here")
+    sp.set_defaults(fn=cmd_trap)
+
+    sp = sub.add_parser("bench", help="decoded-throughput benchmark (the card)")
+    _common(sp)
+    sp.add_argument("--pipeline", action="store_true",
+                    help="measure encoder + full encode->channel->decode "
+                         "throughput instead of decode-only")
+    sp.add_argument("--ab", action="store_true",
+                    help="interleaved A/B comparison over the --code x "
+                         "--decoder grid (the only drift-safe way to "
+                         "compare two configs)")
+    sp.set_defaults(fn=cmd_bench)
+
+    sp = sub.add_parser(
+        "learn", help="train a per-iteration min-sum schedule (NOMS)")
+    _common(sp)
+    sp.add_argument("--ebn0", required=True,
+                    help="training SNR band, e.g. '1.8:2.6' or '2.0,2.4'")
+    sp.add_argument("--iters", type=int, default=25)
+    sp.add_argument("--steps", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=1e-2)
+    sp.add_argument("--init-alpha", type=float, default=0.8125)
+    sp.add_argument("--alpha-only", action="store_true",
+                    help="freeze betas at 0 (scale-invariant schedule)")
+    sp.add_argument("--beta-only", action="store_true",
+                    help="freeze alphas at init")
+    sp.add_argument("--out", required=True, help="schedule JSON path")
+    sp.set_defaults(fn=cmd_learn)
     return p
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    # a subcommand that is not ported yet takes any arguments and says
-    # what it waits for
-    args, rest = parser.parse_known_args(argv)
-    if rest and args.fn is not cmd_waiting:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = build_parser().parse_args(argv)
     # the JAX package's defaults
     if getattr(args, "code", None) is None:
         args.code = ["mackay1008"]

@@ -320,9 +320,14 @@ def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
 def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                           beta=0.0, max_iters: int = 25,
                           early_term: bool = True, cn: str = "minsum",
-                          precision=None):
+                          precision=None, sign_mode: str = "bitxor"):
     """(DecodeResult, posteriors f32 [B, n]) of the plain layered decode
     of llr f32 [B, n], on llr's device.
+
+    `sign_mode` (the JAX package's decode_layered argument): "bitxor"
+    takes signs from the sign bits on dup-free graphs, "count" from
+    (v < 0) everywhere, as the training twin (learn/noms.py) does. Graphs
+    that repeat a block-column in a layer count signs in either mode.
 
     `precision` (decode/quant.py): None (f32), ("bf16",) the TPU kernel's
     bf16 message and LLR storage, or ("q", bits, step) the fixed-point
@@ -333,6 +338,8 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     in bf16 fixed mode (ecc_ldpc_tpu/decode/pallas/layered_qc.py:394,
     :376-380), and the accumulate form adds Q(Cnew) - Cold in every mode."""
     check_graph(graph)
+    if sign_mode not in ("bitxor", "count"):
+        raise KeyError(f"sign_mode must be bitxor/count, got {sign_mode!r}")
     B = llr.shape[0]
     Z = graph.Z
     alphas, betas, _ = _schedule(alpha, beta, max_iters, cn)
@@ -353,7 +360,7 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
 
     def rule(t):
         return _check_rule(cn, float(alphas[t]), float(betas[t]),
-                           signbit=not dup)
+                           signbit=not dup and sign_mode == "bitxor")
 
     if early_term:
         done = ~_syndrome_fail_plain(layers, total, Z)
@@ -377,11 +384,13 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
 def layered_decode_plain(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                          beta=0.0, max_iters: int = 25,
                          early_term: bool = True, cn: str = "minsum",
-                         precision=None) -> DecodeResult:
+                         precision=None,
+                         sign_mode: str = "bitxor") -> DecodeResult:
     """llr f32 [B, n] -> DecodeResult, in plain PyTorch on llr's device."""
     return plain_with_posteriors(graph, llr, alpha=alpha, beta=beta,
                                  max_iters=max_iters, early_term=early_term,
-                                 cn=cn, precision=precision)[0]
+                                 cn=cn, precision=precision,
+                                 sign_mode=sign_mode)[0]
 
 
 def post_rounded(precision, track: bool) -> bool:

@@ -22,7 +22,7 @@ CRC.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 from .chan.modem import build_channel
 from .codes.registry import get_code
@@ -66,14 +66,19 @@ class ECC:
 
 
 def build_ecc(code: str, decoder: str = "minsum/norm:0.8125/25",
-              device="cuda", channel: str = "bpsk") -> ECC:
+              device="cuda", channel: str = "bpsk",
+              backend: Optional[str] = None) -> ECC:
+    """The facade of one (code, decoder, channel) on `device`; `backend`
+    overrides the decoder spec's (decode/api.make_decoder: "pallas" stores
+    a layered decoder's messages as the TPU's kernel did)."""
     dev = resolve_device(device)
     spec = get_code(code)
     graph = choose_graph(spec, decoder)
+    overrides = {"backend": backend} if backend else {}
     return ECC(
         name=f"{code}|{decoder}",
         spec=spec,
         encoder=build_encoder(spec),
-        decoder=get_decoder(graph, decoder, device=dev),
+        decoder=get_decoder(graph, decoder, device=dev, **overrides),
         channel=build_channel(spec, channel),
     )

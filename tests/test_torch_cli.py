@@ -1,6 +1,7 @@
 """The port's CLI (python -m ecc_ldpc_tpu_torch.cli): a CPU sweep writes a
 results file the JAX package reads, compare and plot read it back, and
-what is not ported says which ROADMAP step it waits for."""
+every other subcommand of the JAX package's CLI runs (or, bench, refuses
+the CPU)."""
 import json
 
 import pytest
@@ -46,15 +47,28 @@ def test_compare_and_plot(results_file, capsys):
 
 
 def test_not_ported_yet_names_its_roadmap_step(tmp_path, capsys):
-    # --mesh is ported: one process is a 1x1 mesh, so 2x1 needs two ranks,
-    # and the sharded step refuses a ';retry=' decoder, as the reference does
+    """Every subcommand parses and runs: findsnr, trap and learn on the CPU
+    at a tiny size, bench refusing the CPU; --mesh; bit flipping."""
+    # --mesh: one process is a 1x1 mesh, so 2x1 needs two ranks, and the
+    # sharded step refuses a ';retry=' decoder, as the reference does
     with pytest.raises(ValueError, match="mesh 2x1"):
         main(SWEEP + ["--mesh", "2x1"])
     with pytest.raises(ValueError, match="host-level"):
         main(SWEEP + ["--mesh", "1x1"])
-    for cmd in ("findsnr", "trap", "bench", "learn"):
-        assert main([cmd, "--code", "dvbs2/64800/12"]) == 2
-        assert "ROADMAP.md Queue 1 step" in capsys.readouterr().err
+    small = ["--code", "80211n/648/12", "--batch", "8", "--device", "cpu"]
+    assert main(["findsnr", *small, "--decoder", "layered/norm:0.8125/3",
+                 "--target-fer", "0.5", "--bracket", "0:8", "--tol-db", "2",
+                 "--max-frames", "8"]) == 0
+    assert json.loads(capsys.readouterr().out)["target_fer"] == 0.5
+    assert main(["trap", *small, "--decoder", "layered/norm:0.8125/3",
+                 "--ebn0", "1.0", "--frames", "8"]) == 0
+    assert "failures / 8 frames" in capsys.readouterr().out
+    sched = tmp_path / "sched.json"
+    assert main(["learn", *small, "--ebn0", "1.5:2.5", "--iters", "2",
+                 "--steps", "1", "--out", str(sched)]) == 0
+    assert len(json.loads(sched.read_text())["alphas"]) == 2
+    with pytest.raises(ValueError, match="no CPU mode"):
+        main(["bench", *small])
     # the bit-flipping decoders are ported: a sweep on the CPU, and the
     # JAX package's KeyError for a /pallas override
     bf = tmp_path / "bitflip.json"
