@@ -138,7 +138,9 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      posteriors identical. The K3 cases of phases 12, 16 and 20 must
      include a plan with CS = 8 on dvbs2/64800 and one with CS = 1, F >= 2
      and a ragged last tile. The classic kernel
-     refuses a xor graph, and no roll instantiation launches in 20-22.
+     refuses 8023an (no layer repeats a block-column: its xor
+     instantiation takes only graphs that do, phase 43), and no roll
+     instantiation launches in 20-22.
   21. xor legs timed — bench.XOR_LEGS through run_benchmark (8023an,
      4.0 dB, 2048 frames, layered/norm:0.8125/25/noet and
      minsum/norm:0.8125/25/noet), and layered/spa/25/noet on the same
@@ -154,16 +156,17 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      frames, and the FER overlaps the reference's retry point.
   23. K5 vs plain — the all-reduce (csrc/ring.cu: one push into every
      rank's slot, ordered on the device by interprocess events, then the
-     sum) on D = 2 and D = 4 ranks (processes under
-     torch.distributed.run, gloo between them) of the one card, through
-     bench/ring.py: f32 and int64 at the sweep counters' shape [2, 4], at
+     sum) on D = 2 and D = 4 ranks (4 processes under
+     torch.distributed.run, gloo between them, a group of the first D for
+     each D) of the one card, through bench/ring.py: f32 and int64 at the sweep counters' shape [2, 4], at
      a ragged 1001 elements and at 16 MiB per rank; K5's sum identical to
      the plain version's on every rank and the ranks identical to each
      other, 2 launches a call; K5, the plain version and gloo's
      all_reduce timed on the same CUDA tensors. The card's compute mode
      is printed.
   24. the sharded sweep at full width — bench/sharded.py on meshes 1x1,
-     2x1 and 2x2 (separate rank sets): dvbs2/64800/12,
+     2x1 and 2x2 (one launch of 4 ranks, a group of the first B*S for
+     each mesh, one after another): dvbs2/64800/12,
      layered/norm:0.8125/25, 1.0 and 1.1 dB, 4096 frames a point per step,
      2 steps; the integer counters identical on every rank and mesh, K1a
      and K5 launched on every rank of 2x1 and 2x2; frames/s per mesh, and
@@ -210,7 +213,7 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      matrixio.dumps_matlab_sparse and loaded through mat:, K2 (minsum,
      spa, minstar), each against its plain version as in 26 (32 and 13
      frames); the wide instances' ptxas lines; each wide leg timed on
-     sc/3/96/10/64 at 4096 frames (ms, bound, plain ms, plan, spill).
+     sc/3/96/10/64 at 1024 frames (ms, bound, plain ms, plan, spill).
   31. the G cache — HOME pointed at an empty directory: ccsds/16384/45's
      generator built cold (host elimination) and warm (the cache file),
      G's bytes on the card; a batch encoded on the card with every
@@ -231,7 +234,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      wimax/2304/12 over rayleigh and mackay1008 spa/50 over bec:0.4 (K2)
      against their JAX CPU references by curves_overlap.
   34. the sharded modem sweep — bench.SHARDED_MODEM_SWEEP (apsk16:r56:il)
-     on meshes 1x1 and 2x1 through bench/sharded.py and through the CLI
+     on meshes 1x1 and 2x1 through bench/sharded.py (one launch of 2
+     ranks) and through the CLI
      on 2x1 with --channel, under torch.distributed.run: identical
      counters, K5 launched on every rank of 2x1.
   35. precision kernels vs plain — K1a (roll on dvbs2/16200/12, xor on
@@ -258,7 +262,7 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      CLI's --backend pallas.
   38. post-decode forms — bitflip/50 and gdbf/theta:-0.5/50 on
      80211n/1944/12 and bitflip/50 on mackay1008 over the hard channel at
-     6.0 and 7.0 dB (every frame fails at 4 and 5), 4096 frames: card
+     6.0 and 7.0 dB (every frame fails at 4 and 5), 1024 frames: card
      against CPU on the same LLRs (majority identical; GDBF but for frames
      within 1e-5 of theta), ms, FER falling; layered/norm:0.8125/50 with
      and without /cleanup through the CLI at 1.5 dB, 65536 frames: the
@@ -295,19 +299,57 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      --profile-dir`: the JSON lines, and both traces naming K1a's kernel.
      The launches of 39-42 are counted per phase (zeroed before, read
      after).
-Then the kernels line (the launches of phases 28-29 and 31-42 added to
-the kernels that decode them, the families' errors to theirs, an entry
-with "width": 64 for each 64-wide instance timed in 27, one with
-"width": "wide" for each wide instance timed in 30 and one with its
-"precision" for each (kernel, precision) timed in 36), nvidia-smi's line,
-and the result line last.
+  43. multi-edge xor graphs — K1b/K1c' (csrc/layered_classic.cu) in its
+     xor instantiation on seeded xor graphs that repeat a block-column in
+     every layer (bench/multi_edge.py: Z = 64 and 256), each rule, fixed
+     and track, 32, 13 and 601 frames: bits, ok, iterations and the final
+     posteriors identical to the plain version (0 ulps); then the min-sum
+     decoder through get_decoder at 4096 frames, timed, its launches
+     counted there.
+  44. wide classic rows — the same on circulant multi-edge graphs of row
+     degree 40 (the 64-wide build) and 80 (the wide build), with the
+     ptxas registers and spill of every classic instance.
+  45. /pallas kernels vs plain — the precision libraries' new instances
+     at 32 and 13 frames, fixed and track, 0 ulps: K3's bf16 storage
+     (nr5g/bg1/384 and wimax/576/12, each rule), K2's bf16 matmul inputs
+     (mackay1008, 80211n/648/12), K4's bf16 permutations (8023an, layered
+     and flooding).
+  46. /pallas legs — bench.PALLAS_LEGS (B = 4096, /25/noet) beside their
+     f32 legs in the same call, each after its kernel against its plain
+     version at the leg's shape.
+  47. /pallas goldens — `sweep --backend pallas` of 8023an through the CLI
+     at both TPU goldens' points (flooding from 3.2 dB, layered from 3.0
+     dB), each point by the reference gate's rule.
+  48. /xla-mm — mackay1008 on the expanded graph, minsum and spa, equal
+     to K2 in f32.
+  49. graph-parallel — bench/graph_parallel.py on 2 and 4 ranks of the
+     card: the QC tier on dvbs2/64800/12 (32 frames, 1.2 dB) bits, ok and
+     iterations identical to K3 on one rank; the check-sharded tier on
+     mackay1008 (256 frames, 2.5 dB) agreeing on ok frames; ms a decode
+     and K5 calls a decode.
+Then the kernels line (the launches of phases 28-29, 31-42 and 47-49
+added to the kernels that decode them, the families' errors to theirs,
+an entry with "width": 64 for each 64-wide instance timed in 27, one with
+"width": "wide" for each wide instance timed in 30, one with its
+"precision" for each (kernel, precision) timed in 36 and 46, and one for
+each new classic instance timed in 43-44), nvidia-smi's line, and the
+result line last.
+
+The script leaves no process behind, whether it ends, fails or is sent
+SIGTERM: it reaps every process it starts, however deep (the ranks that
+torch.distributed.run starts in sessions of their own come back to it
+when their launcher ends first), and stops any still alive at its end;
+each launcher of ranks gets SIGTERM if the script dies, so that it
+stops its ranks.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import io
 import json
+import math
 import os
 import pathlib
 import signal
@@ -326,10 +368,13 @@ from ecc_ldpc_tpu_torch.bench.flooding_probe import (
     time_decode,
     zero_codeword_llr,
 )
+from ecc_ldpc_tpu_torch.bench.multi_edge import multi_edge_graph
+from ecc_ldpc_tpu_torch.bench.ring import CASES as RING_CASES
 from ecc_ldpc_tpu_torch.bench.throughput import (
     CCSDS_LEGS,
     CCSDS_PRODUCTION_SWEEP,
     EXACT_LEGS,
+    PALLAS_LEGS,
     PRECISION_LEGS,
     SHARDED_MESHES,
     SHARDED_SWEEP,
@@ -339,7 +384,10 @@ from ecc_ldpc_tpu_torch.bench.throughput import (
     PRODUCTION_SWEEP,
     XOR_LEGS,
     XOR_PRODUCTION_SWEEP,
+    decode_bound,
+    event_seconds,
     make_inputs,
+    rule_of,
     run_benchmark,
 )
 from ecc_ldpc_tpu_torch.chan.awgn import awgn_llr, make_channel
@@ -357,11 +405,15 @@ from ecc_ldpc_tpu_torch.decode.flooding import (
     flooding_decode_cuda,
     flooding_with_posteriors_cuda,
     flooding_with_posteriors_plain,
+    tpu_flooding_precision,
 )
 from ecc_ldpc_tpu_torch.decode.flooding_qc import (
     flooding_qc_decode_cuda,
     flooding_qc_with_posteriors_cuda,
     flooding_qc_with_posteriors_plain,
+)
+from ecc_ldpc_tpu_torch.decode.flooding_qc import (
+    tpu_flooding_precision as tpu_flooding_qc_precision,
 )
 from ecc_ldpc_tpu_torch.decode.layered_qc import (
     classic_with_posteriors_cuda,
@@ -372,7 +424,9 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
     minsum_with_posteriors_cuda,
     plain_with_posteriors,
     tpu_msg_dtype,
+    tpu_precision,
 )
+from ecc_ldpc_tpu_torch.decode.quant import describe
 from ecc_ldpc_tpu_torch.encode.structured import build_encoder
 from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
 from ecc_ldpc_tpu_torch.sim import (
@@ -666,9 +720,10 @@ WIDE_ROW_K2_CASES = [
     ("k2_spa_track", "spa/25", 32),
     ("k2_minstar_track", "minstar/8", 32),
 ]
-# the wide legs timed on the widest code, at WIDE_B frames (the names of
-# WIDE_LEGS)
+# the wide legs timed on the widest code, at WIDE_ROW_B frames (the names
+# of WIDE_LEGS; at 4096 frames the plain minstar leg alone takes ~20 s)
 WIDE_ROW_TIMED = "sc/3/96/10/64"
+WIDE_ROW_B = 1024
 
 # 31. the host-side G cache: CCSDS k = 16384 at rate 4/5 (n * m = 1.38e8),
 # encoded on the card and decoded through K1b, and a two-point sweep
@@ -761,7 +816,7 @@ BITFLIP_CASES = [("80211n/1944/12", "bitflip/50"),
                  ("80211n/1944/12", "gdbf/theta:-0.5/50"),
                  ("mackay1008", "bitflip/50")]
 BITFLIP_EBN0 = (6.0, 7.0)
-BITFLIP_B = 4096
+BITFLIP_B = 1024
 GDBF_NEAR_THETA = 1e-5
 # the cleanup at the production point, through the CLI, against the same
 # decoder without it on the same draws; card against CPU on the failed
@@ -809,6 +864,74 @@ BENCH_AB_DECODERS = ("layered/norm:0.8125/25/noet",
 K1A_KERNEL = "layered_qc_kernel"  # K1a's symbol in a profiler trace
 
 T_START = time.perf_counter()
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of every process it starts, however
+    deep (Linux PR_SET_CHILD_SUBREAPER): a process whose parent ends
+    before it (a rank that torch.distributed.run started in a session of
+    its own) comes back to this one instead of to init, so that
+    stop_children() finds it."""
+    ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)
+
+
+def _children() -> dict:
+    """{pid: command line} of this process's live children."""
+    out = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            stat = pathlib.Path(f"/proc/{entry}/stat").read_text()
+            cmd = pathlib.Path(f"/proc/{entry}/cmdline").read_bytes()
+        except OSError:
+            continue
+        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
+        if int(ppid) == os.getpid() and state != "Z":
+            out[int(entry)] = cmd.replace(b"\0", b" ").decode(
+                errors="replace").strip()
+    return out
+
+
+def _reap() -> None:
+    with contextlib.suppress(ChildProcessError):
+        while os.waitpid(-1, os.WNOHANG)[0] > 0:
+            pass
+
+
+def stop_children(grace: float = 10.0, limit: float = 90.0) -> list:
+    """Stop every process this one started that is still alive, orphans
+    included (adopt_orphans): SIGTERM when first seen, SIGKILL once it has
+    outlived `grace` seconds, until none is left (or `limit` seconds have
+    passed); a rank whose launcher was stopped comes back to this process
+    and is stopped in turn. Reaps every child; returns the command lines
+    of those it stopped."""
+    stopped, since = {}, {}
+    end = time.monotonic() + limit
+    while True:
+        _reap()
+        alive = _children()
+        if not alive or time.monotonic() > end:
+            return list(stopped.values())
+        now = time.monotonic()
+        for pid, cmd in alive.items():
+            stopped.setdefault(pid, cmd)
+            sig = signal.SIGTERM
+            if pid not in since:
+                since[pid] = now
+            elif now - since[pid] > grace:
+                sig = signal.SIGKILL
+            else:
+                continue
+            with contextlib.suppress(OSError):
+                os.kill(pid, sig)
+        time.sleep(0.1)
+
+
+def _terminated(signum, frame):
+    """SIGTERM ends the script as an exception would, so that its
+    processes are stopped on the way out."""
+    raise SystemExit(128 + signum)
 
 
 def emit(phase: str, **kw) -> None:
@@ -1329,8 +1452,9 @@ def xor_path(dev, k3_lines) -> list:
         except ValueError:
             pass
         else:
-            raise AssertionError(f"layered_classic_cuda ({cn}) took a xor "
-                                 f"graph")
+            raise AssertionError(f"layered_classic_cuda ({cn}) took a "
+                                 f"graph that repeats no block-column in a "
+                                 f"layer")
     check_k3_plans(k3_lines)
     emit("xor_vs_plain", refusals=2, seconds=time.perf_counter() - t0)
 
@@ -1784,7 +1908,7 @@ def wide_rows_path(dev, ptxas: dict) -> dict:
         src = name.split(":")[0]
         code = mats[WIDE_ROW_TIMED] if src == "flooding" else WIDE_ROW_TIMED
         wrapper = WRAPPERS[src]
-        x = make_inputs(code, dec, WIDE_B, ebn0, dev, seed=0,
+        x = make_inputs(code, dec, WIDE_ROW_B, ebn0, dev, seed=0,
                         source=WIDE_ROW_TIMED)
         key, parity = compare_spec(x.graph, x.llr, x.kw)
         errs[f"{key}:wide"] = max(errs.get(f"{key}:wide", 0.0),
@@ -1792,10 +1916,10 @@ def wide_rows_path(dev, ptxas: dict) -> dict:
         del x
         wrapper.launches = 0
         smi_before = smi_sample()
-        res = run_benchmark(code=code, decoder=dec, batch=WIDE_B,
+        res = run_benchmark(code=code, decoder=dec, batch=WIDE_ROW_B,
                             ebn0_db=ebn0, device=dev, source=WIDE_ROW_TIMED)
         launches = wrapper.launches
-        plan = tile_line(wrapper, WIDE_B)["plan"]
+        plan = tile_line(wrapper, WIDE_ROW_B)["plan"]
         emit("wide_rows_bench", kernel=name, code=code, decoder=dec,
              plan=plan, plain_ms=parity["plain_ms"], spill_bytes_max=spill[src],
              **bench_line(res, launches, smi_before))
@@ -1814,7 +1938,7 @@ def wide_rows_path(dev, ptxas: dict) -> dict:
             "ms": res.wall_s_per_batch * 1e3,
             "plain_ms": parity["plain_ms"],
             "bound_ms": res.bound_ms, "bound_by": res.roofline_form,
-            "library_ms": None, "code": code, "batch": WIDE_B,
+            "library_ms": None, "code": code, "batch": WIDE_ROW_B,
             "plan": plan, "spill_bytes_max": spill[src],
         })
     tmp.cleanup()
@@ -2060,10 +2184,10 @@ def modem_dist_path() -> int:
     torch.cuda.empty_cache()
     counters = {}
     with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(2, ["ecc_ldpc_tpu_torch.bench.sharded", "1x1,2x1", tmp,
+                      "modem"], 600)
         for mesh in ("1x1", "2x1"):
             b, s = (int(x) for x in mesh.split("x"))
-            run_ranks(b * s, ["ecc_ldpc_tpu_torch.bench.sharded", mesh, tmp,
-                              "modem"], 600)
             lines = rank_lines(pathlib.Path(tmp), f"sharded_{mesh}_modem",
                                b * s)
             for line in lines:
@@ -2095,22 +2219,34 @@ def modem_dist_path() -> int:
     return launches
 
 
+def _die_with_parent() -> None:
+    """In a launcher of ranks, before it runs: SIGTERM when this script
+    dies (PR_SET_PDEATHSIG), on which torch.distributed.run stops its
+    ranks."""
+    ctypes.CDLL(None).prctl(1, signal.SIGTERM, 0, 0, 0)
+
+
 def run_ranks(nproc: int, args: list, timeout: float) -> str:
     """`python -m torch.distributed.run --standalone` with nproc ranks of
-    the module args[0] (its arguments after it), in its own process group,
-    killed whole at the time limit; raises unless it exits 0 (which it
-    does only when every rank does). Returns its output."""
+    the module args[0] (its arguments after it), in its own process group;
+    at the time limit sent SIGTERM (on which it stops its ranks) and its
+    group killed 60 s later if it is still there; raises unless it exits
+    0 (which it does only when every rank does). Returns its output."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={nproc}", "-m", *args]
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True,
-                            process_group=0)
+                            process_group=0, preexec_fn=_die_with_parent)
     try:
         out, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, _ = proc.communicate()
+        proc.terminate()  # torch.distributed.run stops its ranks
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            out, _ = proc.communicate()
         raise AssertionError(f"{args[0]} on {nproc} ranks: no end after "
                              f"{timeout} s\n{out[-4000:]}")
     if proc.returncode != 0:
@@ -2134,36 +2270,48 @@ def dist_path(dev) -> list:
         capture_output=True, text=True)
     emit("ring_device", compute_mode=(mode.stdout or mode.stderr).strip())
 
-    # 23. K5 against its plain version on D ranks of the card
+    # 23. K5 against its plain version on D ranks of the card: one launch
+    # of max(RING_RANKS) processes, a group of the first D for each D
     ring_cases = {}
+    W = max(RING_RANKS)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(W, ["ecc_ldpc_tpu_torch.bench.ring", tmp, "--ranks",
+                      ",".join(map(str, RING_RANKS))], 300)
+        lines = rank_lines(pathlib.Path(tmp), "ring", W)
+    for line in lines:
+        for c in line["cases"]:
+            if not (c["identical_to_plain"] and c["ranks_identical"]):
+                raise AssertionError(f"K5 differs from its plain version "
+                                     f"or across ranks: rank "
+                                     f"{line['rank']}, {c}")
+            if c["launches"] != 2:
+                raise AssertionError(f"K5 launched {c['launches']} "
+                                     f"kernels a call for D = {c['D']}")
     for D in RING_RANKS:
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            run_ranks(D, ["ecc_ldpc_tpu_torch.bench.ring", tmp], 300)
-            lines = rank_lines(pathlib.Path(tmp), "ring", D)
-        for line in lines:
-            for c in line["cases"]:
-                if not (c["identical_to_plain"] and c["ranks_identical"]):
-                    raise AssertionError(f"K5 differs from its plain version "
-                                         f"or across ranks: rank "
-                                         f"{line['rank']}, {c}")
-                if c["launches"] != 2:
-                    raise AssertionError(f"K5 launched {c['launches']} "
-                                         f"kernels a call for D = {D}")
-        ring_cases[D] = lines[0]["cases"]
+        ring_cases[D] = [c for c in lines[0]["cases"] if c["D"] == D]
+        if len(ring_cases[D]) != len(RING_CASES):
+            raise AssertionError(f"K5 at D = {D}: a case missing")
         for c in ring_cases[D]:
             emit("ring_vs_plain", **c)
         emit("ring_vs_plain", D=D, ranks=D, seconds=time.perf_counter() - t0)
 
-    # 24. the sharded sweep on each mesh; counts from each rank's own run
+    # 24. the sharded sweep on each mesh, all in one launch of the largest
+    # mesh's ranks (a group of the first B*S for each); counts from each
+    # rank's own run
     sharded = {}
-    for mesh in SHARDED_MESHES:
+    sizes = {m: math.prod(int(x) for x in m.split("x"))
+             for m in SHARDED_MESHES}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(max(sizes.values()), ["ecc_ldpc_tpu_torch.bench.sharded",
+                                        ",".join(SHARDED_MESHES), tmp], 900)
+        every = {m: rank_lines(pathlib.Path(tmp), f"sharded_{m}", D)
+                 for m, D in sizes.items()}
+    emit("sharded_sweep", meshes=list(SHARDED_MESHES),
+         seconds=time.perf_counter() - t0)
+    for mesh, lines in every.items():
         b, s = (int(x) for x in mesh.split("x"))
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as tmp:
-            run_ranks(b * s, ["ecc_ldpc_tpu_torch.bench.sharded", mesh, tmp],
-                      600)
-            lines = rank_lines(pathlib.Path(tmp), f"sharded_{mesh}", b * s)
         for line in lines:
             emit("sharded_sweep", **line)
             if line["counters"] != lines[0]["counters"]:
@@ -2175,8 +2323,7 @@ def dist_path(dev) -> list:
                 raise AssertionError(f"{mesh} rank {line['rank']}: K5 never "
                                      f"launched")
         emit("sharded_sweep", mesh=mesh, ranks=b * s,
-             frames_per_s=lines[0]["frames_per_s"],
-             seconds=time.perf_counter() - t0)
+             frames_per_s=lines[0]["frames_per_s"])
         sharded[mesh] = lines
     want = [{k: c[k] for k in SHARDED_COUNTERS}
             for c in sharded[SHARDED_MESHES[0]][0]["counters"]]
@@ -2249,6 +2396,8 @@ def precision_kwargs(precision) -> dict:
         return {}
     if precision == ("bf16",):
         return dict(msg_dtype=torch.bfloat16)
+    if precision == ("bf16-perm",):
+        return dict(perm_dtype=torch.bfloat16)
     return dict(quant=tuple(precision[1:]))
 
 
@@ -2952,6 +3101,370 @@ def bench_path(dev) -> dict:
     return launches
 
 
+# phases 43-49: slice 14
+# 43. the accumulate form on xor graphs that repeat a block-column in a
+# layer (bench/multi_edge.py): (Z, mb, nb, degree, Eb/N0, frames a case);
+# 32 and 13 frames spread a frame over a cluster, 601 frames take CS = 1
+XOR_MULTI_EDGE = [(64, 4, 16, 8, 2.5, (32, 13, 601)),
+                  (256, 6, 24, 12, 2.5, (32, 601))]
+# 44. rows wider than 32 through K1b/K1c': circulant multi-edge graphs of
+# degree 40 (the 64-wide build) and 80 (the wide build)
+WIDE_CLASSIC = [(32, 4, 48, 40, 3.0, (13, 601)),
+                (32, 4, 100, 80, 3.5, (32, 601))]
+MULTI_EDGE_T = 10       # iterations a case
+MULTI_EDGE_TIMED_B = 4096
+# 45. the precision libraries' instances at small sizes: (kernels-line
+# name "<library>:<precision>", code, decoder spec, Eb/N0); the precision
+# is the name's, whatever /pallas picks for the code (wimax/576/12 fits
+# the TPU's VMEM at f32; K3 bf16 runs there at Z = 24 as the CPU tests
+# hold it against the JAX kernel)
+PALLAS_CASES = [
+    ("flooding_qc:bf16", "nr5g/bg1/384", "{r}/10", 1.0),
+    ("flooding_qc:bf16", "wimax/576/12", "{r}/10", 2.0),
+    ("flooding:bf16", "mackay1008", "minsum/norm:0.8125/10", 2.0),
+    ("flooding:bf16", "80211n/648/12", "minsum/norm:0.8125/10", 2.0),
+    ("layered_qc:bf16-perm", "8023an", "layered/norm:0.8125/10", 3.4),
+    ("flooding_qc:bf16-perm", "8023an", "minsum/norm:0.8125/10", 3.4),
+]
+PALLAS_FRAMES = (32, 13)
+# 47. the two 8023an goldens the TPU made through these roundings, swept
+# through the CLI with --backend pallas at their points (frames capped)
+PALLAS_GOLDENS = [ROOT / "curves" / "8023an_tpu_golden.json",
+                  ROOT / "curves" / "8023an_layered_tpu_golden.json"]
+PALLAS_GOLDEN_FRAMES = 32768
+# 48. /xla-mm on mackay1008 against K2 in f32
+XLA_MM_SPECS = ("minsum/norm:0.8125/25", "spa/25")
+XLA_MM_B = 2048
+XLA_MM_EBN0 = 2.0
+# 49. graph-parallel decoding (bench/graph_parallel.py) on D ranks of the
+# card
+GRAPH_PARALLEL_RANKS = (2, 4)
+
+
+def _timed_decode(graph, spec: str, B: int, ebn0: float, dev, wrapper,
+                  accumulate: bool) -> dict:
+    """One decoder of `spec` on `graph` through get_decoder, B all-zero
+    codewords at ebn0: the wrapper's launches in a warm-up and 5 timed
+    decodes (counts zeroed before), ms (median, CUDA events) and the
+    bound."""
+    kw = parse_decoder_spec(spec)
+    llr = zero_codeword_llr(graph, B, ebn0, dev, seed=2)
+    dec = get_decoder(graph, spec, device=dev)
+    wrapper.launches = 0
+    res = dec(llr)
+    torch.cuda.synchronize()
+    times = [event_seconds(lambda: dec(llr)) for _ in range(5)]
+    cn, schedule = rule_of(kw)
+    bound_s, form = decode_bound(graph.n, graph.num_block_edges * graph.Z,
+                                 B, int(res.iterations.sum().item()), cn,
+                                 graph.m, schedule, accumulate)
+    return dict(ms=float(np.median(times)) * 1e3,
+                tries_ms=[t * 1e3 for t in times],
+                launches=wrapper.launches, bound_ms=bound_s * 1e3,
+                bound_by=form, frames=B,
+                ok_frames=int(res.ok.sum().item()),
+                **tile_line(wrapper, B))
+
+
+def multi_edge_path(dev, ptxas: dict) -> list:
+    """Phases 43-44: K1b/K1c' on xor graphs that repeat a block-column in
+    a layer (its xor instantiation) and on circulant ones of row degree 40
+    and 80 (its 64-wide and wide builds): every rule, fixed and track,
+    against the plain version (bits, ok, iterations and the final
+    posteriors identical: 0 ulps); then each graph's min-sum decoder timed
+    through get_decoder at 4096 frames, its launches counted there.
+    Returns the kernels-line entries."""
+    entries = []
+    for phase, cases, perm in (("43", XOR_MULTI_EDGE, "xor"),
+                               ("44", WIDE_CLASSIC, "roll")):
+        for Z, mb, nb, d, ebn0, frames in cases:
+            graph = multi_edge_graph(Z, mb, nb, d, perm, seed=d)
+            err, plain_ms = 0.0, None
+            for cn in KINDS:
+                for track in (False, True):
+                    for B in frames:
+                        llr = zero_codeword_llr(graph, B, ebn0, dev)
+                        dkw = dict(alpha=0.8125, beta=0.0,
+                                   max_iters=MULTI_EDGE_T, early_term=track,
+                                   cn=cn)
+                        r = compare_posteriors(
+                            classic_with_posteriors_cuda,
+                            plain_with_posteriors, graph, llr, dkw,
+                            final_exact=True, tiles=layered_classic_cuda)
+                        err = max(err, r["max_abs_err"])
+                        emit("multi_edge_vs_plain", step=phase,
+                             graph=graph.name, cn=cn, track=track, **r)
+            width = "xor" if perm == "xor" else ("64" if d <= 64 else "wide")
+            spec = f"layered/norm:0.8125/{MULTI_EDGE_T}/noet"
+            llr = zero_codeword_llr(graph, MULTI_EDGE_TIMED_B, ebn0, dev, 2)
+            _, plain_ms = timed(plain_with_posteriors, graph, llr,
+                                alpha=0.8125, max_iters=MULTI_EDGE_T,
+                                early_term=False)
+            t = _timed_decode(graph, spec, MULTI_EDGE_TIMED_B, ebn0, dev,
+                              layered_classic_cuda, accumulate=True)
+            by_perm = dict(layered_classic_cuda.launches_by_perm)
+            emit("multi_edge_timed", step=phase, graph=graph.name,
+                 decoder=spec, plain_ms=plain_ms, launches_by_perm=by_perm,
+                 **t)
+            if t["launches"] <= 0:
+                raise AssertionError(f"{graph.name}: K1b never launched")
+            entries.append({
+                "name": f"layered_classic:{width}", "route": "cuda",
+                "source": "ecc_ldpc_tpu_torch/csrc/layered_classic.cu",
+                "replaces": "ecc_ldpc_tpu/decode/pallas/layered_qc.py:415",
+                "launches": t["launches"], "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": plain_ms,
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None, "graph": graph.name,
+                "plan": t["plan"]})
+    for lib in ("layered_classic", "layered_classic_prec",
+                "layered_classic_prec_xor"):
+        emit("classic_ptxas", library=lib,
+             instances=instance_ptxas(ptxas.get(lib, "")))
+    return entries
+
+
+PALLAS_KERNELS = {
+    "flooding_qc": (flooding_qc_with_posteriors_cuda,
+                    flooding_qc_with_posteriors_plain,
+                    flooding_qc_decode_cuda),
+    "flooding": (flooding_with_posteriors_cuda,
+                 flooding_with_posteriors_plain, flooding_decode_cuda),
+}
+
+
+def compare_pallas(graph, llr, kw, name: str) -> dict:
+    """The kernel of the kernels-line name `name` ("<library>:<precision>":
+    K3 bf16 storage, K2 bf16 matmul inputs, K4 bf16 permutations) against
+    its plain version on the same LLRs with that precision: bits, ok,
+    iterations and the final posteriors identical."""
+    lib, prec = name.split(":")
+    precision = {"bf16": ("bf16",), "bf16-perm": ("bf16-perm",)}[prec]
+    if lib == "layered_qc":
+        dkw = dict(alpha=kw.get("alpha", 1.0), beta=kw.get("beta", 0.0),
+                   max_iters=kw.get("max_iters", 25),
+                   early_term=kw.get("early_term", True),
+                   precision=precision)
+        fns = (with_precision(minsum_with_posteriors_cuda),
+               plain_with_posteriors, layered_decode_cuda)
+    else:
+        dkw = dict(kind=kw["kind"], alpha=kw.get("alpha", 1.0),
+                   beta=kw.get("beta", 0.0),
+                   max_iters=kw.get("max_iters", 25),
+                   early_term=kw.get("early_term", True),
+                   precision=precision)
+        fns = PALLAS_KERNELS[lib]
+    return compare_posteriors(fns[0], fns[1], graph, llr, dkw,
+                              final_exact=True, tiles=fns[2])
+
+
+def pallas_kernels_path(dev) -> dict:
+    """Phase 45: the precision libraries' new instances (K3 bf16 storage,
+    K2 bf16 matmul inputs, K4 bf16 permutations, layered and flooding)
+    against their plain versions: each case fixed and track, 32 and 13
+    frames, 0 ulps. Returns the largest error per kernels-line name."""
+    errs = collections.defaultdict(float)
+    for name, code, spec_str, ebn0 in PALLAS_CASES:
+        for kind in (KINDS if "{r}" in spec_str else (None,)):
+            base = spec_str.format(r=RULE[kind]) if kind else spec_str
+            for track in (False, True):
+                spec = base + ("" if track else "/noet") + "/pallas"
+                for B in PALLAS_FRAMES:
+                    x = make_inputs(code, spec, B, ebn0, dev, seed=1)
+                    r = compare_pallas(x.graph, x.llr, x.kw, name)
+                    errs[name] = max(errs[name], r["max_abs_err"])
+                    emit("pallas_vs_plain", kernel=name, code=code,
+                         decoder=spec, **r)
+    return dict(errs)
+
+
+def pallas_legs_path(dev, ptxas: dict, errs: dict) -> list:
+    """Phase 46: each `/pallas` leg (bench.PALLAS_LEGS, B = 4096,
+    /25/noet) beside its f32 leg in the same call, after the kernel
+    against its plain version at the leg's shape; launches counted around
+    each leg's own run. Returns the kernels-line entries."""
+    sources = {"flooding_qc": "ecc_ldpc_tpu_torch/csrc/flooding_qc.cu",
+               "flooding": "ecc_ldpc_tpu_torch/csrc/flooding.cu",
+               "layered_qc": "ecc_ldpc_tpu_torch/csrc/layered_qc.cu"}
+    replaces = {
+        "flooding_qc:bf16": "ecc_ldpc_tpu/decode/pallas/flooding_qc.py:85",
+        "flooding:bf16": "ecc_ldpc_tpu/decode/pallas/fused_mm.py:151",
+        "layered_qc:bf16-perm": "ecc_ldpc_tpu/decode/pallas/layered_xor.py:65",
+        "flooding_qc:bf16-perm":
+            "ecc_ldpc_tpu/decode/pallas/layered_xor.py:65"}
+    wrappers = {"flooding_qc": flooding_qc_decode_cuda,
+                "flooding": flooding_decode_cuda,
+                "layered_qc": layered_decode_cuda}
+    entries = []
+    for leg, cfg in PALLAS_LEGS.items():
+        x = make_inputs(**cfg, device=dev, seed=0)
+        lib = ("layered_qc" if x.kw["kind"] == "layered" else
+               "flooding_qc" if hasattr(x.graph, "Z") else "flooding")
+        prec = (describe(tpu_precision(x.graph)) if lib == "layered_qc" else
+                describe(tpu_flooding_qc_precision(x.graph, x.kw["kind"]))
+                if lib == "flooding_qc" else
+                describe(tpu_flooding_precision(x.graph, x.kw["kind"])))
+        name = f"{lib}:{prec}"
+        if name not in replaces:
+            raise AssertionError(f"{leg}: /pallas rounds {prec} there")
+        r = compare_pallas(x.graph, x.llr, x.kw, name)
+        errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+        emit("pallas_vs_plain", kernel=name, leg=leg, **r)
+        del x
+        runs = {}
+        for which, spec in (("f32", cfg["decoder"].replace("/pallas", "")),
+                            (prec, cfg["decoder"])):
+            w = wrappers[lib]
+            w.launches = 0
+            w.launches_by_precision = collections.Counter()
+            smi_before = smi_sample()
+            res = run_benchmark(**dict(cfg, decoder=spec), device=dev)
+            runs[which] = (res, w.launches, dict(w.launches_by_precision))
+            emit("pallas_leg", leg=leg, precision=which, decoder=spec,
+                 code=cfg["code"], launches_by_precision=runs[which][2],
+                 plan=tile_line(w, res.batch)["plan"],
+                 **bench_line(res, w.launches, smi_before))
+        res, launches, by_prec = runs[prec]
+        if by_prec.get(prec, 0) <= 0 or launches <= 0:
+            raise AssertionError(f"{leg}: the {prec} kernel never launched")
+        entries.append({
+            "name": name, "route": "cuda", "source": sources[lib],
+            "replaces": replaces[name], "launches": by_prec[prec],
+            "max_abs_err": errs[name], "ms": res.wall_s_per_batch * 1e3,
+            "f32_ms": runs["f32"][0].wall_s_per_batch * 1e3,
+            "plain_ms": r["plain_ms"], "bound_ms": res.bound_ms,
+            "bound_by": res.roofline_form, "library_ms": None,
+            "precision": prec, "leg": leg})
+    for lib in ("flooding_prec", "flooding_qc_prec", "layered_qc_prec"):
+        emit("pallas_ptxas", library=lib,
+             instances=instance_ptxas(ptxas.get(lib, "")))
+    return entries
+
+
+def _fer_ok(m: PointResult, r: PointResult) -> bool:
+    """The JAX package's golden gate rule (tests/ber/test_golden_gate.py):
+    Wilson-CI overlap of FER, or within 1.25x where the golden saturates
+    at FER >= 0.5."""
+    lo, hi = m.fer_ci
+    if not (r.fer_ci[1] < lo or hi < r.fer_ci[0]):
+        return True
+    return r.fer >= 0.5 and 0.8 <= m.fer / r.fer <= 1.25
+
+
+def pallas_goldens_path() -> dict:
+    """Phase 47: the two 8023an TPU goldens (made through K4's bf16
+    permutations) against CLI sweeps with --backend pallas at each
+    golden's points (its frames, at most PALLAS_GOLDEN_FRAMES), by the
+    reference gate's rule: FER by _fer_ok at every point, BER overlap or
+    within 2x. Returns the launches of K4 (bf16-perm) in the sweeps."""
+    added = collections.Counter()
+    for path in PALLAS_GOLDENS:
+        golden = [PointResult.from_json(d) for d in json.loads(
+            path.read_text())]
+        frames = min(max(g.frames for g in golden), PALLAS_GOLDEN_FRAMES)
+        for w in (layered_decode_cuda, flooding_qc_decode_cuda):
+            w.launches_by_precision = collections.Counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = pathlib.Path(tmp) / "pallas.json"
+            t0 = time.perf_counter()
+            rc = cli_main([
+                "sweep", "--code", golden[0].code, "--decoder",
+                golden[0].decoder, "--ebn0",
+                ",".join(str(g.ebn0_db) for g in golden),
+                "--batch", "4096", "--backend", "pallas",
+                "--min-frame-errors", "1000000", "--max-frames",
+                str(frames), "--out", str(out)])
+            wall = time.perf_counter() - t0
+            swept = [PointResult.from_json(d)
+                     for d in json.loads(out.read_text())]
+        launches = {"layered_qc": dict(layered_decode_cuda.launches_by_precision),
+                    "flooding_qc":
+                        dict(flooding_qc_decode_cuda.launches_by_precision)}
+        added["layered_qc:bf16-perm"] += launches["layered_qc"].get(
+            "bf16-perm", 0)
+        added["flooding_qc:bf16-perm"] += launches["flooding_qc"].get(
+            "bf16-perm", 0)
+        fer_ok = all(_fer_ok(m, g) for m, g in zip(swept, golden))
+        ber_ok = curves_overlap(swept, golden, "ber") or all(
+            0.5 <= m.ber / g.ber <= 2.0 for m, g in zip(swept, golden)
+            if g.ber > 0)
+        for m, g in zip(swept, golden):
+            emit("pallas_vs_golden", decoder=g.decoder, **point_line(m),
+                 golden_fer=g.fer, golden_fer_ci=g.fer_ci,
+                 golden_ber=g.ber, golden=path.name)
+        emit("pallas_vs_golden", golden=path.name, rc=rc, fer_ok=fer_ok,
+             ber_ok=ber_ok, launches=launches, seconds=wall)
+        if rc != 0 or not (fer_ok and ber_ok):
+            raise AssertionError(f"{path.name}: the --backend pallas sweep "
+                                 f"misses the golden")
+        if sum(sum(v.values()) for v in launches.values()) <= 0 or not any(
+                v.get("bf16-perm") for v in launches.values()):
+            raise AssertionError(f"{path.name}: K4's bf16 kernel never ran")
+    return dict(added)
+
+
+def xla_mm_path(dev) -> dict:
+    """Phase 48: `/xla-mm` on mackay1008 (the expanded graph by
+    choose_graph's rule) against K2 in f32 on the same LLRs: bits, ok and
+    iterations equal, for minsum and spa; K2's launches under /xla-mm
+    counted (zeroed just before). Returns them by kernels-line name."""
+    spec = get_code("mackay1008")
+    added = {}
+    for base in XLA_MM_SPECS:
+        graph = choose_graph(spec, base, backend="xla-mm")
+        x = make_inputs("mackay1008", base, XLA_MM_B, XLA_MM_EBN0, dev,
+                        seed=4)
+        want = get_decoder(graph, base, device=dev)(x.llr)
+        flooding_decode_cuda.launches = 0
+        got, ms = timed(get_decoder(graph, base + "/xla-mm", device=dev),
+                        x.llr)
+        launches = flooding_decode_cuda.launches
+        same = (torch.equal(got.bits, want.bits)
+                and torch.equal(got.ok, want.ok)
+                and torch.equal(got.iterations, want.iterations))
+        emit("xla_mm", decoder=base + "/xla-mm", graph=type(graph).__name__,
+             frames=XLA_MM_B, ok_frames=int(got.ok.sum().item()),
+             equal_to_k2_f32=same, launches=launches, ms=ms)
+        if not same or launches <= 0:
+            raise AssertionError(f"{base}/xla-mm differs from K2 f32 or "
+                                 f"never launched it")
+        key = "flooding:" + parse_decoder_spec(base)["kind"]
+        added[key] = added.get(key, 0) + launches
+    return added
+
+
+def graph_parallel_path() -> dict:
+    """Phase 49: both graph-parallel tiers (dist/graph_parallel.py) on D =
+    2 and 4 ranks of the card (bench/graph_parallel.py under
+    torch.distributed.run, 4 processes, a group of the first D for each
+    D): the QC tier on dvbs2/64800/12 bit-identical
+    to K3 on one rank, the generic tier on mackay1008 agreeing with the
+    single-rank flooding decoder on ok frames. Returns K5's launches on
+    rank 0 in the tiers' decodes."""
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    ring, W = 0, max(GRAPH_PARALLEL_RANKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = pathlib.Path(tmp)
+        run_ranks(W, ["ecc_ldpc_tpu_torch.bench.graph_parallel", str(out),
+                      "--ranks", ",".join(map(str, GRAPH_PARALLEL_RANKS))],
+                  600)
+        lines = rank_lines(out, "graph_parallel", W)
+    for line in lines:
+        emit("graph_parallel", **line)
+        for tier in line["tiers"]:
+            if not tier["pass"]:
+                raise AssertionError(f"graph-parallel {tier['tier']} tier "
+                                     f"at D = {tier['D']}, rank "
+                                     f"{line['rank']} failed")
+    for D in GRAPH_PARALLEL_RANKS:
+        if sum(t["D"] == D for q in lines for t in q["tiers"]) != 2 * D:
+            raise AssertionError(f"graph-parallel D = {D}: a tier missing")
+    ring = sum(t["ring_launches"] for t in lines[0]["tiers"])
+    if ring <= 0:
+        raise AssertionError("K5 never ran on the graph-parallel path")
+    return {"ring": ring}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs on the card")
@@ -3471,6 +3984,20 @@ def main() -> int:
     for k in kernels:
         k["launches"] += added.get(k["name"], 0)
     kernels += wide_rows["wide"] + precision
+    # phases 43-49: the new instances' entries of their own (43-46); the
+    # goldens' K4 bf16 launches (47), /xla-mm's K2 launches (48) and the
+    # graph-parallel tiers' K5 launches on rank 0 (49) added to theirs
+    ptxas = {k: v["ptxas"] for k, v in built.items()}
+    kernels += multi_edge_path(dev, ptxas)
+    kernels += pallas_legs_path(dev, ptxas, pallas_kernels_path(dev))
+    added = pallas_goldens_path()
+    for k, v in xla_mm_path(dev).items():
+        added[k] = added.get(k, 0) + v
+    for k, v in graph_parallel_path().items():
+        added[k] = added.get(k, 0) + v
+    for k in kernels:
+        if "precision" not in k or k["name"].endswith(k["precision"]):
+            k["launches"] += added.get(k["name"], 0)
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3483,4 +4010,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    signal.signal(signal.SIGTERM, _terminated)
+    try:
+        rc = main()
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        left = stop_children()
+        if left:
+            print(json.dumps({"phase": "stopped", "processes": left}),
+                  file=sys.stderr, flush=True)
+    sys.exit(rc)

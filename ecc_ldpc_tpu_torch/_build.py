@@ -7,12 +7,14 @@ csrc/*.cuh headers and the flags, so an edited source is rebuilt and a
 built one is reused. Nothing is built or
 loaded when a module is imported.
 
-The three layered sources build twice: <name> is their f32 library and
-<name>_prec, built with -DLAYERED_PREC=1, the library of their message
-precisions (bf16, the q: grid; csrc/cluster_tile.cuh). Apart, the f32
-kernels keep their own code and register allocation, and the libraries
-build side by side; layered_exact's precision build, the longest, comes
-in two halves (circulant, and _xor), one nvcc each.
+The three layered sources and the two flooding ones build twice: <name>
+is their f32 library and <name>_prec, built with -DLAYERED_PREC=1, the
+library of their precisions (bf16 storage, the q: grid, the TPU's bf16
+permutations and bf16 matmul inputs; csrc/cluster_tile.cuh,
+csrc/flooding_qc.cu, csrc/flooding.cu). Apart, the f32 kernels keep their
+own code and register allocation, and the libraries build side by side;
+the precision builds of layered_exact and layered_classic, the longest,
+come in two halves (circulant, and _xor), one nvcc each.
 """
 from __future__ import annotations
 
@@ -37,11 +39,16 @@ KERNEL_SOURCES = ("layered_qc", "layered_exact", "layered_classic", "flooding",
 # precision build of each layered one
 LIBRARIES = {name: (name, ()) for name in KERNEL_SOURCES}
 LIBRARIES.update({f"{name}_prec": (name, ("-DLAYERED_PREC=1",))
-                  for name in KERNEL_SOURCES[:3]})
+                  for name in KERNEL_SOURCES[:5]})
 LIBRARIES["layered_exact_prec"] = ("layered_exact",
                                    ("-DLAYERED_PREC=1", "-DLAYERED_PERM=1"))
 LIBRARIES["layered_exact_prec_xor"] = ("layered_exact",
                                        ("-DLAYERED_PREC=1", "-DLAYERED_PERM=2"))
+LIBRARIES["layered_classic_prec"] = ("layered_classic",
+                                     ("-DLAYERED_PREC=1", "-DLAYERED_PERM=1"))
+LIBRARIES["layered_classic_prec_xor"] = ("layered_classic",
+                                         ("-DLAYERED_PREC=1",
+                                          "-DLAYERED_PERM=2"))
 
 
 def nvcc_path() -> str:

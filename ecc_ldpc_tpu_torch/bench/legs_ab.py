@@ -9,9 +9,12 @@ other, so a drift of the card's clock or temperature falls on both alike.
 Each process builds its own tree's kernels, times the legs through its own
 tree's bench.throughput.run_benchmark and prints one JSON line per leg.
 Then one line per leg: each tree's time (the mean of its two runs' medians)
-and this / other - 1; then, per layered kernel source, each tree's
-registers and spill stores of every kernel instance from its build's
-`-Xptxas -v` report, and whether they agree. Leg names are
+and this / other - 1; then, per kernel source with a precision library,
+each tree's registers and spill stores of every kernel instance of its
+f32 library from its build's `-Xptxas -v` report, whether every instance
+the other tree has agrees (an instance of a kernel that gained a trailing
+bool template parameter, such as the classic kernel's XOR, against its
+`false` instantiation), and the instances this tree adds. Leg names are
 bench.profile's: the keys of LEGS,
 EXACT_LEGS and FLOODING_LEGS, ccsds_<rule> and 8023an_<mode>, and
 mackay_spa and mackay_minstar (the mackay leg's shape with spa/25/noet and
@@ -60,13 +63,23 @@ def time_tree(root: pathlib.Path, legs) -> dict:
     return times
 
 
-SPILL_SOURCES = ("layered_qc", "layered_exact", "layered_classic")
+SPILL_SOURCES = ("layered_qc", "layered_exact", "layered_classic",
+                 "flooding", "flooding_qc")
 
 
 def _instance(fn: str) -> str:
     """A kernel's mangled name without its anonymous namespace, whose tag
     differs from tree to tree (_GLOBAL__N__<tag>_<file>_cu_<8 hex>)."""
     return fn.split("_cu_", 1)[1][8:] if "_cu_" in fn else fn
+
+
+def _twin(fn: str, report: dict):
+    """The entry of `report` for the instance `fn` of the other tree: the
+    same name, or the name with a trailing `false` bool template argument
+    (`...ELb0EEEv...` for `...EEEv...`)."""
+    if fn in report:
+        return report[fn]
+    return report.get(fn.replace("EEEv", "ELb0EEEv", 1))
 
 
 def spill_report(root: pathlib.Path, name: str) -> dict:
@@ -106,9 +119,13 @@ def main(argv=None) -> int:
               flush=True)
     for name in SPILL_SOURCES:
         a, b = spill_report(other, name), spill_report(HERE, name)
-        print(json.dumps({"ptxas": name, "same": a == b,
+        matched = {k for k in b if k in a or any(
+            k == f.replace("EEEv", "ELb0EEEv", 1) for f in a)}
+        print(json.dumps({"ptxas": name,
+                          "same": all(_twin(k, b) == v for k, v in a.items()),
                           "max_spill": [max((v[1] for v in r.values()),
                                             default=None) for r in (a, b)],
+                          "added": sorted(set(b) - matched),
                           "other": a, "this": b}), flush=True)
     return 0
 

@@ -3,10 +3,12 @@ gloo's all_reduce on the same CUDA tensors timed beside it as the library
 yardstick (the port never calls it). One process per rank, under
 torch.distributed.run:
 
-    python -m torch.distributed.run --standalone --nproc-per-node D \\
-        -m ecc_ldpc_tpu_torch.bench.ring OUT_DIR
+    python -m torch.distributed.run --standalone --nproc-per-node W \\
+        -m ecc_ldpc_tpu_torch.bench.ring OUT_DIR [--ranks D,D,...]
 
-Each rank writes OUT_DIR/ring_rank{r}.json: for each case (f32 and int64
+Each D of --ranks (default W) runs on a group of the first D of the W
+ranks, one after another. Each rank writes OUT_DIR/ring_rank{r}.json: for
+each D it is in and each case (f32 and int64
 at the sweep counters' shape [2, 4], at a ragged 1001 elements, and at
 16 MiB per rank) whether K5's sum is bit-identical to the plain version's
 and to every other rank's, K5's launches, and ms per call of K5, of the
@@ -64,10 +66,10 @@ def _inputs(dtype, shape, D: int, rank: int, dev) -> torch.Tensor:
     return torch.as_tensor(x, device=dev)
 
 
-def _ms(fn, reps: int, dev) -> float:
+def _ms(fn, reps: int, dev, group=None) -> float:
     fn()
     torch.cuda.synchronize(dev)
-    dist.barrier()
+    dist.barrier(group=group)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
@@ -93,26 +95,28 @@ def _digest(x: torch.Tensor) -> str:
     return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
 
 
-def run_cases(dev) -> list:
-    D, rank = dist.get_world_size(), dist.get_rank()
+def run_cases(dev, group=None) -> list:
+    D, rank = dist.get_world_size(group), dist.get_rank(group)
     out = []
     for name, dtype, shape, reps in CASES:
         x = _inputs(dtype, shape, D, rank, dev)
         nbytes = x.numel() * x.element_size()
-        with Ring(None, dev, nbytes) as ring:
+        with Ring(group, dev, nbytes) as ring:
             before = ring_allreduce_cuda.launches
             got = ring_allreduce_cuda(x, ring)
             launches = ring_allreduce_cuda.launches - before
-            want = ring_allreduce_plain(x)
+            want = ring_allreduce_plain(x, group)
             same = torch.equal(got.view(torch.uint8), want.view(torch.uint8))
             digests = [None] * D
-            dist.all_gather_object(digests, _digest(got))
-            ms = _ms(lambda: ring_allreduce_cuda(x, ring), reps, dev)
+            dist.all_gather_object(digests, _digest(got), group=group)
+            ms = _ms(lambda: ring_allreduce_cuda(x, ring), reps, dev, group)
             device_ms = _device_ms(lambda: ring_allreduce_cuda(x, ring), 5,
                                    dev)
-        plain_ms = _ms(lambda: ring_allreduce_plain(x), reps, dev)
+        plain_ms = _ms(lambda: ring_allreduce_plain(x, group), reps, dev,
+                       group)
         buf = x.clone()
-        gloo_ms = _ms(lambda: dist.all_reduce(buf), reps, dev)
+        gloo_ms = _ms(lambda: dist.all_reduce(buf, group=group), reps, dev,
+                      group)
         bound_s, form = ring_bound(D, nbytes, x.numel())
         err = (got.double() - want.double()).abs().max().item()
         out.append(dict(case=name, dtype=str(dtype).split(".")[-1],
@@ -134,9 +138,16 @@ def main(argv=None) -> int:
     maybe_init_distributed()
     dev = rank_device("cuda")
     torch.cuda.set_device(dev)
-    rank = dist.get_rank()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    ranks = ([int(d) for d in args[args.index("--ranks") + 1].split(",")]
+             if "--ranks" in args else [world])
+    cases = []
+    for D in ranks:
+        group = dist.new_group(list(range(D)))  # every rank takes part
+        if rank < D:
+            cases += run_cases(dev, group)
     line = {"rank": rank, "device": str(dev),
-            "card": torch.cuda.get_device_name(dev), "cases": run_cases(dev)}
+            "card": torch.cuda.get_device_name(dev), "cases": cases}
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"ring_rank{rank}.json").write_text(json.dumps(line))
     print(json.dumps(line), flush=True)

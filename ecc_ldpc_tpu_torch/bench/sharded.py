@@ -4,12 +4,14 @@ point per step) through sim.run_sweep_sharded on a BATCHxSNR mesh, under
 torch.distributed.run:
 
     python -m torch.distributed.run --standalone --nproc-per-node N \\
-        -m ecc_ldpc_tpu_torch.bench.sharded BxS OUT_DIR [modem]
+        -m ecc_ldpc_tpu_torch.bench.sharded BxS[,BxS...] OUT_DIR [modem]
 
-With `modem`, bench.SHARDED_MODEM_SWEEP instead (dvbs2/16200/12 over
-apsk16:r56:il, its draws the channel's per-frame normals). Each rank
-writes OUT_DIR/sharded_BxS_rank{r}.json (sharded_BxS_modem_rank{r}.json
-with `modem`): every point's counters
+Each mesh of the list runs on a group of the first B*S of the N ranks,
+one after another (so one launch covers 1x1, 2x1 and 2x2). With `modem`,
+bench.SHARDED_MODEM_SWEEP instead (dvbs2/16200/12 over apsk16:r56:il, its
+draws the channel's per-frame normals). Each rank of a mesh writes
+OUT_DIR/sharded_BxS_rank{r}.json (sharded_BxS_modem_rank{r}.json with
+`modem`): every point's counters
 after SHARDED_SWEEP's steps (run after a one-step warm-up sweep), the
 launches of K1a (the layered min-sum kernel) and of K5 (the ring) in that
 run, the sweep's frames per second (all points' frames over the summed
@@ -28,7 +30,7 @@ import torch
 
 from ..codes.registry import get_code
 from ..decode.layered_qc import layered_decode_cuda
-from ..dist.mesh import MeshSpec, make_mesh, maybe_init_distributed
+from ..dist.mesh import Mesh, maybe_init_distributed, rank_device
 from ..dist.montecarlo import frame_bits, frame_normals
 from ..dist.ring import ring_allreduce_cuda
 from ..sim import StoppingRule, SweepSpec, run_sweep_sharded
@@ -66,17 +68,11 @@ def generator_ms(mesh, spec: SweepSpec, n: int, k: int) -> float:
     return start.elapsed_time(end)
 
 
-def main(argv=None) -> int:
-    args = sys.argv[1:] if argv is None else argv
-    if not torch.cuda.is_available():
-        raise SystemExit("bench.sharded needs a CUDA card")
-    mesh_str, out_dir = args[0], pathlib.Path(args[1])
-    modem = args[2:] == ["modem"]
-    cfg = SHARDED_MODEM_SWEEP if modem else SHARDED_SWEEP
+def run_mesh(mesh_str: str, mesh: Mesh, cfg: dict, out_dir: pathlib.Path,
+             modem: bool) -> None:
+    """The sweep of `cfg` on `mesh` (this rank's place in it), its line
+    written to out_dir and printed."""
     steps = cfg["steps"]
-    joined = maybe_init_distributed()
-    b, s = (int(x) for x in mesh_str.split("x"))
-    mesh = make_mesh(MeshSpec(batch=b, snr=s), device="cuda")
     spec = sharded_spec(steps, cfg)
     run_sweep_sharded(sharded_spec(1, cfg), mesh)  # warm-up: the kernels
     layered_decode_cuda.launches = 0
@@ -105,6 +101,33 @@ def main(argv=None) -> int:
     (out_dir / f"{stem}_rank{mesh.rank}.json").write_text(
         json.dumps(line))
     print(json.dumps(line), flush=True)
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if not torch.cuda.is_available():
+        raise SystemExit("bench.sharded needs a CUDA card")
+    meshes, out_dir = args[0].split(","), pathlib.Path(args[1])
+    modem = args[2:] == ["modem"]
+    cfg = SHARDED_MODEM_SWEEP if modem else SHARDED_SWEEP
+    joined = maybe_init_distributed()
+    rank = torch.distributed.get_rank() if joined else 0
+    world = torch.distributed.get_world_size() if joined else 1
+    dev = rank_device("cuda")
+    torch.cuda.set_device(dev)
+    for mesh_str in meshes:
+        b, s = (int(x) for x in mesh_str.split("x"))
+        if b * s > world:
+            raise ValueError(f"mesh {mesh_str} needs {b * s} ranks, "
+                             f"{world} launched")
+        # the mesh's own group, a group of one for 1x1 too (None would be
+        # every launched rank); every rank takes part in making it
+        group = None
+        if joined:
+            group = torch.distributed.new_group(list(range(b * s)))
+        if rank < b * s:
+            run_mesh(mesh_str, Mesh(batch=b, snr=s, rank=rank, device=dev,
+                                    group=group), cfg, out_dir, modem)
     if joined:
         torch.distributed.destroy_process_group()
     return 0

@@ -101,6 +101,25 @@ PRECISION_LEGS = {
 # blocks, 192 block-edges, row degree 32): the JAX package's family leg
 # (bench/families.py:29), layered, and the same with flooding min-sum, the
 # two modes of ecc_ldpc_tpu/decode/pallas/layered_xor.py (K4).
+# The TPU kernels' roundings under `/pallas` (decode/api.py), each timed
+# beside its f32 leg (the same spec without "/pallas") in one call: K3's
+# bf16 storage on nr5g/bg1/384 (its f32 state past VMEM on the TPU), K2's
+# bf16 matmul inputs on mackay1008, K4's bf16 permutations on 8023an,
+# layered and flooding.
+PALLAS_LEGS = {
+    "nr5g_flooding": dict(code="nr5g/bg1/384",
+                          decoder="minsum/norm:0.8125/25/noet/pallas",
+                          batch=4096, ebn0_db=1.0),
+    "mackay": dict(code="mackay1008",
+                   decoder="minsum/norm:0.8125/25/noet/pallas",
+                   batch=4096, ebn0_db=2.5),
+    "8023an_layered": dict(code="8023an",
+                           decoder="layered/norm:0.8125/25/noet/pallas",
+                           batch=4096, ebn0_db=4.0),
+    "8023an_flooding": dict(code="8023an",
+                            decoder="minsum/norm:0.8125/25/noet/pallas",
+                            batch=4096, ebn0_db=4.0),
+}
 XOR_LEGS = {
     "layered": dict(code="8023an", decoder="layered/norm:0.8125/25/noet",
                     batch=2048, ebn0_db=4.0),
@@ -306,7 +325,8 @@ def make_inputs(code: str, decoder: str, batch: int, ebn0_db: float,
 
     dev = resolve_device(device)
     kw = parse_decoder_spec(decoder)
-    graph = choose_graph(get_code(code), decoder)
+    # the spec's own backend picks the view, as --backend does in a sweep
+    graph = choose_graph(get_code(code), decoder, backend=kw.get("backend"))
     dec = get_decoder(graph, decoder, device=dev)
     spec = get_code(source or code)
     gen = torch.Generator(device=dev)

@@ -363,10 +363,15 @@ def _common(sp) -> None:
                          "PyTorch path)")
     sp.add_argument("--backend", default=None,
                     help="decoder backend (the JAX package's flag): pallas "
-                         "stores a layered decoder's messages as the TPU's "
-                         "kernel did (bf16 on dvbs2/64800, f32 elsewhere); "
-                         "auto and xla store f32; xla-mm (the TPU's "
-                         "incidence-matmul form) raises")
+                         "rounds as the TPU's kernels did (bf16 storage of "
+                         "the layered kernel on dvbs2/64800 and of the QC "
+                         "flooding kernel where its f32 state did not fit, "
+                         "bf16 matmul inputs of flooding min-sum on "
+                         "unstructured codes, bf16 permutations on xor "
+                         "codes; f32 elsewhere) and picks the graph view as "
+                         "the JAX package does; auto and xla keep f32; "
+                         "xla-mm decodes flooding minsum or spa on the "
+                         "expanded graph in f32")
     sp.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler Chrome trace here")
     sp.add_argument("--verbose", "-v", action="store_true")

@@ -90,10 +90,15 @@ constexpr bool kPrec = LAYERED_PREC;
 
 // Message precision (decode/quant.py), uniform over a launch: kind 0 is
 // f32 (no rounding), 1 the bf16 round trip of the TPU kernel's message
-// and LLR storage, 2 the q:BITS:STEP grid. The precision kernels round the
-// LLRs as a tile loads them and every message a rule stores; `post` says
+// and LLR storage, 2 the q:BITS:STEP grid, 3 the TPU XOR kernel's bf16
+// permutations (the min-sum kernel on xor graphs: the LLRs as they load
+// and every posterior a layer writes rounded to bf16, so every posterior
+// a check reads through a permutation is bf16; messages stay f32). The
+// precision kernels round the LLRs as a tile loads them (load) and every
+// message a rule stores (operator(), the identity for kind 3); `post` says
 // whether a set-form layer adds the rounded message to the posteriors
-// (q:, and bf16 in track mode) or the unrounded one (bf16 fixed mode).
+// (q:, and bf16 in track mode) or the unrounded one (bf16 fixed mode);
+// perm rounds a posterior as a set-form layer writes it (kind 3 only).
 // Both roundings are odd functions, Q(-m) = -Q(m) with the sign of zero
 // kept, so K1a's compressed state (two magnitudes and the sign bits)
 // rounds its two magnitudes and stays the stored messages exactly. The q:
@@ -112,6 +117,13 @@ struct Prec {
       return copysignf(__fmul_rn(q, step), x);
     }
     return x;
+  }
+  __device__ __forceinline__ float load(float x) const {
+    return kind == 3 ? __bfloat162float(__float2bfloat16_rn(x))
+                     : (*this)(x);
+  }
+  __device__ __forceinline__ float perm(float x) const {
+    return kind == 3 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
   }
 };
 
@@ -368,7 +380,7 @@ __device__ __forceinline__ void decode_tiles(const Args& a, Rule& rule) {
       const int z = i % Z, c = (i / Z) % ncol, f = i / (Z * ncol);
       const int col = c * cs + rank;
       float x = a.llr[(size_t)(b0 + f) * n + col * Z + z];
-      if constexpr (kPrec) x = rule.q(x);
+      if constexpr (kPrec) x = rule.q.load(x);
       *var(col, z, f) = x;
     }
     sync_tile(cs);

@@ -67,6 +67,14 @@
 // frames are done, one CN phase later than the oracle would, with the same
 // results. ok is one syndrome of the emitted decisions.
 //
+// Precision: built with LAYERED_PREC 1 (ecc_ldpc_tpu_torch/_build.py, the
+// library flooding_prec) the kernels are min-sum with the TPU kernel's
+// bf16 matmul inputs under `/pallas` (fused_mm.py:289-295, mxu_dtype
+// bf16): a check reads bf16(r) - C (the parity still r < 0, the
+// syndrome's input being exact), and a variable adds bf16(C) of its slots
+// in f32 to its f32 LLR; the messages and the sums stay f32. The f32
+// library's kernels are the code below with no rounding.
+//
 // What bounds it on an H100: the operations bound (14 fp32 operations per
 // edge visit for minsum; 4 spa or ~8.6 minstar transcendentals at the
 // special-function rate) is the larger (bench/throughput.decode_bound);
@@ -229,7 +237,8 @@ flooding_kernel(Args a) {
             if (var >= 0) {
               const float r = post[(Idx)var * F + f0];
               if constexpr (TRACK) par ^= r < 0.f;
-              x = __fsub_rn(r, t > 0 ? Ci[j * mF] : 0.f);
+              x = __fsub_rn(ct::kPrec ? st::bf16(r) : r,
+                            t > 0 ? Ci[j * mF] : 0.f);
               deg = j + 1;
             }
             Ci[j * mF] = x;
@@ -255,6 +264,7 @@ flooding_kernel(Args a) {
 #pragma unroll
                 for (int g = 0; g < G; ++g) {
                   if constexpr (TRACK) par[g] ^= r[g] < 0.f;
+                  if constexpr (ct::kPrec) r[g] = st::bf16(r[g]);
                   v[g][j] = __fsub_rn(r[g], c[g]);
                 }
                 deg = j + 1;
@@ -327,7 +337,10 @@ flooding_kernel(Args a) {
           for (int k = 0; k < kDv; ++k) {
             if (k < dv) {
 #pragma unroll
-              for (int g = 0; g < G; ++g) s[g] = __fadd_rn(s[g], c[k][g]);
+              for (int g = 0; g < G; ++g) {
+                if constexpr (ct::kPrec) c[k][g] = st::bf16(c[k][g]);
+                s[g] = __fadd_rn(s[g], c[k][g]);
+              }
             }
           }
         } else {
@@ -336,7 +349,10 @@ flooding_kernel(Args a) {
             float c[G] = {};
             if (e >= 0) load<G>(C + ((Idx)e * F + f0), c);
 #pragma unroll
-            for (int g = 0; g < G; ++g) s[g] = __fadd_rn(s[g], c[g]);
+            for (int g = 0; g < G; ++g) {
+              if constexpr (ct::kPrec) c[g] = st::bf16(c[g]);
+              s[g] = __fadd_rn(s[g], c[g]);
+            }
           }
         }
         float l[G];
@@ -399,9 +415,13 @@ Kern pick_mode(int track) {
 
 template <int MAX_DC, bool GLOBAL, int G>
 Kern pick_rule(int rule, int track) {
-  if (rule == bp::kSpa) return pick_mode<MAX_DC, bp::kSpa, GLOBAL, G>(track);
-  if (rule == bp::kMinstar)
-    return pick_mode<MAX_DC, bp::kMinstar, GLOBAL, G>(track);
+  // the precision library is min-sum's alone (bad())
+  if constexpr (!ct::kPrec) {
+    if (rule == bp::kSpa)
+      return pick_mode<MAX_DC, bp::kSpa, GLOBAL, G>(track);
+    if (rule == bp::kMinstar)
+      return pick_mode<MAX_DC, bp::kMinstar, GLOBAL, G>(track);
+  }
   return pick_mode<MAX_DC, bp::kMinsum, GLOBAL, G>(track);
 }
 
@@ -429,7 +449,8 @@ Kern pick(int dc, int rule, int track, int global, int lanes) {
 }
 
 bool bad(int dc, int rule, int global, int lanes) {
-  return dc < 1 || rule < 0 || rule > 2 || lanes < 1 ||
+  return dc < 1 || rule < 0 || rule > 2 || (ct::kPrec && rule != 0) ||
+         lanes < 1 ||
          lanes > 2 || (global && lanes != 1) || (dc > kPairDc && lanes != 1);
 }
 

@@ -50,6 +50,20 @@
 // `done`; `iters` counts the sweeps applied to the state reported; `ok` is
 // the syndrome of the reported state.
 //
+// Precision (the TPU kernels' roundings under `/pallas`): built with
+// LAYERED_PREC 1 (ecc_ldpc_tpu_torch/_build.py, the library
+// flooding_qc_prec) the kernels take `prec`: 1 is K3's bf16 storage
+// (ecc_ldpc_tpu/decode/pallas/flooding_qc.py with every state dtype bf16:
+// the LLRs rounded as they load, every message rounded as it is stored,
+// and each posterior sum rounded after every add, acc = bf16(acc + C),
+// :201-206), 3 is K4's flooding mode (layered_xor.py:195-254, each
+// permutation one bf16 matmul pass: the stale posterior a check reads and
+// each message a variable adds rounded, the sums and messages f32). Both
+// read a posterior through the permutation rounded, in the parity and the
+// syndrome too (bf16 of a bf16 value is itself). Circulant graphs take
+// every rule, xor graphs min-sum only, as the TPU's XOR kernel did. The
+// f32 library's kernels are the code below with no rounding.
+//
 // What bounds it on an H100: the bytes bound is the LLRs in and the bits
 // out (0.33 GB at dvbs2/64800/12, B = 4096); the operations bound, about
 // 12 fp32 operations per edge visit for minsum and 4 (spa) or ~8.6
@@ -73,11 +87,20 @@ struct FloodParams {
   float alpha, beta;
   int llr_chip;    // the LLRs have a region of shared memory
   float* scratch;  // the wide minstar build's prefixes, or null
+#if LAYERED_PREC
+  int prec;        // 1 bf16 storage, 3 bf16 permutations
+#endif
 };
 
 template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
 __global__ void __launch_bounds__(st::max_threads(MAX_DEG), 1)
 flooding_qc_kernel(st::Args a, FloodParams p) {
+  constexpr bool kPrec = ct::kPrec;
+#if LAYERED_PREC
+  const bool store = p.prec == 1;  // bf16 storage (K3), else permutations
+#else
+  constexpr bool store = false;
+#endif
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ st::Shared sh;
   const int F = a.F, RF = a.R * F, cs = a.cs, mb = a.mb, nb = a.nb;
@@ -116,10 +139,19 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
     if (tile >= a.tiles) break;
     const int b0 = tile * F;
     const int nf = min(F, a.B - b0);  // live frames (the last tile is ragged)
-    st::move<true>(a, sh, rank, b0, nf, p.llr_chip ? (nb + BE) * RF : 0);
+    if constexpr (kPrec) {
+      if (store) {
+        st::move<true, true>(a, sh, rank, b0, nf,
+                             p.llr_chip ? (nb + BE) * RF : 0);
+      } else {
+        st::move<true>(a, sh, rank, b0, nf, p.llr_chip ? (nb + BE) * RF : 0);
+      }
+    } else {
+      st::move<true>(a, sh, rank, b0, nf, p.llr_chip ? (nb + BE) * RF : 0);
+    }
     ct::sync_tile(cs);
     if constexpr (TRACK) {
-      st::syndrome<XOR, MAX_DEG>(a, sh, rptr, cbase, coff, nf);
+      st::syndrome<XOR, MAX_DEG, kPrec>(a, sh, rptr, cbase, coff, nf);
       fr.reduce();
       for (int f = tid; f < F; f += nth) {
         sh.done[f] = f < nf ? !sh.flag[f] : 1;
@@ -140,8 +172,9 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
           float* Cr = C + s0 * RF + zf;
           bool par = false;
           for (int j = 0; j < d; ++j) {
-            const float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl,
-                                         zf, RF, F);
+            float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl, zf,
+                                   RF, F);
+            if constexpr (kPrec) r = st::bf16(r);
             if constexpr (TRACK) par ^= (r < 0.f);
             Cr[j * RF] = __fsub_rn(r, t == 0 ? 0.f : Cr[j * RF]);
           }
@@ -150,6 +183,8 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
               bp::Row{Cr, (size_t)RF},
               bp::Row{p.scratch + (size_t)blockIdx.x * nth + tid, T}, d,
               p.alpha, p.beta);
+          if (kPrec && store)
+            for (int j = 0; j < d; ++j) Cr[j * RF] = st::bf16(Cr[j * RF]);
           if (TRACK && par) sh.part[f] = 1;
         } else {
           float v[MAX_DEG];
@@ -157,16 +192,21 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
 #pragma unroll
           for (int j = 0; j < MAX_DEG; ++j) {
             if (j < d) {
-              const float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl,
-                                           zf, RF, F);
+              float r = *st::at<XOR>(cbase[s0 + j], coff[s0 + j], w.zl, zf,
+                                     RF, F);
+              if constexpr (kPrec) r = st::bf16(r);
               if constexpr (TRACK) par ^= (r < 0.f);
               v[j] = __fsub_rn(r, t == 0 ? 0.f : C[(s0 + j) * RF + zf]);
             }
           }
           bp::check_rule<MAX_DEG, RULE>(v, d, p.alpha, p.beta);
 #pragma unroll
-          for (int j = 0; j < MAX_DEG; ++j)
-            if (j < d) C[(s0 + j) * RF + zf] = v[j];
+          for (int j = 0; j < MAX_DEG; ++j) {
+            if (j < d) {
+              if (kPrec && store) v[j] = st::bf16(v[j]);
+              C[(s0 + j) * RF + zf] = v[j];
+            }
+          }
           if (TRACK && par) sh.part[f] = 1;
         }
       }
@@ -185,12 +225,20 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
                         ? llrs[col * RF + zf]
                         : a.llr[(size_t)(b0 + f) * n + col * Z +
                                 w.zl * cs + rank];
+        if (kPrec && store) acc = st::bf16(acc);  // (on chip: already)
         // (loading a variable's messages 8 at a time before the adds
         // measured slower on the DVB-S2 legs)
         const int k1 = cptr[col + 1];
-        for (int k = cptr[col]; k < k1; ++k)
-          acc = __fadd_rn(acc, *st::at<XOR>(vbase[k], voff[k], w.zl, zf,
-                                            RF, F));
+        for (int k = cptr[col]; k < k1; ++k) {
+          if constexpr (kPrec) {
+            acc = __fadd_rn(acc, st::bf16(*st::at<XOR>(vbase[k], voff[k],
+                                                       w.zl, zf, RF, F)));
+            if (store) acc = st::bf16(acc);
+          } else {
+            acc = __fadd_rn(acc, *st::at<XOR>(vbase[k], voff[k], w.zl, zf,
+                                              RF, F));
+          }
+        }
         post[col * RF + zf] = acc;
       }
       if constexpr (TRACK) {
@@ -208,7 +256,7 @@ flooding_qc_kernel(st::Args a, FloodParams p) {
       ct::sync_tile(cs);
     }
     // truthful ok: one final syndrome over the reported state
-    st::syndrome<XOR, MAX_DEG>(a, sh, rptr, cbase, coff, nf);
+    st::syndrome<XOR, MAX_DEG, kPrec>(a, sh, rptr, cbase, coff, nf);
     fr.reduce();
     st::results(a, sh, rank, b0, nf, TRACK);
     st::move<false>(a, sh, rank, b0, nf, 0);
@@ -227,8 +275,12 @@ Kern pick_mode(int track) {
 
 template <int MAX_DEG, bool XOR>
 Kern pick_rule(int rule, int track) {
-  if (rule == bp::kSpa) return pick_mode<MAX_DEG, bp::kSpa, XOR>(track);
-  if (rule == bp::kMinstar) return pick_mode<MAX_DEG, bp::kMinstar, XOR>(track);
+  // the precision library's xor instances are min-sum's alone (bad())
+  if constexpr (!(ct::kPrec && XOR)) {
+    if (rule == bp::kSpa) return pick_mode<MAX_DEG, bp::kSpa, XOR>(track);
+    if (rule == bp::kMinstar)
+      return pick_mode<MAX_DEG, bp::kMinstar, XOR>(track);
+  }
   return pick_mode<MAX_DEG, bp::kMinsum, XOR>(track);
 }
 
@@ -250,8 +302,9 @@ Kern pick(int dcb_max, int rule, int track, int xor_perm) {
 // the wide build
 constexpr int kMaxDeg = 64;
 
-bool bad(int dcb_max, int rule) {
-  return dcb_max < 1 || rule < 0 || rule > 2;
+bool bad(int dcb_max, int rule, int xor_perm) {
+  return dcb_max < 1 || rule < 0 || rule > 2 ||
+         (ct::kPrec && xor_perm && rule != bp::kMinsum);
 }
 
 }  // namespace
@@ -263,7 +316,7 @@ extern "C" {
 // kernel instance the other arguments pick (0: the plan does not fit).
 int flooding_qc_clusters(int dcb_max, int rule, int track, int xor_perm,
                          int cs, int threads, int smem, void* out) {
-  if (bad(dcb_max, rule)) return (int)cudaErrorInvalidValue;
+  if (bad(dcb_max, rule, xor_perm)) return (int)cudaErrorInvalidValue;
   return (int)ct::max_clusters(pick(dcb_max, rule, track, xor_perm), cs,
                                threads, (size_t)smem, static_cast<int*>(out));
 }
@@ -274,7 +327,9 @@ int flooding_qc_clusters(int dcb_max, int rule, int track, int xor_perm,
 // tile_plan, form "flooding") on `clusters` resident clusters; counter one
 // int (the launch zeroes it). post may be null; scratch, for minstar on rows
 // wider than 64, holds dcb_max floats for each thread of the grid (else
-// null). Returns a cudaError_t (0 on a successful launch).
+// null). prec: 0 f32 (the f32 library takes nothing else), 1 bf16 storage
+// or 3 bf16 permutations (the precision library's). Returns a cudaError_t
+// (0 on a successful launch).
 int flooding_qc_decode(void* llr, void* bits, void* post, void* ok,
                        void* iters, void* counter, void* tab, void* scratch,
                        int Z, int mb,
@@ -282,8 +337,9 @@ int flooding_qc_decode(void* llr, void* bits, void* post, void* ok,
                        int rule, float alpha, float beta, int track,
                        int xor_perm, int cs, int lg_cs, int F, int tiles,
                        int llr_chip, int threads, int smem, int clusters,
-                       void* stream) {
-  if (bad(dcb_max, rule) ||
+                       int prec, void* stream) {
+  if (bad(dcb_max, rule, xor_perm) ||
+      (LAYERED_PREC ? prec != 1 && prec != 3 : prec != 0) ||
       (rule == bp::kMinstar && dcb_max > kMaxDeg && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   st::Args a;
@@ -297,7 +353,11 @@ int flooding_qc_decode(void* llr, void* bits, void* post, void* ok,
   a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
   a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
   a.tiles = tiles;
+#if LAYERED_PREC
+  FloodParams p{alpha, beta, llr_chip, static_cast<float*>(scratch), prec};
+#else
   FloodParams p{alpha, beta, llr_chip, static_cast<float*>(scratch)};
+#endif
   return (int)st::launch(pick(dcb_max, rule, track, xor_perm), a, p,
                          clusters, threads, (size_t)smem,
                          static_cast<cudaStream_t>(stream));

@@ -1,6 +1,6 @@
-// Layered belief propagation on circulant QC graphs whose block-rows may
-// repeat a block-column (multi-edge protographs such as CCSDS AR4JA), for
-// Hopper.
+// Layered belief propagation on QC graphs whose block-rows may repeat a
+// block-column (multi-edge protographs such as CCSDS AR4JA), circulant or
+// XOR-permutation, for Hopper.
 //
 // Replaces ecc_ldpc_tpu/decode/pallas/layered_qc.py::_kernel in its two
 // "classic" forms: sweep_classic (:415, min-sum, K1b) and
@@ -21,8 +21,20 @@
 // the card (the retry fallback's ~16 frames) a frame over a cluster of 8.
 // A persistent grid of clusters takes tiles from an atomic counter; LLRs
 // come straight from llr [B, n] and bits (and posteriors) go straight to
-// [B, n]. Check z of slot (col, s) reads variable (z + s) % Z of
-// block-column col.
+// [B, n]. Check z of slot (col, s) reads variable qc::var_index<XOR>(z, s,
+// Z) of block-column col: (z + s) % Z on a circulant graph, z ^ s on an
+// XOR graph (qc_index.cuh), the kernel built once for each. The JAX
+// package's xor kernel takes no such graph, but its XLA tier decodes one
+// (decode/xla/layered.py with count signs, as here), and
+// graph/qc.qc_graph_from_block_edges(..., perm="xor") builds one.
+//
+// Row widths: builds for rows of up to 8, 16, 32 and 64 slots, whose pass
+// 1 holds the row in registers, and a wide build for any wider row, which
+// writes the extrinsic inputs into the layer's delta rows D and runs the
+// check rule there in place (csrc/bp_rules.cuh's wide rules, slot order,
+// the same _rn arithmetic; minstar's prefixes in a per-thread scratch row
+// in device memory). Above 32 slots a layer's barrier mask takes
+// ceil(d / 32) words.
 //
 // The accumulate step. When a layer holds one block-column in two slots a
 // and b, check z (slot a) and check z' (slot b) with z + s_a = z' + s_b
@@ -87,6 +99,7 @@ struct ClassicParams {
   const float* ab;  // [2, max_iters] alpha_t then beta_t, or null
   float alpha, beta;
   int dmax;         // the graph's largest row degree (D's rows)
+  float* scratch;   // the wide minstar build's prefixes, or null
 };
 
 #if LAYERED_PREC
@@ -95,7 +108,7 @@ using Params = ct::WithPrec<ClassicParams>;
 using Params = ClassicParams;
 #endif
 
-template <int MAX_DEG, int RULE, bool TRACK>
+template <int MAX_DEG, int RULE, bool TRACK, bool XOR>
 __global__ void __launch_bounds__(st::max_threads(MAX_DEG), 1)
 #if LAYERED_PREC
 layered_classic_kernel(st::Args a, Params w) {
@@ -109,7 +122,10 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
   __shared__ st::Shared sh;
   const int F = a.F, RF = a.R * F, cs = a.cs, mb = a.mb, nb = a.nb;
   const int BE = a.BE;
-  // table: layer_ptr [mb+1], column [BE], shift [BE], barrier masks [mb]
+  // table: layer_ptr [mb+1], column [BE], shift [BE], barrier masks
+  // [mb][W] (W words a layer: 1 to 32 slots, ceil(dmax / 32) above)
+  constexpr bool kWideMask = MAX_DEG == ct::kWide || MAX_DEG > 32;
+  const int W = kWideMask ? (p.dmax + 31) >> 5 : 1;
   const int32_t* tcol = a.tab + mb + 1;
   const int32_t* tshift = tcol + BE;
   float* post = reinterpret_cast<float*>(smem);  // [nb][R][F]
@@ -119,14 +135,15 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
   float** sbase = reinterpret_cast<float**>(post + ((words + 3) & ~3));
   int* soff = reinterpret_cast<int*>(sbase + BE);  // [BE]
   int* lptr = soff + BE;                           // [mb + 1]
-  int* bars = lptr + mb + 1;                       // [mb]
+  int* bars = lptr + mb + 1;                       // [mb][W]
 
   st::Frame fr = st::begin(sh, post, cs, F);
   const int tid = threadIdx.x, nth = blockDim.x, rank = fr.rank;
   for (int i = tid; i <= mb; i += nth) lptr[i] = a.tab[i];
-  for (int i = tid; i < mb; i += nth) bars[i] = a.tab[mb + 1 + 2 * BE + i];
+  for (int i = tid; i < mb * W; i += nth)
+    bars[i] = a.tab[mb + 1 + 2 * BE + i];
   __syncthreads();
-  st::edges<false>(a, sh, rank, tcol, tshift, BE, 0, false, sbase, soff);
+  st::edges<XOR>(a, sh, rank, tcol, tshift, BE, 0, false, sbase, soff);
   ct::sync_tile(cs);
 
   for (;;) {
@@ -142,7 +159,7 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
     ct::sync_tile(cs);
     if constexpr (TRACK) {
       // done_0: frames whose channel hard decisions already satisfy H
-      st::syndrome<false, MAX_DEG>(a, sh, lptr, sbase, soff, nf);
+      st::syndrome<XOR, MAX_DEG>(a, sh, lptr, sbase, soff, nf);
       fr.reduce();
       for (int f = tid; f < F; f += nth) {
         sh.done[f] = f < nf ? !sh.flag[f] : 1;
@@ -163,32 +180,61 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
         for (st::Walk w(tid, nth, a.R, F); w.a == 0; w.next()) {
           const int f = w.f, zf = w.zf();
           if (f >= nf || (TRACK && sh.done[f])) continue;
-          float v[MAX_DEG];     // extrinsic inputs r - Cold, then Cnew
-          float cold[MAX_DEG];  // old messages
           bool par = false;
-#pragma unroll
-          for (int j = 0; j < MAX_DEG; ++j) {
-            if (j < d) {
-              const float r = *st::at<false>(sbase[s0 + j], soff[s0 + j],
-                                             w.zl, zf, RF, F);
-              cold[j] = t == 0 ? 0.f : C[(s0 + j) * RF + zf];
-              v[j] = __fsub_rn(r, cold[j]);
+          if constexpr (MAX_DEG == ct::kWide) {
+            // v = r - Cold into D's rows, the rule there in place, then
+            // C = Cnew (Q(Cnew)) and D = C - Cold slot by slot
+            const bp::Row v{D + zf, (size_t)RF};
+            for (int j = 0; j < d; ++j) {
+              const float r = *st::at<XOR>(sbase[s0 + j], soff[s0 + j],
+                                           w.zl, zf, RF, F);
+              v[j] = __fsub_rn(r, t == 0 ? 0.f : C[(s0 + j) * RF + zf]);
               if constexpr (TRACK) par ^= (r < 0.f);
             }
-          }
-          if constexpr (RULE == bp::kMinsum) {
-            bp::minsum<MAX_DEG>(v, d, alpha, beta);
-          } else if constexpr (RULE == bp::kSpa) {
-            bp::spa<MAX_DEG, true>(v, d);
+            if constexpr (RULE == bp::kMinsum) {
+              bp::minsum_wide(v, d, alpha, beta);
+            } else if constexpr (RULE == bp::kSpa) {
+              bp::spa_wide<true>(v, d);
+            } else {
+              const size_t T = (size_t)gridDim.x * nth;
+              bp::minstar_wide(
+                  v, bp::Row{p.scratch + (size_t)blockIdx.x * nth + tid, T},
+                  d);
+            }
+            for (int j = 0; j < d; ++j) {
+              float c = v[j];
+              if constexpr (ct::kPrec) c = q(c);  // Q(Cnew)
+              const float cold = t == 0 ? 0.f : C[(s0 + j) * RF + zf];
+              C[(s0 + j) * RF + zf] = c;
+              v[j] = __fsub_rn(c, cold);
+            }
           } else {
-            bp::minstar<MAX_DEG>(v, d);
-          }
+            float v[MAX_DEG];     // extrinsic inputs r - Cold, then Cnew
+            float cold[MAX_DEG];  // old messages
 #pragma unroll
-          for (int j = 0; j < MAX_DEG; ++j) {
-            if (j < d) {
-              if constexpr (ct::kPrec) v[j] = q(v[j]);  // Q(Cnew)
-              C[(s0 + j) * RF + zf] = v[j];
-              D[j * RF + zf] = __fsub_rn(v[j], cold[j]);
+            for (int j = 0; j < MAX_DEG; ++j) {
+              if (j < d) {
+                const float r = *st::at<XOR>(sbase[s0 + j], soff[s0 + j],
+                                             w.zl, zf, RF, F);
+                cold[j] = t == 0 ? 0.f : C[(s0 + j) * RF + zf];
+                v[j] = __fsub_rn(r, cold[j]);
+                if constexpr (TRACK) par ^= (r < 0.f);
+              }
+            }
+            if constexpr (RULE == bp::kMinsum) {
+              bp::minsum<MAX_DEG>(v, d, alpha, beta);
+            } else if constexpr (RULE == bp::kSpa) {
+              bp::spa<MAX_DEG, true>(v, d);
+            } else {
+              bp::minstar<MAX_DEG>(v, d);
+            }
+#pragma unroll
+            for (int j = 0; j < MAX_DEG; ++j) {
+              if (j < d) {
+                if constexpr (ct::kPrec) v[j] = q(v[j]);  // Q(Cnew)
+                C[(s0 + j) * RF + zf] = v[j];
+                D[j * RF + zf] = __fsub_rn(v[j], cold[j]);
+              }
             }
           }
           if (TRACK && par) sh.part[f] = 1;
@@ -196,17 +242,24 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
         ct::sync_tile(cs);
         // accumulate: slot by slot in the oracle's order; each thread adds
         // the deltas of its own checks (written by itself in pass 1)
-        const unsigned bar = static_cast<unsigned>(bars[L]);
+        const unsigned bar = static_cast<unsigned>(bars[L * W]);
         for (int q = 0; q < d; ++q) {
           const int j = RULE == bp::kMinstar ? d - 1 - q : q;
-          if ((bar >> q) & 1u) ct::sync_tile(cs);
+          bool wait;
+          if constexpr (kWideMask) {
+            wait = (static_cast<unsigned>(bars[L * W + (q >> 5)]) >>
+                    (q & 31)) & 1u;
+          } else {
+            wait = (bar >> q) & 1u;
+          }
+          if (wait) ct::sync_tile(cs);
           float* const base = sbase[s0 + j];
           const int off = soff[s0 + j];
           const float* dj = D + j * RF;
           for (st::Walk w(tid, nth, a.R, F); w.a == 0; w.next()) {
             const int f = w.f, zf = w.zf();
             if (f >= nf || (TRACK && sh.done[f])) continue;
-            float* x = st::at<false>(base, off, w.zl, zf, RF, F);
+            float* x = st::at<XOR>(base, off, w.zl, zf, RF, F);
             const float old = *x;
             const float nw = __fadd_rn(old, dj[zf]);
             *x = nw;
@@ -229,7 +282,7 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
       }
     }
     // truthful ok: one final syndrome over the emitted hard decisions
-    st::syndrome<false, MAX_DEG>(a, sh, lptr, sbase, soff, nf);
+    st::syndrome<XOR, MAX_DEG>(a, sh, lptr, sbase, soff, nf);
     fr.reduce();
     st::results(a, sh, rank, b0, nf, TRACK);
     st::move<false>(a, sh, rank, b0, nf, 0);
@@ -240,27 +293,49 @@ layered_classic_kernel(st::Args a, ClassicParams p) {
 
 using Kern = void (*)(st::Args, Params);
 
-template <int MAX_DEG, int RULE>
+template <int MAX_DEG, int RULE, bool XOR>
 Kern pick_mode(int track) {
-  if (track) return layered_classic_kernel<MAX_DEG, RULE, true>;
-  return layered_classic_kernel<MAX_DEG, RULE, false>;
+  if (track) return layered_classic_kernel<MAX_DEG, RULE, true, XOR>;
+  return layered_classic_kernel<MAX_DEG, RULE, false, XOR>;
 }
 
-template <int MAX_DEG>
+template <int MAX_DEG, bool XOR>
 Kern pick_rule(int rule, int track) {
-  if (rule == bp::kSpa) return pick_mode<MAX_DEG, bp::kSpa>(track);
-  if (rule == bp::kMinstar) return pick_mode<MAX_DEG, bp::kMinstar>(track);
-  return pick_mode<MAX_DEG, bp::kMinsum>(track);
+  if (rule == bp::kSpa) return pick_mode<MAX_DEG, bp::kSpa, XOR>(track);
+  if (rule == bp::kMinstar)
+    return pick_mode<MAX_DEG, bp::kMinstar, XOR>(track);
+  return pick_mode<MAX_DEG, bp::kMinsum, XOR>(track);
 }
 
-Kern pick(int dcb_max, int rule, int track) {
-  if (dcb_max <= 8) return pick_rule<8>(rule, track);
-  if (dcb_max <= 16) return pick_rule<16>(rule, track);
-  return pick_rule<32>(rule, track);
+template <bool XOR>
+Kern pick_width(int dcb_max, int rule, int track) {
+  if (dcb_max <= 8) return pick_rule<8, XOR>(rule, track);
+  if (dcb_max <= 16) return pick_rule<16, XOR>(rule, track);
+  if (dcb_max <= 32) return pick_rule<32, XOR>(rule, track);
+  if (dcb_max <= 64) return pick_rule<64, XOR>(rule, track);
+  return pick_rule<ct::kWide, XOR>(rule, track);
 }
 
-bool bad(int dcb_max, int rule) {
-  return dcb_max > 32 || dcb_max < 1 || rule < 0 || rule > 2;
+// null where the library holds no instance of the permutation
+// (LAYERED_PERM, csrc/cluster_tile.cuh: the precision library builds in a
+// circulant and a xor half, which build in parallel)
+Kern pick(int dcb_max, int rule, int track, int xor_perm) {
+#if LAYERED_PERM != 1
+  if (xor_perm) return pick_width<true>(dcb_max, rule, track);
+#endif
+#if LAYERED_PERM != 2
+  if (!xor_perm) return pick_width<false>(dcb_max, rule, track);
+#endif
+  return nullptr;
+}
+
+// the widest register build (decode/layered_qc.MAX_DEG); wider rows take
+// the wide build
+constexpr int kMaxDeg = 64;
+
+bool bad(int dcb_max, int rule, int xor_perm) {
+  return dcb_max < 1 || rule < 0 || rule > 2 ||
+         (LAYERED_PERM == 1 && xor_perm) || (LAYERED_PERM == 2 && !xor_perm);
 }
 
 }  // namespace
@@ -270,31 +345,39 @@ extern "C" {
 // The number of clusters of `cs` blocks of `threads` threads and `smem`
 // bytes of dynamic shared memory that can be resident at once, for the
 // kernel instance the other arguments pick (0: the plan does not fit).
-int layered_classic_clusters(int dcb_max, int rule, int track, int cs,
-                             int threads, int smem, void* out) {
-  if (bad(dcb_max, rule)) return (int)cudaErrorInvalidValue;
-  return (int)ct::max_clusters(pick(dcb_max, rule, track), cs, threads,
-                               (size_t)smem, static_cast<int*>(out));
+int layered_classic_clusters(int dcb_max, int rule, int track, int xor_perm,
+                             int cs, int threads, int smem, void* out) {
+  if (bad(dcb_max, rule, xor_perm)) return (int)cudaErrorInvalidValue;
+  return (int)ct::max_clusters(pick(dcb_max, rule, track, xor_perm), cs,
+                               threads, (size_t)smem,
+                               static_cast<int*>(out));
 }
 
 // Decodes llr [B, n] with rule 0 (min-sum, alpha and beta or the
-// per-iteration ab table), 1 (spa) or 2 (minstar) by the plan (cs, F,
-// tiles, threads, smem; decode/layered_qc.tile_plan, form "classic") on
-// `clusters` resident clusters; tab is layer_ptr [mb+1], column [BE],
-// shift [BE] and the accumulate's barrier masks [mb]; counter one int (the
-// launch zeroes it). post may be null. The message precision: prec 0
+// per-iteration ab table), 1 (spa) or 2 (minstar) on a circulant
+// (xor_perm = 0) or an XOR-permutation graph (xor_perm = 1) by the plan
+// (cs, F, tiles, threads, smem; decode/layered_qc.tile_plan, form
+// "classic") on `clusters` resident clusters; tab is layer_ptr [mb+1],
+// column [BE], shift [BE] and the accumulate's barrier masks [mb][W] (W =
+// 1 to 32 slots, ceil(dcb_max / 32) above); counter one int (the launch
+// zeroes it). post may be null; scratch, for minstar on rows wider than
+// 64, holds dcb_max floats for each thread of the grid (else null). The
+// message precision: prec 0
 // (f32; the f32 library takes nothing else), 1 (bf16) or 2 (the q: grid of
 // `step` and +-lim levels; both the precision library's); the accumulate
 // form adds Q(Cnew) - Cold in every mode. Returns a cudaError_t (0 on a
 // successful launch).
 int layered_classic_decode(void* llr, void* bits, void* post, void* ok,
                            void* iters, void* counter, void* tab, void* ab,
-                           int Z, int mb, int nb, int BE, int B, int max_iters,
-                           int dcb_max, float alpha, float beta, int rule,
-                           int track, int cs, int lg_cs, int F, int tiles,
-                           int threads, int smem, int clusters, int prec,
-                           float step, float lim, void* stream) {
-  if (bad(dcb_max, rule) || (LAYERED_PREC ? prec < 1 || prec > 2 : prec != 0))
+                           void* scratch, int Z, int mb, int nb, int BE,
+                           int B, int max_iters, int dcb_max, float alpha,
+                           float beta, int rule, int track, int xor_perm,
+                           int cs, int lg_cs, int F, int tiles, int threads,
+                           int smem, int clusters, int prec, float step,
+                           float lim, void* stream) {
+  if (bad(dcb_max, rule, xor_perm) ||
+      (LAYERED_PREC ? prec < 1 || prec > 2 : prec != 0) ||
+      (rule == bp::kMinstar && dcb_max > kMaxDeg && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   st::Args a;
   a.llr = static_cast<const float*>(llr);
@@ -307,14 +390,16 @@ int layered_classic_decode(void* llr, void* bits, void* post, void* ok,
   a.Z = Z; a.mb = mb; a.nb = nb; a.BE = BE; a.B = B; a.max_iters = max_iters;
   a.cs = cs; a.lg_cs = lg_cs; a.F = F; a.R = cs > 0 ? Z / cs : 0;
   a.tiles = tiles;
-  ClassicParams cp{static_cast<const float*>(ab), alpha, beta, dcb_max};
+  ClassicParams cp{static_cast<const float*>(ab), alpha, beta, dcb_max,
+                   static_cast<float*>(scratch)};
 #if LAYERED_PREC
   const Params p{cp, ct::Prec{prec, 1, step, lim}};
 #else
   const Params& p = cp;
 #endif
-  return (int)st::launch(pick(dcb_max, rule, track), a, p, clusters, threads,
-                         (size_t)smem, static_cast<cudaStream_t>(stream));
+  return (int)st::launch(pick(dcb_max, rule, track, xor_perm), a, p,
+                         clusters, threads, (size_t)smem,
+                         static_cast<cudaStream_t>(stream));
 }
 
 const char* layered_classic_error_string(int err) {

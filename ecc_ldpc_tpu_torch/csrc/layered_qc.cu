@@ -54,8 +54,12 @@
 // the state, which is Q of every stored message since Q is odd; the
 // posterior adds Q(Cnew) under q: and in bf16 track mode, and the
 // unrounded Cnew in bf16 fixed mode (ecc_ldpc_tpu/decode/pallas/
-// layered_qc.py:394 against :376-380). The f32 library's kernels are the
-// code above, unchanged.
+// layered_qc.py:394 against :376-380). On a xor graph the precision
+// kind 3 is K4's `/pallas` arithmetic (ecc_ldpc_tpu/decode/pallas/
+// layered_xor.py:74-85: each permutation one bf16 matmul pass): the LLRs
+// rounded to bf16 as they load and every posterior rounded as a layer
+// writes it, v + Cnew in f32 first; the messages stay f32. The f32
+// library's kernels are the code above, unchanged.
 //
 // What bounds it on an H100: the true bound (what chip_smoke.py reports)
 // is the larger of
@@ -197,6 +201,7 @@ struct Minsum {
         const float cn =
             __uint_as_float(__float_as_uint(is_min ? mag2 : mag1) | neg);
         r[j] = __fadd_rn(x, cn);
+        if constexpr (ct::kPrec) r[j] = q.perm(r[j]);  // kind 3 only
       }
     }
     if constexpr (!ct::kPrec) {
@@ -296,7 +301,8 @@ struct MinsumWide {
       nw |= (neg >> 31) << (j & 31);
       const float cn =
           __uint_as_float(__float_as_uint(is_min ? mag2 : mag1) | neg);
-      const float y = __fadd_rn(x, cn);
+      float y = __fadd_rn(x, cn);
+      if constexpr (ct::kPrec) y = q.perm(y);  // kind 3 only
       *pj = y;
       if constexpr (TRACK)
         flip |= ((__float_as_uint(y) ^ __float_as_uint(r)) >> 31) != 0;
@@ -391,8 +397,8 @@ int layered_qc_clusters(int dcb_max, int track, int fast_mag, int xor_perm,
 // mb * stride words, spill clusters * (nb - nchip) * Z * F floats, home the
 // plan's column homes, counter one int (the launch zeroes it). post may be null. The
 // message precision: prec 0 (f32; the f32 library takes nothing else), 1
-// (bf16) or 2 (the q: grid of `step` and +-lim levels; both the precision
-// library's), post_round whether the posteriors take the rounded message
+// (bf16), 2 (the q: grid of `step` and +-lim levels) or 3 (the TPU XOR
+// kernel's bf16 permutations; all three the precision library's), post_round whether the posteriors take the rounded message
 // (ct::Prec). Returns a cudaError_t (0 on a successful launch).
 int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
                       void* state, void* spill, void* home, void* counter,
@@ -404,7 +410,7 @@ int layered_qc_decode(void* llr, void* bits, void* post, void* ok, void* iters,
                       int smem, int clusters, int prec, int post_round,
                       float step, float lim, void* stream) {
   if (dcb_max < 1 || B < 1 || max_iters < 1 ||
-      (LAYERED_PREC ? prec < 1 || prec > 2 : prec != 0))
+      (LAYERED_PREC ? prec < 1 || prec > 3 : prec != 0))
     return (int)cudaErrorInvalidValue;
   ct::Args a;
   a.llr = static_cast<const float*>(llr);

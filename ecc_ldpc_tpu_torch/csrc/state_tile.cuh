@@ -149,9 +149,16 @@ __device__ __forceinline__ void edges(const Args& a, const Shared& sh,
   }
 }
 
-// part[f] = 1 where a check of live frame f < nf fails on x < 0; the checks
+// bf16(x) back to f32 (round to nearest even): the TPU kernels' bf16
+// storage and their one-pass bf16 permutations (the precision libraries)
+__device__ __forceinline__ float bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// part[f] = 1 where a check of live frame f < nf fails on x < 0 (with RD,
+// bf16(x) < 0: the posterior read through a bf16 permutation); the checks
 // of this rank in every layer (lptr, and the posteriors' `edges`).
-template <bool XOR, int D>
+template <bool XOR, int D, bool RD = false>
 __device__ void syndrome(const Args& a, Shared& sh, const int* lptr,
                          float* const* sbase, const int* soff, int nf) {
   const int F = a.F, RF = a.R * F;
@@ -160,8 +167,11 @@ __device__ void syndrome(const Args& a, Shared& sh, const int* lptr,
     const int s0 = lptr[w.a], d = lptr[w.a + 1] - s0, zf = w.zf();
     bool par = false;
     if constexpr (D == ct::kWide) {
-      for (int j = 0; j < d; ++j)
-        par ^= *at<XOR>(sbase[s0 + j], soff[s0 + j], w.zl, zf, RF, F) < 0.f;
+      for (int j = 0; j < d; ++j) {
+        float x = *at<XOR>(sbase[s0 + j], soff[s0 + j], w.zl, zf, RF, F);
+        if constexpr (RD) x = bf16(x);
+        par ^= x < 0.f;
+      }
     } else {
       float r[D];
 #pragma unroll
@@ -169,17 +179,22 @@ __device__ void syndrome(const Args& a, Shared& sh, const int* lptr,
         if (j < d)
           r[j] = *at<XOR>(sbase[s0 + j], soff[s0 + j], w.zl, zf, RF, F);
 #pragma unroll
-      for (int j = 0; j < D; ++j)
-        if (j < d) par ^= r[j] < 0.f;
+      for (int j = 0; j < D; ++j) {
+        if (j < d) {
+          if constexpr (RD) r[j] = bf16(r[j]);
+          par ^= r[j] < 0.f;
+        }
+      }
     }
     if (par) sh.part[w.f] = 1;
   }
 }
 
 // Moves the tile's frames between [B, n] and the posteriors (rank r moves
-// block-columns c = r mod CS): in, the LLRs, also to `copy` words further
-// on when copy > 0; out, bits and (when asked) posteriors.
-template <bool IN>
+// block-columns c = r mod CS): in, the LLRs (with ROUND, each rounded to
+// bf16), also to `copy` words further on when copy > 0; out, bits and
+// (when asked) posteriors.
+template <bool IN, bool ROUND = false>
 __device__ void move(const Args& a, const Shared& sh, int rank, int b0,
                      int nf, int copy) {
   const int cs = a.cs, Z = a.Z, n = a.nb * Z;
@@ -190,7 +205,8 @@ __device__ void move(const Args& a, const Shared& sh, int rank, int b0,
     float* p = sh.peer[z & (cs - 1)] + (col * a.R + (z >> a.lg_cs)) * a.F + f;
     const size_t o = (size_t)(b0 + f) * n + col * Z + z;
     if constexpr (IN) {
-      const float x = a.llr[o];
+      float x = a.llr[o];
+      if constexpr (ROUND) x = bf16(x);
       *p = x;
       if (copy) p[copy] = x;
     } else {

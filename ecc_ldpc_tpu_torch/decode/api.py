@@ -8,13 +8,23 @@ ecc_ldpc_tpu/decode/api.py: every form its parse_decoder_spec accepts).
   layered/spa/50, layered/minstar/25 layered exact BP (tanh rule, box-plus)
   layered/norm:0.8125/q:5:0.5/25     fixed-point emulation: LLRs and
                                      messages on a 5-bit grid of step 0.5
-  layered/norm:0.8125/25/pallas      the TPU kernel's message storage
-                                     (bf16 where it stored bf16:
-                                     layered_qc.tpu_msg_dtype)
+  layered/norm:0.8125/25/pallas      the TPU kernel's roundings (bf16
+                                     storage where it stored bf16,
+                                     layered_qc.tpu_msg_dtype; bf16
+                                     permutations on xor graphs,
+                                     layered_qc.tpu_precision)
   layered/norm:0.8125/50/cleanup     a bit-flip cleanup after the decode
                                      (QC graphs; decode/cleanup.py)
   minsum/norm:0.8125/25              flooding normalized min-sum
   spa/50, minstar/25                 flooding exact BP
+  minsum/norm:0.8125/25/pallas       flooding with the TPU kernels'
+                                     roundings (K3's bf16 storage, K2's
+                                     bf16 matmul inputs, K4's bf16
+                                     permutations, where the TPU used
+                                     them)
+  spa/50/xla-mm                      the JAX package's incidence-matmul
+                                     form (minsum, spa): f32 flooding on
+                                     the expanded graph, through K2
   bitflip/50                         majority bit flipping (hard decision)
   gdbf/theta:-0.5/50                 gradient-descent bit flipping
   layered/norm:0.8125/50;retry=spa/50
@@ -30,14 +40,21 @@ the fallback there.
 
 The port has one decoder per device: a CUDA tensor goes through the CUDA
 kernels, a CPU tensor through the plain version. The backend part selects
-the message precision of a layered decoder only: `pallas` means the
-storage the TPU's Pallas kernel used (bf16 on dvbs2/64800, f32 elsewhere),
-and `auto` and `xla` store f32 (the port's `auto` is the JAX package's CPU
-route, not its TPU route). `q:` is the JAX package's XLA-tier emulation
-and, as there, refuses `pallas` and every kind but layered. For flooding
-kinds the backend has no effect; bit flipping refuses `pallas`; `xla-mm`
-(the incidence-matmul form) exists only for the TPU and raises.
-Flooding kinds decode a QCGraph with decode/flooding_qc (K3) and a
+the arithmetic the TPU's kernels used, nothing else: `pallas` means the
+roundings of the JAX package's Pallas kernel for the graph and rule (a
+layered decoder's bf16 storage on dvbs2/64800, layered_qc.tpu_msg_dtype;
+K3's bf16 storage where its f32 state did not fit VMEM, nr5g/bg1/384;
+K2's bf16 matmul inputs for min-sum; K4's bf16 permutations on a xor
+graph, min-sum; f32 elsewhere, and where the JAX package refuses only for
+its VMEM envelope), and `auto` and `xla` mean f32 (the port's `auto` is
+the JAX package's CPU route, not its TPU route). `xla-mm` is the JAX
+package's incidence-matmul form: f32 flooding min-sum or spa on the
+expanded graph (choose_graph(..., backend="xla-mm") compiles it), the
+same arithmetic as K2 at f32, so K2 decodes it on the card and its plain
+version on the CPU; other kinds raise KeyError, as there. `q:` is the JAX
+package's XLA-tier emulation and, as there, refuses `pallas` and every
+kind but layered; bit flipping refuses `pallas`. Flooding kinds decode a
+QCGraph with decode/flooding_qc (K3, K4 on xor graphs) and a
 CompiledGraph with decode/flooding (K2); bit flipping, cleanup and CRC
 (codes/crc.py) run as tensor ops on the LLRs' device (the JAX package has
 no Pallas kernel for them).
@@ -48,7 +65,8 @@ import numpy as np
 import torch
 
 from .cn_ops import CN_KINDS
-from .layered_qc import make_layered_decoder, tpu_msg_dtype
+from .layered_qc import make_layered_decoder, tpu_precision
+from .quant import BF16, PERM
 from .types import DecodeResult
 
 
@@ -123,8 +141,9 @@ def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
     (decode/api.py:54-98 there): cleanup=True (QC graphs) wraps the
     decoder in decode/cleanup.with_cleanup; `quant` = (bits, step) is a
     layered option and refuses backend "pallas"; bit flipping refuses
-    "pallas". For a layered decoder backend "pallas" stores messages as
-    the TPU's kernel did (tpu_msg_dtype), "auto" and "xla" in f32."""
+    "pallas". Backend "pallas" rounds as the TPU's kernel for the graph
+    and rule did (the module docstring), "auto" and "xla" keep f32, and
+    "xla-mm" decodes flooding minsum or spa on a CompiledGraph in f32."""
     from ..graph.qc import QCGraph
 
     if cleanup:
@@ -137,13 +156,18 @@ def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
             max_iters=max_iters, early_term=early_term, backend=backend,
             cn=cn, device=device)
         return with_cleanup(inner, graph)
-    if backend == "xla-mm":
-        raise ValueError(
-            "backend 'xla-mm' is the incidence-matmul form, which exists only "
-            "for the TPU (it has no vector gather); the port decodes with "
-            "gathers on the card — drop '/xla-mm'")
-    if backend not in ("auto", "pallas", "xla"):
+    if backend not in ("auto", "pallas", "xla", "xla-mm"):
         raise KeyError(f"unknown backend {backend!r}")
+    if backend == "xla-mm":
+        # ecc_ldpc_tpu/decode/api.py:213-233: spa or minsum, incidence
+        # matmuls over the expanded graph in f32 (K2's arithmetic)
+        if kind not in ("spa", "minsum"):
+            raise KeyError(
+                f"xla-mm backend supports spa/minsum, not {kind!r}")
+        if isinstance(graph, QCGraph):
+            raise TypeError(
+                "backend 'xla-mm' decodes the expanded graph: compile it "
+                "with choose_graph(code, spec, backend='xla-mm')")
     if cn != "minsum" and kind != "layered":
         raise KeyError(
             f"cn={cn!r} selects the layered sweep's check-node rule; for "
@@ -169,23 +193,29 @@ def make_decoder(graph, kind: str = "layered", *, alpha=1.0, beta=0.0,
             theta=theta, max_iters=max_iters, early_term=early_term,
             device=device)
     if kind == "layered":
-        msg_dtype = (tpu_msg_dtype(graph, cn)
+        precision = (tpu_precision(graph, cn)
                      if backend == "pallas" and isinstance(graph, QCGraph)
-                     else torch.float32)
+                     else None)
         return make_layered_decoder(
             graph, alpha=alpha, beta=beta, max_iters=max_iters,
-            early_term=early_term, cn=cn, device=device, msg_dtype=msg_dtype,
+            early_term=early_term, cn=cn, device=device,
+            msg_dtype=torch.bfloat16 if precision == BF16 else torch.float32,
+            perm_dtype=torch.bfloat16 if precision == PERM else torch.float32,
             quant=quant)
     if kind not in CN_KINDS:
         raise KeyError(f"unknown decoder kind {kind!r}")
     kw = dict(kind=kind, alpha=alpha, beta=beta, max_iters=max_iters,
               early_term=early_term, device=device)
     if isinstance(graph, QCGraph):
-        from .flooding_qc import make_flooding_qc_decoder
+        from .flooding_qc import make_flooding_qc_decoder, tpu_flooding_precision
 
+        if backend == "pallas":
+            kw["precision"] = tpu_flooding_precision(graph, kind)
         return make_flooding_qc_decoder(graph, **kw)
-    from .flooding import make_flooding_decoder
+    from .flooding import make_flooding_decoder, tpu_flooding_precision
 
+    if backend == "pallas":
+        kw["precision"] = tpu_flooding_precision(graph, kind)
     return make_flooding_decoder(graph, **kw)
 
 
@@ -246,12 +276,18 @@ def with_retry(primary, fallback):
     return decode
 
 
-def choose_graph(code_spec, decoder_spec: str):
-    """Compile the graph view a decoder spec needs (the JAX package's rule
-    without its TPU branches): the QC block view for layered decoding
-    (raises clearly on non-QC codes) and for a QC code's flooding kinds;
-    the expanded graph for every other code. A ';retry=' suffix shares the
-    primary's graph."""
+def choose_graph(code_spec, decoder_spec: str, backend: str | None = None):
+    """Compile the graph view a decoder spec needs: the JAX package's rule
+    (ecc_ldpc_tpu/decode/api.py:441-471), the backend given apart from the
+    spec as there (the CLI's --backend, SweepSpec.backend). The QC block
+    view for layered decoding (raises clearly on non-QC codes) and for a
+    QC code's flooding kinds; the expanded graph for every other code, and
+    under "xla-mm". Under "pallas", QC flooding takes the QC view where
+    K3's TPU envelope holds it at 2 bytes (flooding_qc.supports_tpu), else
+    the expanded graph for minsum or spa where the fused kernel's holds
+    (flooding.supports_tpu: on 80211n/648, K2 with its bf16 matmul
+    inputs), else the QC view. A ';retry=' suffix shares the primary's
+    graph."""
     from ..graph.compile import compile_graph
     from ..graph.qc import compile_qc_graph
 
@@ -260,4 +296,18 @@ def choose_graph(code_spec, decoder_spec: str):
         return compile_qc_graph(code_spec)
     if code_spec.qc is None or kind not in CN_KINDS + ("bitflip", "gdbf"):
         return compile_graph(code_spec)
+    if backend == "xla-mm":
+        return compile_graph(code_spec)
+    if backend == "pallas" and kind in CN_KINDS:
+        from .flooding import supports_tpu as fused_fits
+        from .flooding_qc import supports_tpu as k3_fits
+
+        qg = compile_qc_graph(code_spec)
+        if k3_fits(qg, 2, kind):
+            return qg
+        if kind in ("minsum", "spa"):
+            expanded = compile_graph(code_spec)
+            if fused_fits(expanded):
+                return expanded
+        return qg
     return compile_qc_graph(code_spec)

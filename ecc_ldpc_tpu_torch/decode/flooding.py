@@ -10,6 +10,13 @@ done before the sweep, and counts the sweeps of frames not yet done;
 fixed mode runs exactly max_iters sweeps. It is the CPU path and the
 card's yardstick.
 
+Precision: ("bf16",) (decode/quant.py) is the TPU kernel's min-sum under
+`/pallas` (ecc_ldpc_tpu/decode/pallas/fused_mm.py:289-295, mxu_dtype
+bf16; tpu_flooding_precision): every matmul input rounded to bf16, so the
+check rule reads bf16(posterior) - C (:165-170, :219-220), and each
+variable adds bf16(C) of its slots in f32 (:196-197) to its f32 LLR; the
+messages, the sums and the syndrome's hard decisions stay f32.
+
 `flooding_decode_cuda` launches the kernel that replaces
 ecc_ldpc_tpu/decode/pallas/fused_mm.py::_kernel (and serves minstar too),
 the same operations in the same order: bit-identical with the plain
@@ -23,6 +30,7 @@ launch's plan and the blocks resident.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -47,6 +55,7 @@ from .layered_qc import (
     _round4,
     wide_scratch,
 )
+from .quant import BF16, check_precision, describe, round_bf16
 from .types import DecodeResult
 
 # the kernel's widest register build (csrc/flooding.cu: 6-, 8-, 32- and
@@ -75,8 +84,10 @@ CHIP_FRAMES = 8
 TRACK_FRAMES = 2
 
 
-def check_args(graph: CompiledGraph, kind: str, alpha, beta) -> None:
-    """Raise on what the flooding decoders do not take."""
+def check_args(graph: CompiledGraph, kind: str, alpha, beta,
+               precision=None) -> None:
+    """Raise on what the flooding decoders do not take (bf16 matmul inputs
+    are min-sum's alone, as in the JAX package)."""
     if not isinstance(graph, CompiledGraph):
         raise TypeError("flooding decoding of an unstructured code needs the "
                         "port's CompiledGraph (graph.compile.compile_graph)")
@@ -84,6 +95,28 @@ def check_args(graph: CompiledGraph, kind: str, alpha, beta) -> None:
         raise KeyError(f"flooding kind must be one of {CN_KINDS}, got {kind!r}")
     if np.ndim(alpha) != 0 or np.ndim(beta) != 0:
         raise ValueError("flooding decoders take scalar alpha/beta only")
+    if check_precision(precision) not in (None, BF16):
+        raise ValueError(f"K2 takes f32 or the TPU's bf16 matmul inputs, "
+                         f"not {precision!r}")
+    if precision is not None and kind != "minsum":
+        raise ValueError(f"bf16 matmul inputs are the TPU's min-sum "
+                         f"(fused_mm.py:289-295), not {kind!r}")
+
+
+def supports_tpu(graph: CompiledGraph) -> bool:
+    """The JAX package's ecc_ldpc_tpu/decode/pallas/fused_mm.py `supports`:
+    both incidence operators, double-buffered, within 100 MiB of VMEM."""
+    n_pad = -(-graph.n // 128) * 128
+    e_pad = -(-graph.m // 128) * 128 * graph.dc_max
+    return 2 * 2 * 4 * n_pad * e_pad <= 100 * 1024 * 1024
+
+
+def tpu_flooding_precision(graph: CompiledGraph, kind: str = "minsum"):
+    """The precision of the JAX package's fused kernel on the TPU
+    (`/pallas`, mxu_dtype "auto"): bf16 matmul inputs for min-sum where
+    the kernel fits (supports_tpu), else f32 (spa; minstar, which it
+    refuses; graphs past its VMEM, which the port decodes in f32)."""
+    return BF16 if kind == "minsum" and supports_tpu(graph) else None
 
 
 def _plain_tables(graph: CompiledGraph, device):
@@ -102,26 +135,29 @@ def _syndrome_fail(cn_vn, mask3, total: torch.Tensor) -> torch.Tensor:
 def flooding_with_posteriors_plain(graph: CompiledGraph, llr: torch.Tensor, *,
                                    kind: str = "minsum", alpha=1.0, beta=0.0,
                                    max_iters: int = 25,
-                                   early_term: bool = True):
+                                   early_term: bool = True, precision=None):
     """(DecodeResult, posteriors f32 [B, n]) of the plain flooding decode of
-    llr f32 [B, n], on llr's device."""
-    check_args(graph, kind, alpha, beta)
+    llr f32 [B, n], on llr's device; `precision` None or ("bf16",), the
+    TPU's bf16 matmul inputs (the module docstring)."""
+    precision = check_precision(precision)
+    check_args(graph, kind, alpha, beta, precision)
     rule = get_rule(kind, float(alpha), float(beta))
     cn_vn, mask3, vn_edge, vn_mask = _device_tables(graph, llr.device, "plain",
                                                     _plain_tables)
     B = llr.shape[0]
+    rd = round_bf16 if precision is not None else (lambda x: x)
     llr_t = llr.to(torch.float32).t().contiguous()  # [n, B]
-    V = torch.where(mask3, llr_t[cn_vn], 0.0)
+    V = torch.where(mask3, rd(llr_t)[cn_vn], 0.0)
     total = llr_t
 
     def sweep(V):
         C = rule(V, mask3, 1)
-        Cv = C.reshape(graph.m * graph.dc_max, B)[vn_edge]  # [n, dv, B]
+        Cv = rd(C.reshape(graph.m * graph.dc_max, B)[vn_edge])  # [n, dv, B]
         s = torch.zeros_like(llr_t)
         for j in range(graph.dv_max):  # the oracle's masked sum, in order
             s = s + torch.where(vn_mask[:, j], Cv[:, j], 0.0)
         new_total = llr_t + s
-        return torch.where(mask3, new_total[cn_vn] - C, 0.0), new_total
+        return torch.where(mask3, rd(new_total)[cn_vn] - C, 0.0), new_total
 
     if early_term:
         done = ~_syndrome_fail(cn_vn, mask3, total)
@@ -148,12 +184,12 @@ def flooding_with_posteriors_plain(graph: CompiledGraph, llr: torch.Tensor, *,
 
 def flooding_decode_plain(graph: CompiledGraph, llr: torch.Tensor, *,
                           kind: str = "minsum", alpha=1.0, beta=0.0,
-                          max_iters: int = 25,
-                          early_term: bool = True) -> DecodeResult:
+                          max_iters: int = 25, early_term: bool = True,
+                          precision=None) -> DecodeResult:
     """llr f32 [B, n] -> DecodeResult, in plain PyTorch on llr's device."""
     return flooding_with_posteriors_plain(
         graph, llr, kind=kind, alpha=alpha, beta=beta, max_iters=max_iters,
-        early_term=early_term)[0]
+        early_term=early_term, precision=precision)[0]
 
 
 def _kernel_tables(graph: CompiledGraph, device):
@@ -257,24 +293,24 @@ def flooding_plan(graph: CompiledGraph, batch: int, kind: str = "minsum",
     return dataclasses.replace(plan, threads=threads)
 
 
-_RESIDENT = {}  # (kernel instance, plan shape, card) -> blocks
+_RESIDENT = {}  # (library, kernel instance, plan shape, card) -> blocks
 
 
-def resident_blocks(inst: tuple, plan: FloodingPlan,
-                    device: torch.device) -> int:
+def resident_blocks(inst: tuple, plan: FloodingPlan, device: torch.device,
+                    name: str = "flooding") -> int:
     """cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs for the kernel
-    instance `inst` launched by `plan` on `device` (queried once). Raises
-    when no block of the plan fits."""
-    key = (inst, plan.threads, plan.smem, str(device))
+    instance `inst` of the library `name` launched by `plan` on `device`
+    (queried once). Raises when no block of the plan fits."""
+    key = (name, inst, plan.threads, plan.smem, str(device))
     if key not in _RESIDENT:
-        lib = _lib("flooding", "flooding_blocks",
+        lib = _lib(name, "flooding_blocks",
                    [ctypes.c_int] * (len(inst) + 2) + [ctypes.c_void_p])
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = lib.flooding_blocks(*inst, plan.threads, plan.smem,
                                      ctypes.addressof(out))
         if rc != 0:
-            _raise_launch(lib, "flooding", rc)
+            _raise_launch(lib, name, rc)
         if out.value < 1:
             raise ValueError(f"flooding: no block of the plan {plan} fits "
                              f"the card")
@@ -283,36 +319,38 @@ def resident_blocks(inst: tuple, plan: FloodingPlan,
 
 
 def _prepared(graph: CompiledGraph, dev: torch.device, B: int, kind: str,
-              track: bool, frames: int = 0):
-    """(plan, blocks to launch, instance, cn, vn) of a launch, kept per
-    (graph, card, batch, kind, mode): the host work before a launch is time
-    the card waits."""
+              track: bool, frames: int = 0, name: str = "flooding"):
+    """(plan, blocks to launch, instance, cn, vn) of a launch of the
+    library `name`, kept per (graph, card, batch, kind, mode, library):
+    the host work before a launch is time the card waits."""
     def build(g, d):
         if d not in _SMS:
             _SMS[d] = torch.cuda.get_device_properties(d).multi_processor_count
         plan = flooding_plan(g, B, kind, _SMS[d], track, frames)
         inst = (g.dc_max, _RULE_IDS[kind], int(track),
                 int(plan.form == "global"), plan.lanes)
-        blocks = min(plan.tiles, resident_blocks(inst, plan, d))
+        blocks = min(plan.tiles, resident_blocks(inst, plan, d, name))
         return (plan, blocks, inst,
                 *_device_tables(g, d, "kernel", _kernel_tables))
 
-    return _device_tables(graph, dev, ("launch", B, kind, track, frames),
-                          build)
+    return _device_tables(graph, dev,
+                          ("launch", B, kind, track, frames, name), build)
 
 
 def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
             max_iters: int, early_term: bool, with_posteriors: bool = False,
-            frames: int = 0):
+            frames: int = 0, precision=None):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch; `frames`
     > 0 overrides the plan's F (bench/flooding_probe.py)."""
-    check_args(graph, kind, alpha, beta)
+    precision = check_precision(precision)
+    check_args(graph, kind, alpha, beta, precision)
     _check_llr(llr, graph.n, max_iters, "flooding_decode_cuda",
                "flooding_decode_plain")
     dev = llr.device
     B, n = llr.shape
+    name = "flooding" if precision is None else "flooding_prec"
     plan, blocks, inst, cn, vn = _prepared(graph, dev, B, kind,
-                                           bool(early_term), frames)
+                                           bool(early_term), frames, name)
     # the tile counter, then (form "global") each block's slab of state
     slab = blocks * plan.words * plan.frames if plan.form == "global" else 0
     scratch = torch.empty(4 + slab, dtype=torch.int32, device=dev)
@@ -323,7 +361,7 @@ def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
             if with_posteriors else None)
     ok = torch.empty(B, dtype=torch.bool, device=dev)  # written as 0/1 bytes
     iters = torch.empty(B, dtype=torch.int32, device=dev)
-    lib = _lib("flooding", "flooding_decode", _ARGS)
+    lib = _lib(name, "flooding_decode", _ARGS)
     with torch.cuda.device(dev):
         rc = lib.flooding_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
@@ -335,49 +373,58 @@ def _launch(graph: CompiledGraph, llr: torch.Tensor, kind: str, alpha, beta,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        _raise_launch(lib, "flooding", rc)
+        _raise_launch(lib, name, rc)
     flooding_decode_cuda.launches += 1
     flooding_decode_cuda.frames += B
+    flooding_decode_cuda.launches_by_precision[describe(precision)] += 1
     flooding_decode_cuda.last_plan = plan, blocks
     return DecodeResult(bits=bits, ok=ok, iterations=iters), post
 
 
 def flooding_decode_cuda(graph: CompiledGraph, llr: torch.Tensor, *,
                          kind: str = "minsum", alpha=1.0, beta=0.0,
-                         max_iters: int = 25,
-                         early_term: bool = True) -> DecodeResult:
+                         max_iters: int = 25, early_term: bool = True,
+                         precision=None) -> DecodeResult:
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
-    the flooding kernel on the current stream. Raises on anything the
-    kernel does not take; never falls back to the plain version."""
-    return _launch(graph, llr, kind, alpha, beta, max_iters, early_term)[0]
+    the flooding kernel on the current stream (the f32 library, or for
+    `precision` ("bf16",) the precision library, csrc/flooding.cu built
+    with -DLAYERED_PREC=1). Raises on anything the kernel does not take;
+    never falls back to the plain version."""
+    return _launch(graph, llr, kind, alpha, beta, max_iters, early_term,
+                   precision=precision)[0]
 
 
 def flooding_with_posteriors_cuda(graph: CompiledGraph, llr: torch.Tensor, *,
                                   kind: str = "minsum", alpha=1.0, beta=0.0,
                                   max_iters: int = 25,
-                                  early_term: bool = True):
+                                  early_term: bool = True, precision=None):
     """(DecodeResult, posteriors f32 [B, n]) of one launch: for holding the
     kernel against flooding_with_posteriors_plain."""
     return _launch(graph, llr, kind, alpha, beta, max_iters, early_term,
-                   with_posteriors=True)
+                   with_posteriors=True, precision=precision)
 
 
 flooding_decode_cuda.launches = 0
 flooding_decode_cuda.frames = 0
+# per precision ("f32", "bf16"): the libraries are apart
+flooding_decode_cuda.launches_by_precision = collections.Counter()
 # the last launch's (FloodingPlan, blocks launched), for printing
 flooding_decode_cuda.last_plan = None
 
 
 def make_flooding_decoder(graph: CompiledGraph, *, kind: str = "minsum",
                           alpha=1.0, beta=0.0, max_iters: int = 25,
-                          early_term: bool = True, device="cuda"):
+                          early_term: bool = True, device="cuda",
+                          precision=None):
     """decode(llr [B, n]) -> DecodeResult: the plain version on CPU
     tensors, the CUDA kernel on CUDA tensors; `device` (default "cuda",
-    which raises when CUDA is absent) is where its tables are built."""
-    check_args(graph, kind, alpha, beta)
+    which raises when CUDA is absent) is where its tables are built.
+    `precision`: None or ("bf16",) (tpu_flooding_precision)."""
+    precision = check_precision(precision)
+    check_args(graph, kind, alpha, beta, precision)
     dev = resolve_device(device)
     kw = dict(kind=kind, alpha=alpha, beta=beta, max_iters=max_iters,
-              early_term=early_term)
+              early_term=early_term, precision=precision)
     if dev.type == "cuda":
         _device_tables(graph, dev, "kernel", _kernel_tables)
     else:

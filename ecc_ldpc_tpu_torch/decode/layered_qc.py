@@ -3,8 +3,8 @@ wrappers of its three CUDA kernels (csrc/layered_qc.cu, min-sum;
 csrc/layered_exact.cu, exact BP; csrc/layered_classic.cu, every rule on
 graphs that repeat a block-column in a layer). Check z of a block reads
 variable graph/qc.var_index(z, s, Z, perm): (z + s) % Z on circulant graphs,
-z ^ s on XOR-permutation graphs (IEEE 802.3an), which the first two kernels
-take as their XOR instantiations and the classic kernel refuses.
+z ^ s on XOR-permutation graphs (IEEE 802.3an), which every kernel takes
+as its XOR instantiation.
 
 `layered_decode_plain` ports ecc_ldpc_tpu/decode/xla/layered.py::
 decode_layered: fixed-iteration mode (`early_term=False`, exactly
@@ -16,9 +16,10 @@ log|tanh| sum) and "minstar" (box-plus forward/backward scans), which
 ignore alpha/beta. On graphs with no duplicate column inside a layer
 (every DVB-S2, 802.11n, WiMAX and 5G NR table) signs follow the sign bits
 and a layer sets each posterior to V + Cnew; on multi-edge graphs (CCSDS
-AR4JA) it takes the oracle's other form: count signs (v < 0) and posterior
-updates that accumulate each slot's Cnew - Cold. It is the CPU path and
-the card's yardstick.
+AR4JA, and any circulant or xor graph qc_graph_from_block_edges builds
+with a block-column twice in a layer) it takes the oracle's other form:
+count signs (v < 0) and posterior updates that accumulate each slot's
+Cnew - Cold. It is the CPU path and the card's yardstick.
 
 `layered_decode_cuda` (min-sum), `layered_exact_cuda` (spa, minstar) and
 `layered_classic_cuda` (all three, multi-edge graphs) launch the kernels
@@ -43,9 +44,12 @@ layer_edges order, as the JAX package does.
 Message precision (decode/quant.py): every decoder here also stores its
 messages and LLRs in bf16 (`msg_dtype`, the Pallas kernel's storage,
 which `tpu_msg_dtype` picks as the TPU did) or on the q:BITS:STEP grid
-(`quant`), the plain version by `precision` (plain_with_posteriors), the
-kernels from their precision libraries (_build.LIBRARIES: the sources
-built with -DLAYERED_PREC=1), so the f32 libraries stay as they were.
+(`quant`), and the min-sum decoder on a xor graph rounds the operands of
+its permutations to bf16 (`perm_dtype`, the TPU's XOR kernel, which
+`tpu_precision` picks), the plain version by `precision`
+(plain_with_posteriors), the kernels from their precision libraries
+(_build.LIBRARIES: the sources built with -DLAYERED_PREC=1), so the f32
+libraries stay as they were.
 """
 from __future__ import annotations
 
@@ -59,7 +63,15 @@ import torch
 
 from ..device import resolve_device
 from ..graph.qc import PERMS, QCGraph, var_index
-from .quant import BF16, check_precision, describe, quant_limit, rounder
+from .quant import (
+    BF16,
+    PERM,
+    check_precision,
+    describe,
+    quant_limit,
+    round_bf16,
+    rounder,
+)
 from .types import DecodeResult
 
 _MAG_CAP = 1e12
@@ -67,15 +79,13 @@ _SPA_TANH_CLIP = 1.0 - 1e-7  # keeps 2*atanh finite (layered.py:86)
 _MINSTAR_IDENTITY = 1e9      # box-plus identity: a degree-1 row's message
 _SIGN = -(1 << 31)           # the f32 sign bit as an int32
 CN_RULES = ("minsum", "spa", "minstar")
-# the cards' row widths by tile form: the min-sum and exact-BP kernels
-# (form "set", csrc/layered_qc.cu, csrc/layered_exact.cu) and the QC
-# flooding kernel (csrc/flooding_qc.cu, its MAX_DEG) hold a row in
-# registers in 8- to 64-wide builds and take any wider row in their wide
-# builds (the row walked in memory); the classic kernel
-# (csrc/layered_classic.cu) builds 8, 16 and 32 and is the one card limit
-# (ROADMAP.md Queue 3). The plain versions take any degree.
+# the cards' row widths: every tile kernel (the min-sum and exact-BP
+# kernels of form "set", csrc/layered_qc.cu and csrc/layered_exact.cu; the
+# classic kernel, csrc/layered_classic.cu; the QC flooding kernel,
+# csrc/flooding_qc.cu, its MAX_DEG) holds a row in registers in 8- to
+# 64-wide builds and takes any wider row in its wide build (the row walked
+# in memory), as the plain versions take any degree.
 MAX_DEG = 64
-MAX_DEG_CLASSIC = 32
 FLOODING_MAX_DEG = 64
 _THREADS = 512  # threads per CUDA block at most (__launch_bounds__)
 # csrc/cluster_tile.cuh, csrc/state_tile.cuh: shared memory a block may use
@@ -112,26 +122,11 @@ def _schedule(alpha, beta, max_iters: int, cn: str = "minsum"):
 
 
 def check_graph(graph: QCGraph) -> None:
-    """Raise on graphs this module does not decode, on any device (the
-    card's degree caps are check_degree's)."""
+    """Raise on graphs this module does not decode: anything but a
+    QCGraph (every QCGraph decodes, on either device)."""
     if not isinstance(graph, QCGraph):
         raise TypeError("layered decoding needs the port's QCGraph "
                         "(graph.qc.compile_qc_graph)")
-    if graph.perm == "xor" and not graph.intra_layer_dup_free:
-        raise ValueError(
-            f"{graph.name}: a layer of this xor-permutation graph repeats a "
-            f"block-column; the accumulate form (csrc/layered_classic.cu) "
-            f"serves circulant graphs only")
-
-
-def check_degree(name: str, degree: int, cap: int, kernel: str) -> None:
-    """Raise where a row of `degree` is wider than the card's `kernel`
-    builds (`cap`: the classic kernel's 32); the plain version decodes
-    it."""
-    if degree > cap:
-        raise ValueError(
-            f"{name}: row degree {degree} exceeds {kernel}'s limit {cap} on "
-            f"the card (ROADMAP.md Queue 3); the plain version decodes it")
 
 
 def _device_tables(graph: QCGraph, device: torch.device, kind: str, build):
@@ -259,7 +254,8 @@ def _syndrome_fail_plain(layers, total: torch.Tensor, Z: int) -> torch.Tensor:
 
 
 def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
-                 reverse=False, store=None, post_rounded=False):
+                 reverse=False, store=None, post_rounded=False,
+                 post_store=None):
     """One layered iteration, in place on total [n, B] and C [BE, Z, B],
     with check rule `rule` (V [d, Z, B] -> Cnew). With `frozen` (bool [B],
     track mode) frozen frames keep their state exactly and the on-the-fly
@@ -276,7 +272,11 @@ def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
     each message before it is stored, Q(Cnew), after track mode's freeze
     (Q(Cold) is Cold). The accumulate form then adds Q(Cnew) - Cold; the
     set form adds Q(Cnew) where `post_rounded` (q:, and bf16 in track
-    mode), else the unrounded Cnew (the TPU kernel's bf16 fixed mode)."""
+    mode), else the unrounded Cnew (the TPU kernel's bf16 fixed mode).
+    `post_store` (("bf16-perm",): round_bf16) rounds each set-form
+    posterior as it is written, V + Cnew passing the permutation back to
+    the variables (layered_xor.py:175-178); its sign bit, which track mode
+    compares, is the unrounded sum's."""
     B = total.shape[1]
     track = frozen is not None
     fail = torch.zeros(B, dtype=torch.bool, device=total.device)
@@ -312,6 +312,8 @@ def _sweep_plain(layers, total, C, Z, rule, frozen, accumulate=False,
                          != torch.signbit(rolled)).any(0).any(0)
             else:
                 new = V + Cnew
+            if post_store is not None:
+                new = post_store(new)
             total[idx] = new.view(d * Z, B)
         C[eids] = Cq
     return fail
@@ -336,7 +338,12 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     read them) and every stored message; the set form's posterior takes
     the rounded message under q: and in bf16 track mode, the unrounded one
     in bf16 fixed mode (ecc_ldpc_tpu/decode/pallas/layered_qc.py:394,
-    :376-380), and the accumulate form adds Q(Cnew) - Cold in every mode."""
+    :376-380), and the accumulate form adds Q(Cnew) - Cold in every mode.
+    ("bf16-perm",), the TPU's XOR kernel on a dup-free graph
+    (layered_xor.py:74-85: a permutation is one bf16 matmul pass): every
+    posterior a check reads, and every one a layer writes, is rounded to
+    bf16, so the LLRs are rounded as they load (a frame done before its
+    first sweep reports them so), the messages stay f32."""
     check_graph(graph)
     if sign_mode not in ("bitxor", "count"):
         raise KeyError(f"sign_mode must be bitxor/count, got {sign_mode!r}")
@@ -344,6 +351,12 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     Z = graph.Z
     alphas, betas, _ = _schedule(alpha, beta, max_iters, cn)
     precision = check_precision(precision)
+    # graphs with a column repeated in a layer: count signs, accumulate form
+    dup = not graph.intra_layer_dup_free
+    if precision == PERM and (graph.perm != "xor" or dup or cn != "minsum"):
+        raise ValueError(
+            f"{graph.name}: ('bf16-perm',) is the TPU's XOR min-sum kernel "
+            f"on a graph that repeats no block-column in a layer")
     store = rounder(precision)
     layers = _device_tables(graph, llr.device, "plain", _plain_layers)
     total = llr.to(torch.float32).t().contiguous()  # [n, B]
@@ -351,10 +364,10 @@ def plain_with_posteriors(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
         total = store(total)
     C = torch.zeros((graph.num_block_edges, Z, B), dtype=torch.float32,
                     device=llr.device)
-    # graphs with a column repeated in a layer: count signs, accumulate form
-    dup = not graph.intra_layer_dup_free
     form = dict(accumulate=dup, reverse=dup and cn == "minstar")
-    if precision is not None:
+    if precision == PERM:
+        form.update(post_store=round_bf16)
+    elif precision is not None:
         form.update(store=store,
                     post_rounded=post_rounded(precision, early_term))
 
@@ -548,7 +561,7 @@ def _state_tables(graph: QCGraph, form: str) -> int:
     barrier masks or flooding's column pointers."""
     BE, mb = graph.num_block_edges, graph.mb
     if form == "classic":
-        return 12 * BE + 4 * (mb + 1) + 4 * mb
+        return 12 * BE + 4 * (mb + 1) + 4 * mb * mask_words(graph.dcb_max)
     return 24 * BE + 4 * (mb + 1) + 4 * (graph.nb + 1)
 
 
@@ -583,9 +596,6 @@ def candidate_plans(graph: QCGraph, batch: int, cn: str = "minsum",
         raise ValueError(f"batch must be >= 1, got {batch}")
     if graph.mb < 2 and form == "set":
         raise ValueError(f"{graph.name}: the tile kernels need >= 2 layers")
-    if form == "classic":  # the other forms take any degree
-        check_degree(graph.name, graph.dcb_max, MAX_DEG_CLASSIC,
-                     "the classic tile kernels")
     Z, nb = graph.Z, graph.nb
     # words a check (min_sum_words; exact BP: every message)
     d = graph.dcb_max
@@ -722,13 +732,13 @@ def _lib(name: str, entry: str, argtypes):
 
 def _library(source: str, precision, perm: str = "roll") -> str:
     """The library of a layered source for a precision: its f32 build, or
-    (bf16, q:) its precision build, the xor half where it has one."""
+    (bf16, q:, the xor kernel's bf16 permutations) its precision build,
+    the xor half where it has one."""
     from .. import _build
 
-    if precision is None:
-        return source
-    xor = f"{source}_prec_xor"
-    return xor if perm == "xor" and xor in _build.LIBRARIES else f"{source}_prec"
+    name = source if precision is None else f"{source}_prec"
+    xor = f"{name}_xor"
+    return xor if perm == "xor" and xor in _build.LIBRARIES else name
 
 
 # each entry ends in the message precision (prec, post_round, step, lim;
@@ -739,8 +749,8 @@ _QC_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
             + [ctypes.c_void_p])
 _EXACT_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 19 + _PREC_ARGS
                + [ctypes.c_void_p])
-_CLASSIC_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 10
+_CLASSIC_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                 + [ctypes.c_float] * 2 + [ctypes.c_int] * 11
                  + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _RESIDENT = {}  # (library, kernel instance, plan shape, card) -> clusters
 _SMS = {}       # card -> its SM count
@@ -834,8 +844,6 @@ def _check_cuda_input(graph: QCGraph, llr: torch.Tensor, max_iters: int,
     the other two only graphs that do not."""
     _check_llr(llr, graph.n, max_iters, who, "layered_decode_plain")
     check_graph(graph)
-    if classic:
-        check_degree(graph.name, graph.dcb_max, MAX_DEG_CLASSIC, who)
     if classic and graph.intra_layer_dup_free:
         raise ValueError(
             f"{graph.name}: no layer repeats a block-column; its kernels are "
@@ -851,28 +859,36 @@ def _raise_launch(lib, name: str, rc: int) -> None:
     raise RuntimeError(f"{name} kernel launch failed: cudaError {rc} ({err})")
 
 
-def kernel_precision(msg_dtype=torch.float32, quant=None):
+def kernel_precision(msg_dtype=torch.float32, quant=None,
+                     perm_dtype=torch.float32):
     """The precision (decode/quant.py) of a kernel wrapper's `msg_dtype`
     (torch.float32 or torch.bfloat16, as the JAX package's
-    make_layered_pallas_decoder takes it, LLRs stored alike) or `quant`
-    (bits, step): None, ("bf16",) or ("q", bits, step). Raises on both at
-    once: bf16 storage and the q: grid are two different roundings."""
-    if msg_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"msg_dtype must be torch.float32 or torch.bfloat16, "
-                        f"got {msg_dtype}")
+    make_layered_pallas_decoder takes it, LLRs stored alike), `quant`
+    (bits, step) or `perm_dtype` (torch.bfloat16: the operands of the
+    permutations rounded, as the TPU's XOR kernel's one-pass matmuls
+    round them): None, ("bf16",), ("q", bits, step) or ("bf16-perm",).
+    Raises on two at once: they are different roundings."""
+    for name, dt in (("msg_dtype", msg_dtype), ("perm_dtype", perm_dtype)):
+        if dt not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name} must be torch.float32 or "
+                            f"torch.bfloat16, got {dt}")
+    bf16, perm = msg_dtype == torch.bfloat16, perm_dtype == torch.bfloat16
+    if bf16 + (quant is not None) + perm > 1:
+        raise ValueError(
+            "msg_dtype=torch.bfloat16, quant=(bits, step) and "
+            "perm_dtype=torch.bfloat16 are different roundings: pass one, "
+            "not both of any two")
     if quant is not None:
-        if msg_dtype != torch.float32:
-            raise ValueError(
-                "pass msg_dtype=torch.bfloat16 or quant=(bits, step), not "
-                "both: bf16 storage and the q: grid are two roundings")
         return check_precision(("q", *quant))
-    return BF16 if msg_dtype == torch.bfloat16 else None
+    return BF16 if bf16 else PERM if perm else None
 
 
 def _prec_args(precision, track: bool) -> tuple:
     """(prec, post_round, step, lim) of csrc/cluster_tile.cuh's ct::Prec."""
     if precision is None:
         return 0, 0, 1.0, 0.0
+    if precision == PERM:
+        return 3, 0, 1.0, 0.0
     post = int(post_rounded(precision, track))
     if precision == BF16:
         return 1, post, 1.0, 0.0
@@ -903,17 +919,29 @@ def _minsum_args(graph: QCGraph, alpha, beta, max_iters: int,
     return out
 
 
+def _check_perm(graph: QCGraph, precision, cn: str) -> None:
+    """Raise where ("bf16-perm",) is asked of what the TPU's XOR min-sum
+    kernel did not decode (plain_with_posteriors's rule)."""
+    if precision == PERM and (graph.perm != "xor" or cn != "minsum"
+                              or not graph.intra_layer_dup_free):
+        raise ValueError(
+            f"{graph.name}: perm_dtype=torch.bfloat16 is the TPU's XOR "
+            f"min-sum kernel's rounding, on xor graphs that repeat no "
+            f"block-column in a layer")
+
+
 def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
                    max_iters: int, early_term: bool, cn: str,
                    with_posteriors: bool = False, msg_dtype=torch.float32,
-                   quant=None):
+                   quant=None, perm_dtype=torch.float32):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     layered min-sum kernel on the current stream."""
-    precision = kernel_precision(msg_dtype, quant)
+    precision = kernel_precision(msg_dtype, quant, perm_dtype)
     if cn != "minsum":
         raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
                          f"spa and minstar are layered_exact_cuda's")
     _check_cuda_input(graph, llr, max_iters, "layered_decode_cuda")
+    _check_perm(graph, precision, cn)
     dev, B, Z = llr.device, llr.shape[0], graph.Z
     ab, a0, b0, fast_mag = _minsum_args(graph, alpha, beta, max_iters,
                                         early_term, dev)
@@ -947,27 +975,31 @@ def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
 def layered_decode_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
                         beta=0.0, max_iters: int = 25,
                         early_term: bool = True, cn: str = "minsum",
-                        msg_dtype=torch.float32, quant=None) -> DecodeResult:
+                        msg_dtype=torch.float32, quant=None,
+                        perm_dtype=torch.float32) -> DecodeResult:
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
     the layered min-sum kernel on the current stream (the exact rules are
     layered_exact_cuda's), its roll or xor instantiation by graph.perm,
     with messages (and LLRs) stored in f32, in bf16 (`msg_dtype`) or on
-    the q: grid (`quant` = (bits, step); kernel_precision). Raises on
-    anything the kernel does not take; never falls back to the plain
-    version."""
+    the q: grid (`quant` = (bits, step)), or on a xor graph with the
+    permutations' operands rounded to bf16 (`perm_dtype`;
+    kernel_precision). Raises on anything the kernel does not take; never
+    falls back to the plain version."""
     return _launch_minsum(graph, llr, alpha, beta, max_iters, early_term,
-                          cn, msg_dtype=msg_dtype, quant=quant)[0]
+                          cn, msg_dtype=msg_dtype, quant=quant,
+                          perm_dtype=perm_dtype)[0]
 
 
 def minsum_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
                                 alpha=1.0, beta=0.0, max_iters: int = 25,
                                 early_term: bool = True, cn: str = "minsum",
-                                msg_dtype=torch.float32, quant=None):
+                                msg_dtype=torch.float32, quant=None,
+                                perm_dtype=torch.float32):
     """(DecodeResult, posteriors f32 [B, n]) of one launch of the layered
     min-sum kernel, for holding it against plain_with_posteriors."""
     return _launch_minsum(graph, llr, alpha, beta, max_iters, early_term, cn,
                           with_posteriors=True, msg_dtype=msg_dtype,
-                          quant=quant)
+                          quant=quant, perm_dtype=perm_dtype)
 
 
 layered_decode_cuda.launches = 0
@@ -1051,10 +1083,20 @@ layered_exact_cuda.launches_by_precision = collections.Counter()
 layered_exact_cuda.last_plan = None
 
 
+def mask_words(degree: int) -> int:
+    """32-bit words of a layer's barrier mask in the classic kernel's
+    table: one to 32 slots, ceil(degree / 32) above."""
+    return max(1, -(-degree // 32))
+
+
 def _classic_table(graph: QCGraph, device, cn: str):
     """int32: _kernel_table, then the accumulate step's barrier masks
-    (classic_barriers: minstar visits a layer's slots backward)."""
-    masks = np.asarray(classic_barriers(graph, cn), np.uint32).view(np.int32)
+    (classic_barriers: minstar visits a layer's slots backward), each
+    mask_words(dcb_max) words, the low word first."""
+    W = mask_words(graph.dcb_max)
+    masks = np.asarray([(m >> (32 * k)) & 0xFFFFFFFF
+                        for m in classic_barriers(graph, cn)
+                        for k in range(W)], np.uint32).view(np.int32)
     tab = np.concatenate([_kernel_table(graph, "cpu").numpy(), masks])
     return torch.as_tensor(tab, device=device)
 
@@ -1067,11 +1109,6 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
     layered kernel for graphs that repeat a block-column in a layer."""
     alphas, betas, per_iter = _schedule(alpha, beta, max_iters, cn)
     precision = kernel_precision(msg_dtype, quant)
-    if graph.perm != "roll":
-        raise ValueError(
-            f"{graph.name}: layered_classic_cuda's accumulate form reads "
-            f"circulant blocks only, not {graph.perm!r} blocks; a dup-free "
-            f"xor graph is layered_decode_cuda's and layered_exact_cuda's")
     _check_cuda_input(graph, llr, max_iters, "layered_classic_cuda",
                       classic=True)
     dev, B = llr.device, llr.shape[0]
@@ -1079,16 +1116,19 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
                          lambda g, d: _classic_table(g, d, cn))
     ab = (torch.as_tensor(np.stack([alphas, betas]), device=dev)
           if per_iter else None)
-    inst = (graph.dcb_max, CN_RULES.index(cn), int(early_term))
-    name = _library("layered_classic", precision)
+    inst = (graph.dcb_max, CN_RULES.index(cn), int(early_term),
+            int(graph.perm == "xor"))
+    name = _library("layered_classic", precision, graph.perm)
     plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
         name, inst, graph, llr, cn, early_term, with_posteriors, "classic")
+    wide = wide_scratch(graph.dcb_max, cn,
+                        clusters * plan.cluster * plan.threads, dev)
     lib = _lib(name, "layered_classic_decode", _CLASSIC_ARGS)
     prec, _, step, lim = _prec_args(precision, early_term)
     with torch.cuda.device(dev):
         rc = lib.layered_classic_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
-            iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(ab),
+            iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(ab), _ptr(wide),
             graph.Z, graph.mb, graph.nb, graph.num_block_edges, B, max_iters,
             graph.dcb_max, float(alphas[0]), float(betas[0]), *inst[1:],
             plan.cluster, plan.lg_cluster, plan.frames, plan.tiles,
@@ -1099,6 +1139,7 @@ def _launch_classic(graph: QCGraph, llr: torch.Tensor, alpha, beta,
         _raise_launch(lib, name, rc)
     layered_classic_cuda.launches += 1
     layered_classic_cuda.frames += B
+    layered_classic_cuda.launches_by_perm[graph.perm] += 1
     layered_classic_cuda.by_rule[cn] += 1
     layered_classic_cuda.frames_by_rule[cn] += B
     layered_classic_cuda.launches_by_precision[describe(precision)] += 1
@@ -1113,7 +1154,8 @@ def layered_classic_cuda(graph: QCGraph, llr: torch.Tensor, *, alpha=1.0,
     """llr f32 [B, n] on a CUDA device -> DecodeResult, by one launch of
     the layered kernel for graphs that repeat a block-column in a layer
     (csrc/layered_classic.cu: min-sum, spa and minstar in the accumulate
-    form with count signs) on the current stream, messages stored as
+    form with count signs; its roll or xor instantiation by graph.perm,
+    rows of any degree) on the current stream, messages stored as
     layered_decode_cuda's. Raises on anything the kernel does not take,
     dup-free graphs included; never falls back to the plain version."""
     return _launch_classic(graph, llr, alpha, beta, max_iters, early_term,
@@ -1133,6 +1175,7 @@ def classic_with_posteriors_cuda(graph: QCGraph, llr: torch.Tensor, *,
 
 layered_classic_cuda.launches = 0
 layered_classic_cuda.frames = 0
+layered_classic_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 layered_classic_cuda.launches_by_precision = collections.Counter()
 # per rule: one kernel serves a retry decoder's primary and its fallback
 layered_classic_cuda.by_rule = dict.fromkeys(CN_RULES, 0)         # launches
@@ -1143,22 +1186,27 @@ layered_classic_cuda.last_plan = None
 def make_layered_decoder(graph: QCGraph, *, alpha=1.0, beta=0.0,
                          max_iters: int = 25, early_term: bool = True,
                          cn: str = "minsum", device="cuda",
-                         msg_dtype=torch.float32, quant=None):
+                         msg_dtype=torch.float32, quant=None,
+                         perm_dtype=torch.float32):
     """decode(llr [B, n]) -> DecodeResult. The decoder runs the plain
     version on CPU tensors and a CUDA kernel on CUDA tensors: on graphs
     that repeat a block-column in a layer the classic kernel for every
     rule, otherwise the min-sum or the exact-BP kernel by rule `cn`, each
-    in its roll or xor instantiation by graph.perm (a xor graph that
-    repeats a block-column in a layer raises, on every device).
-    `device` (default "cuda", which raises when CUDA is absent) is where
-    its tables are built up front. Exact rules ignore alpha/beta.
-    Messages and LLRs are stored in f32, in bf16 (`msg_dtype`, the TPU
-    kernel's storage: tpu_msg_dtype) or on the q: grid (`quant` = (bits,
-    step)), on either device (kernel_precision)."""
+    in its roll or xor instantiation by graph.perm. `device` (default
+    "cuda", which raises when CUDA is absent) is where its tables are
+    built up front. Exact rules ignore alpha/beta. Messages and LLRs are
+    stored in f32, in bf16 (`msg_dtype`, the TPU kernel's storage:
+    tpu_msg_dtype) or on the q: grid (`quant` = (bits, step)), or a xor
+    graph's permutations round their operands to bf16 (`perm_dtype`, the
+    TPU's XOR kernel: tpu_precision), on either device
+    (kernel_precision)."""
     check_graph(graph)
     _schedule(alpha, beta, max_iters, cn)
     prec = dict(msg_dtype=msg_dtype, quant=quant)
-    precision = kernel_precision(**prec)
+    precision = kernel_precision(msg_dtype, quant, perm_dtype)
+    _check_perm(graph, precision, cn)
+    if precision == PERM:
+        prec = dict(perm_dtype=perm_dtype)
     dev = resolve_device(device)
     kw = dict(alpha=alpha, beta=beta, max_iters=max_iters,
               early_term=early_term, cn=cn)
@@ -1220,3 +1268,36 @@ def tpu_msg_dtype(graph: QCGraph, cn: str = "minsum") -> torch.dtype:
     if _tpu_fits(graph, 2, cn) and not _tpu_fits(graph, 4, cn):
         return torch.bfloat16
     return torch.float32
+
+
+def xor_kernel_fits(graph: QCGraph, kind: str = "minsum",
+                    schedule: str = "layered") -> bool:
+    """The JAX package's ecc_ldpc_tpu/decode/pallas/layered_xor.py
+    `supports(graph, batch_tile=256, msg_bytes=4, kind, schedule)`: a xor
+    graph that repeats no block-column in a layer, min-sum, Z % 8 == 0,
+    Z <= 1024, and its state with the one-hot permutation tables within
+    100 MiB of VMEM."""
+    if graph.perm != "xor" or kind != "minsum":
+        return False
+    if not graph.intra_layer_dup_free:
+        return False
+    Z, nb, BE = graph.Z, graph.nb, graph.num_block_edges
+    if Z % 8 or Z > 1024:
+        return False
+    state = Z * 256 * (4 * BE + 12 * nb + 4 * graph.dcb_max
+                       + (4 * nb if schedule == "flooding" else 0)) \
+        + 2 * 4 * BE * Z * Z
+    return state <= 100 * 1024 * 1024
+
+
+def tpu_precision(graph: QCGraph, cn: str = "minsum"):
+    """The precision (decode/quant.py) of the JAX package's Pallas layered
+    decoder for `graph` and rule `cn` on the TPU (`/pallas`;
+    ecc_ldpc_tpu/decode/api.py:107-149 there): on a xor graph its XOR
+    kernel's bf16 permutations, ("bf16-perm",), where that kernel takes
+    the graph (minsum, xor_kernel_fits); else the storage tpu_msg_dtype
+    gives, ("bf16",) or None (f32). The JAX package refuses the rest of
+    the xor graphs; the port decodes them in f32."""
+    if graph.perm == "xor":
+        return PERM if xor_kernel_fits(graph, cn) else None
+    return BF16 if tpu_msg_dtype(graph, cn) == torch.bfloat16 else None

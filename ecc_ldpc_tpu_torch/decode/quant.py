@@ -3,17 +3,23 @@
 quantize) and the bf16 round trip of the TPU kernel's message storage
 (ecc_ldpc_tpu/decode/pallas/layered_qc.py, msg_dtype = llr_dtype = bf16).
 
-A precision is None (f32), ("bf16",) or ("q", bits, step). Where each
-rounding applies in a layered decode is decode/layered_qc.py's contract:
-the LLRs loaded into the posteriors, the messages stored, and (by mode and
-graph form) the message added to the posteriors. The CUDA kernels do the
-same roundings in the same op order (csrc/cluster_tile.cuh, ct::Prec).
+A precision is None (f32), ("bf16",), ("q", bits, step) or
+("bf16-perm",). Where each rounding applies in a layered decode is
+decode/layered_qc.py's contract: the LLRs loaded into the posteriors, the
+messages stored, and (by mode and graph form) the message added to the
+posteriors. The CUDA kernels do the same roundings in the same op order
+(csrc/cluster_tile.cuh, ct::Prec). ("bf16-perm",) is the TPU's XOR kernel
+(ecc_ldpc_tpu/decode/pallas/layered_xor.py:74-85): its permutations are
+one-pass bf16 matmuls, so every operand of a permutation is rounded to
+bf16 while the messages stay f32 (decode/layered_qc.py and
+decode/flooding_qc.py say where).
 """
 from __future__ import annotations
 
 import torch
 
 BF16 = ("bf16",)
+PERM = ("bf16-perm",)
 
 
 def quant_limit(bits: int) -> float:
@@ -44,7 +50,7 @@ def check_precision(precision) -> tuple | None:
     if precision is None:
         return None
     precision = tuple(precision)
-    if precision == BF16:
+    if precision in (BF16, PERM):
         return precision
     if len(precision) == 3 and precision[0] == "q":
         bits, step = int(precision[1]), float(precision[2])
@@ -53,15 +59,16 @@ def check_precision(precision) -> tuple | None:
         if not step > 0:
             raise ValueError(f"quantizer step {step} must be positive")
         return ("q", bits, step)
-    raise ValueError(f"precision must be None, ('bf16',) or ('q', bits, "
-                     f"step), got {precision!r}")
+    raise ValueError(f"precision must be None, ('bf16',), ('bf16-perm',) "
+                     f"or ('q', bits, step), got {precision!r}")
 
 
 def rounder(precision):
-    """The rounding of `precision` as a function of a tensor (None: f32)."""
+    """The rounding of `precision` as a function of a tensor (None: f32;
+    ("bf16-perm",) rounds to bf16 too, at the permutations only)."""
     if precision is None:
         return None
-    if precision == BF16:
+    if precision in (BF16, PERM):
         return round_bf16
     _, bits, step = precision
     return lambda x: quantize(x, bits, step)
@@ -71,6 +78,6 @@ def describe(precision) -> str:
     """'f32', 'bf16' or 'q:BITS:STEP' (the spec's own form)."""
     if precision is None:
         return "f32"
-    if precision == BF16:
-        return "bf16"
+    if precision in (BF16, PERM):
+        return precision[0]
     return f"q:{precision[1]}:{precision[2]:g}"

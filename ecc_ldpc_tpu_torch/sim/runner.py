@@ -64,9 +64,9 @@ class SweepSpec:
     batch: int = 256
     seed: int = 0
     stopping: StoppingRule = StoppingRule()
-    # decoder backend override (decode/api.make_decoder): "pallas" stores a
-    # layered decoder's messages as the TPU's kernel did; None keeps the
-    # spec's own
+    # decoder backend override (decode/api.make_decoder): "pallas" rounds
+    # as the TPU's kernels did, "xla-mm" decodes the expanded graph; both
+    # pick the graph view too (choose_graph); None keeps the spec's own
     backend: Optional[str] = None
     channel: str = "bpsk"  # channel-spec string (chan/modem.py)
 
@@ -224,7 +224,7 @@ def _ldpc_pipeline(spec: SweepSpec, dev: torch.device) -> Pipeline:
 
     code = get_code(spec.code)
     channel = build_channel(code, spec.channel)
-    graph = choose_graph(code, spec.decoder)
+    graph = choose_graph(code, spec.decoder, backend=spec.backend)
     enc = build_encoder(code)
     overrides = {"backend": spec.backend} if spec.backend else {}
     dec = get_decoder(graph, spec.decoder, device=dev, **overrides)

@@ -248,11 +248,13 @@ def test_backends_and_kinds_route(small):
     _, g, llr = small
     x = torch.from_numpy(llr)
     ref = flooding_decode_plain(g, x, kind="spa", max_iters=5)
-    for part in ("pallas", "xla", "auto"):  # parsed, no effect
+    # spa keeps f32 under every backend (the TPU's bf16 matmul inputs are
+    # min-sum's); xla-mm is K2's arithmetic at f32
+    for part in ("pallas", "xla", "auto", "xla-mm"):
         got = get_decoder(g, f"spa/5/{part}", device="cpu")(x)
         assert torch.equal(got.bits, ref.bits)
-    with pytest.raises(ValueError, match="only for the TPU"):
-        get_decoder(g, "spa/5/xla-mm", device="cpu")
+    with pytest.raises(KeyError, match="spa/minsum"):
+        get_decoder(g, "minstar/5/xla-mm", device="cpu")
     with pytest.raises(KeyError, match="cn="):
         from ecc_ldpc_tpu_torch.decode.api import make_decoder
 

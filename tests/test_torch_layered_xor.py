@@ -261,17 +261,27 @@ def test_xor_index_and_tables(toy):
 
 
 def test_xor_graph_with_repeated_column_is_refused():
-    """A xor graph whose layer repeats a block-column has no accumulate
-    form in the port: every layered entry point raises, on every device."""
+    """A xor graph whose layer repeats a block-column decodes in the
+    accumulate form (tests/test_torch_multi_edge.py holds it against the
+    JAX oracle); it is refused where the JAX package refuses it on
+    meaning: the TPU's xor kernel's bf16 permutations (dup-free graphs
+    only) and the Z-sharded graph-parallel tier (circulant blocks only)."""
+    from ecc_ldpc_tpu_torch.dist.graph_parallel import (
+        make_qc_graph_parallel_decoder,
+    )
+
     g = qc_graph_from_block_edges(8, 2, 3, [0, 0, 1, 1], [0, 0, 1, 2],
                                   [1, 2, 0, 3], k=8, perm="xor")
     assert not g.intra_layer_dup_free
     x = torch.zeros((2, g.n))
-    with pytest.raises(ValueError, match="repeats a block-column"):
-        make_layered_decoder(g, max_iters=2, device="cpu")
-    with pytest.raises(ValueError, match="repeats a block-column"):
-        layered_decode_plain(g, x, max_iters=2)
-    with pytest.raises(ValueError, match="circulant"):
+    res = make_layered_decoder(g, max_iters=2, device="cpu")(x)
+    assert res.bits.shape == (2, g.n) and bool(res.ok.all())
+    with pytest.raises(ValueError, match="repeat no block-column"):
+        make_layered_decoder(g, max_iters=2, device="cpu",
+                             perm_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="circulant blocks"):
+        make_qc_graph_parallel_decoder(g, kind="minsum", device="cpu")
+    with pytest.raises(ValueError, match="CUDA tensor"):
         layered_classic_cuda(g, x, max_iters=2)
     # flooding has no such limit
     dec = make_decoder(g, "minsum", max_iters=2, device="cpu")
@@ -355,7 +365,7 @@ def test_cuda_paths_refuse_the_cpu(toy):
         layered_exact_cuda(g, x, max_iters=2, cn="spa")
     with pytest.raises(ValueError, match="CUDA tensor"):
         flooding_qc_decode_cuda(g, x, max_iters=2)
-    with pytest.raises(ValueError, match="circulant"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         layered_classic_cuda(g, x, max_iters=2)
     assert [dict(c) for c in counters] == before
 

@@ -148,15 +148,15 @@ def test_spec_parsing_limits():
     assert parse_decoder_spec("layered/norm:0.8125/25/noet") == dict(
         kind="layered", alpha=0.8125, max_iters=25, early_term=False)
     # quantization, cleanup and the bit-flipping kinds (also behind
-    # ;retry=) decode: a noiseless frame passes at once; the TPU's
-    # incidence-matmul backend is refused
+    # ;retry=) decode: a noiseless frame passes at once; the
+    # incidence-matmul backend decodes the expanded graph, not the QC view
     graph = compile_qc_graph(get_code("dvbs2/16200/12"))
     llr = torch.full((2, graph.n), 3.0)
     for spec in ("layered/q:5:0.5/25", "layered/norm:0.8/25/cleanup",
                  "bitflip/50", "layered/norm:0.8/25;retry=gdbf/theta:-0.5/50"):
         res = get_decoder(graph, spec, device="cpu")(llr)
         assert bool(res.ok.all()) and not bool(res.bits.any()), spec
-    with pytest.raises(ValueError, match="only for the TPU"):
+    with pytest.raises(TypeError, match="expanded graph"):
         get_decoder(graph, "minsum/25/xla-mm", device="cpu")
     with pytest.raises(ValueError):
         parse_decoder_spec("layered/norm:0.8/sched:dvbs2_64800_12_T25")

@@ -313,7 +313,7 @@ def test_barrier_groups_commute(cn, mode):
 
 
 @pytest.mark.parametrize("src,inst", [("layered_qc", 4), ("layered_exact", 4),
-                                      ("layered_classic", 3),
+                                      ("layered_classic", 4),
                                       ("flooding_qc", 4)])
 def test_cluster_queries_take_what_the_wrappers_pass(src, inst):
     """resident_clusters passes the kernel instance's ints, then cs,

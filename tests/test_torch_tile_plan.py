@@ -256,30 +256,27 @@ def test_emulation_bit_identical_to_plain(code, ebn0, cn, mode, layout):
 
 def test_degree_caps_are_the_cards():
     """Rows of 33-64 get a plan of the 64-wide builds (5 words of min-sum
-    check state); above 64 the forms "set" and "flooding" plan their wide
-    builds (3 + ceil(d/32) words of min-sum check state), and the classic
-    form stops at 32, naming ROADMAP.md Queue 3; the plain version decodes
-    any degree."""
+    check state); above 64 every form plans its wide build (3 + ceil(d/32)
+    words of min-sum check state; the classic form's barrier masks
+    ceil(d/32) words a layer); the plain version decodes any degree."""
     from ecc_ldpc_tpu_torch.codes.qc import QCCode, expand_qc
 
     g = graph_of("dvbs2/16200/910")
     assert g.dcb_max == 34
     assert lq.tile_plan(g, 4096, "minsum").stride % 4 == 0
-    assert lq.MAX_DEG == 64 and lq.MAX_DEG_CLASSIC == 32
+    assert lq.MAX_DEG == 64 and not hasattr(lq, "MAX_DEG_CLASSIC")
     wide = compile_qc_graph(expand_qc(
         QCCode(Z=4, base=np.zeros((2, 67), np.int32)), name="wide67",
         k=65 * 4))
     assert wide.dcb_max == 67
     lq.check_graph(wide)  # the plain version takes any degree
-    for form in ("set", "flooding"):
+    for form in ("set", "flooding", "classic"):
         plan = lq.tile_plan(wide, 8, form=form)
         assert plan.threads <= 512 and plan.smem <= lq._SMEM_BLOCK
     assert lq.tile_plan(wide, 8, "minsum").stride % 4 == 0
     assert lq.min_sum_words(67) == 6 and lq.min_sum_words(64) == 5
-    with pytest.raises(ValueError, match="row degree 67 .*Queue 3"):
-        lq.tile_plan(wide, 8, form="classic")
-    with pytest.raises(ValueError, match="row degree 34 .*limit 32"):
-        lq.tile_plan(g, 8, form="classic")
+    assert [lq.mask_words(d) for d in (8, 32, 33, 64, 67)] == [1, 1, 2, 2, 3]
+    assert lq.tile_plan(g, 8, form="classic").threads <= 512
     llr = torch.ones((2, wide.n))
     res = lq.layered_decode_plain(wide, llr, alpha=0.8125, max_iters=2)
     assert bool(res.ok.all()) and not bool(res.bits.any())

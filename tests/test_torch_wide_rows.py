@@ -48,7 +48,8 @@ def test_plain_layered_matches_jax(wide, cn):
 
 def test_wide_plans():
     """K1a and K1c plan their wide builds at degree 80 and 96, K3 its wide
-    build, K2 its wide build one frame an item; the classic form refuses."""
+    build, K2 its wide build one frame an item, the classic form its wide
+    build."""
     for code, d in (("sc/2/80/6/32", 80), ("sc/3/96/10/64", 96)):
         spec = get_code(code)
         g = choose_graph(spec, "layered/norm:0.8125/25")
@@ -63,8 +64,7 @@ def test_wide_plans():
             assert fq.threads <= 512
         plan = fl.flooding_plan(compile_graph(spec), 4096, "minstar")
         assert (plan.width, plan.lanes) == (d, 1)
-        with pytest.raises(ValueError, match=f"row degree {d} .*Queue 3"):
-            lq.tile_plan(g, 8, form="classic")
+        assert lq.tile_plan(g, 8, form="classic").threads <= 512
 
 
 def _bits(x: np.ndarray) -> np.ndarray:
