@@ -158,22 +158,30 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      rank's slot, ordered on the device by interprocess events, then the
      sum) on D = 2 and D = 4 ranks (4 processes under
      torch.distributed.run, gloo between them, a group of the first D for
-     each D) of the one card, through bench/ring.py: f32 and int64 at the sweep counters' shape [2, 4], at
-     a ragged 1001 elements and at 16 MiB per rank; K5's sum identical to
-     the plain version's on every rank and the ranks identical to each
-     other, 2 launches a call; K5, the plain version and gloo's
-     all_reduce timed on the same CUDA tensors. The card's compute mode
-     is printed.
+     each D) of the one card, through bench/ring.py: f32 and int64 at the
+     sweep counters' shape [2, 4], at a ragged 1001 elements and at 16 MiB
+     per rank; K5's sum identical to the plain version's on every rank and
+     the ranks identical to each other, 2 launches a call; K5, the plain
+     version and gloo's all_reduce timed on the same CUDA tensors. The
+     card's compute mode is printed. Then across nodes: bench/ring.py
+     --check on two nodes of two ranks each (two torch.distributed.run
+     agents, run_nodes), on ranks 0 and 2 (one a node: the blocks through
+     host memory only) and on all four (CUDA IPC within a node, host
+     memory across): the same identities, f32 and int64, 2 launches a
+     call, and each rank's Ring plan the nodes and peers asked for.
   24. the sharded sweep at full width — bench/sharded.py on meshes 1x1,
      2x1 and 2x2 (one launch of 4 ranks, a group of the first B*S for
      each mesh, one after another): dvbs2/64800/12,
      layered/norm:0.8125/25, 1.0 and 1.1 dB, 4096 frames a point per step,
      2 steps; the integer counters identical on every rank and mesh, K1a
-     and K5 launched on every rank of 2x1 and 2x2; frames/s per mesh, and
-     run_sweep's on the same points beside them.
-  25. the entry point — the CLI's sweep under torch.distributed.run on a
-     2x2 mesh (4 ranks), 100 frame errors or 32768 frames a point: every
-     rank exits 0 and rank 0's results overlap the golden curve.
+     and K5 launched on every rank of 2x1 and 2x2, each Ring's plan one
+     node (CUDA IPC only); frames/s per mesh, and run_sweep's on the same
+     points beside them.
+  25. the entry point — the CLI's sweep on a 2x2 mesh of ranks on two
+     nodes of two ranks each (run_nodes: K5 through CUDA IPC within a
+     node and host memory across), 100 frame errors or 32768 frames a
+     point: every rank exits 0, every rank's Ring states the plan of its
+     node and made calls, and rank 0's results overlap the golden curve.
   26. families vs plain — K1a (fixed and track), K1c (spa, track) and K3
      (minsum, track) against their plain versions on 80211n/1944/12 and
      80211n/648/56 (odd Z = 81, 27: clusters of one), wimax/2304/56,
@@ -232,12 +240,16 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      golden gate (CI overlap, or within 1.25x at a saturated point;
      curves_overlap printed beside it); 80211n/1944/12 over qam64:il,
      wimax/2304/12 over rayleigh and mackay1008 spa/50 over bec:0.4 (K2)
-     against their JAX CPU references by curves_overlap.
+     against their JAX CPU references by curves_overlap; then the BPSK
+     golden's saturated 0.8 dB again with 4 x 16384 frames, seeds 0 and 1,
+     each overlapping the JAX package's CPU sweep of 65536 frames there
+     (ecc_ldpc_tpu_torch/data/dvbs2_16200_12_bpsk08_jax_cpu.json).
   34. the sharded modem sweep — bench.SHARDED_MODEM_SWEEP (apsk16:r56:il)
      on meshes 1x1 and 2x1 through bench/sharded.py (one launch of 2
-     ranks) and through the CLI
-     on 2x1 with --channel, under torch.distributed.run: identical
-     counters, K5 launched on every rank of 2x1.
+     ranks on one node) and through the CLI on 2x1 with --channel on two
+     nodes of one rank each (K5 through host memory only): identical
+     counters, K5 launched on every rank of 2x1, each CLI rank's plan its
+     own node.
   35. precision kernels vs plain — K1a (roll on dvbs2/16200/12, xor on
      8023an), K1c (spa, minstar) and K1b/K1c' (min-sum, spa on
      ccsds/1024/12) with bf16 message storage, q:6:0.25 and q:4:1.0, fixed
@@ -352,7 +364,9 @@ import json
 import math
 import os
 import pathlib
+import re
 import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -427,6 +441,7 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
     tpu_precision,
 )
 from ecc_ldpc_tpu_torch.decode.quant import describe
+from ecc_ldpc_tpu_torch.dist.ring import node_plan
 from ecc_ldpc_tpu_torch.encode.structured import build_encoder
 from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
 from ecc_ldpc_tpu_torch.sim import (
@@ -603,7 +618,11 @@ RING_RANKS = (2, 4)
 SHARDED_COUNTERS = ("frames", "bit_errors", "frame_errors", "iters_sum",
                     "bit_errors_sq")
 CLI_MESH = "2x2"
+CLI_NODES = (2, 2)  # nodes, ranks a node: the mixed route of K5
 CLI_MESH_FRAMES = 32768
+# K5 across two nodes of two ranks (bench/ring.py --ranks): one rank a
+# node (host memory only), then all four (CUDA IPC within a node)
+RING_NODE_GROUPS = ("0+2", "4")
 # 26. the other code families, kernel vs plain: code -> Eb/N0 where 25
 # iterations fail some of 32 frames. 802.11n's Z = 81 and 27 are odd (a
 # cluster of one only), the nr5g codes carry 768/416 punctured columns at
@@ -772,6 +791,12 @@ MODEM_REFERENCES = [
      ROOT / "ecc_ldpc_tpu_torch" / "data" / "mackay1008_spa50_bec04_jax_cpu.json"),
 ]
 MODEM_SWEEP_BATCH = 1024  # the goldens' own batch: their frame counts exactly
+# the BPSK golden's saturated point again, at 4x its frames and two seeds,
+# held to the JAX package's own CPU sweep there (65536 frames), against
+# which the golden's 16384 frames read low: (Eb/N0, frames, seeds,
+# reference)
+SATURATED = (0.8, 4 * 16384, (0, 1), ROOT / "ecc_ldpc_tpu_torch" / "data"
+             / "dvbs2_16200_12_bpsk08_jax_cpu.json")
 
 # 35. the message precisions through the layered kernels against their
 # plain versions: name -> the plain version's precision (decode/quant.py)
@@ -2135,6 +2160,37 @@ def golden_overlap(swept, golden) -> bool:
     return True
 
 
+def saturated_point(dev) -> None:
+    """Phase 33's last sweeps: dvbs2/16200/12 over BPSK at the golden's
+    saturated 0.8 dB with SATURATED's frames, once a seed; each must
+    overlap the JAX CPU reference there (curves_overlap), the golden's
+    overlap printed beside it."""
+    ebn0, frames, seeds, path = SATURATED
+    code, decoder, channel, golden_path = MODEM_GOLDENS[2]
+    (ref,) = [PointResult.from_json(d) for d in json.loads(path.read_text())]
+    golden = [q for q in (PointResult.from_json(d) for d in
+                          json.loads(golden_path.read_text()))
+              if abs(q.ebn0_db - ebn0) < 1e-9]
+    for seed in seeds:
+        t1 = time.perf_counter()
+        (pr,) = run_sweep(SweepSpec(
+            code=code, decoder=decoder, ebn0_db=(ebn0,),
+            batch=MODEM_SWEEP_BATCH, channel=channel, seed=seed,
+            stopping=StoppingRule(min_frame_errors=10 ** 9,
+                                  max_frames=frames)), device=dev)
+        overlap = curves_overlap([pr], [ref], "fer")
+        emit("modem_saturated", code=code, channel=channel, seed=seed,
+             **point_line(pr), reference=path.name, reference_fer=ref.fer,
+             reference_fer_ci=ref.fer_ci, reference_frames=ref.frames,
+             overlap=overlap, golden_fer=golden[0].fer,
+             golden_fer_ci=golden[0].fer_ci,
+             golden_overlap=curves_overlap([pr], golden, "fer"),
+             seconds=time.perf_counter() - t1)
+        if not overlap:
+            raise AssertionError(f"{code} at {ebn0} dB, seed {seed}, misses "
+                                 f"{path.name}")
+
+
 def modem_sweeps_path(dev) -> dict:
     """Phase 33: the APSK goldens and the BPSK golden of dvbs2/16200/12,
     each swept at its own points and frame counts and held to it by the
@@ -2164,6 +2220,7 @@ def modem_sweeps_path(dev) -> dict:
              seconds=time.perf_counter() - t1)
         if not gate:
             raise AssertionError(f"{code} over {channel} misses {path.name}")
+    saturated_point(dev)
     launches = {"layered_qc": layered_decode_cuda.launches,
                 "flooding:spa": flooding_decode_cuda.launches}
     emit("modem_sweeps", launches=launches, seconds=time.perf_counter() - t0)
@@ -2175,9 +2232,11 @@ def modem_sweeps_path(dev) -> dict:
 def modem_dist_path() -> int:
     """Phase 34: the sharded sweep over apsk16:r56:il
     (bench.SHARDED_MODEM_SWEEP) on meshes 1x1 and 2x1 through
-    bench/sharded.py, and through the CLI under torch.distributed.run on
-    2x1 with --channel: the same counters everywhere, K5 launched on every
-    rank of 2x1. Returns rank 0's launches of K1a and K5 there."""
+    bench/sharded.py (one node), and through the CLI on 2x1 with --channel
+    on two nodes of one rank each (run_nodes: K5 through host memory
+    only): the same counters everywhere, K5 launched on every rank of 2x1,
+    each CLI rank's plan its own node. Returns rank 0's launches of K1a and
+    K5 there."""
     from ecc_ldpc_tpu_torch.bench.throughput import SHARDED_MODEM_SWEEP as M
 
     t0 = time.perf_counter()
@@ -2196,11 +2255,15 @@ def modem_dist_path() -> int:
                     raise AssertionError(f"{mesh}: ranks disagree")
                 if b * s > 1 and line["launches"]["ring"] <= 0:
                     raise AssertionError(f"{mesh}: K5 never launched")
+                one_node = node_plans(1, b * s)
+                if b * s > 1 and line["plan"] != one_node[line["rank"]]:
+                    raise AssertionError(f"{mesh}: not one node: "
+                                         f"{line['plan']}")
             counters[mesh] = [{k: c[k] for k in SHARDED_COUNTERS}
                               for c in lines[0]["counters"]]
         launches = dict(lines[0]["launches"])
         out = pathlib.Path(tmp) / "modem_cli.json"
-        run_ranks(2, [
+        launch = run_nodes(2, 1, [
             "ecc_ldpc_tpu_torch.cli", "sweep", "--code", M["code"],
             "--decoder", M["decoder"], "--channel", M["channel"],
             "--ebn0", ",".join(map(str, M["ebn0_db"])),
@@ -2211,8 +2274,12 @@ def modem_dist_path() -> int:
         counters["cli_2x1"] = [
             {k: d[k] for k in SHARDED_COUNTERS}
             for d in json.loads(out.read_text())]
+    cli_launches = check_node_launch(launch, 2, 1, "phase 34")
+    launches["ring"] += cli_launches[0]
     emit("modem_sharded", channel=M["channel"], counters=counters,
-         launches_2x1_rank0=launches, seconds=time.perf_counter() - t0)
+         cli_plans=list(node_plans(2, 1).values()),
+         cli_ring_launches=cli_launches,
+         launches_rank0=launches, seconds=time.perf_counter() - t0)
     if not counters["1x1"] == counters["2x1"] == counters["cli_2x1"]:
         raise AssertionError(f"the modem sweep's counters depend on the "
                              f"mesh: {counters}")
@@ -2226,38 +2293,150 @@ def _die_with_parent() -> None:
     ctypes.CDLL(None).prctl(1, signal.SIGTERM, 0, 0, 0)
 
 
+def _launch(cmds: list, what: str, timeout: float) -> str:
+    """Start each command of `cmds` (torch.distributed.run agents) in a
+    process group of its own, its output to a file; at the time limit
+    each gets SIGTERM (on which it stops its ranks) and its group SIGKILL
+    60 s later if it is still there; raises unless every one exits 0
+    (which an agent does only when every rank does). Returns their
+    outputs, one after another."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with contextlib.ExitStack() as stack:
+        logs = [stack.enter_context(tempfile.TemporaryFile("w+"))
+                for _ in cmds]
+        procs = [subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  process_group=0,
+                                  preexec_fn=_die_with_parent)
+                 for cmd, log in zip(cmds, logs)]
+        end, late = time.monotonic() + timeout, False
+        try:
+            for proc in procs:
+                proc.wait(timeout=max(end - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            late = True
+            for proc in procs:
+                proc.terminate()  # torch.distributed.run stops its ranks
+            for proc in procs:
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+    out = "\n".join(outs)
+    codes = [proc.returncode for proc in procs]
+    if late:
+        raise AssertionError(f"{what}: no end after {timeout} s\n"
+                             f"{out[-4000:]}")
+    if any(codes):
+        raise AssertionError(f"{what}: exit {codes}\n{out[-4000:]}")
+    return out
+
+
 def run_ranks(nproc: int, args: list, timeout: float) -> str:
     """`python -m torch.distributed.run --standalone` with nproc ranks of
-    the module args[0] (its arguments after it), in its own process group;
-    at the time limit sent SIGTERM (on which it stops its ranks) and its
-    group killed 60 s later if it is still there; raises unless it exits
-    0 (which it does only when every rank does). Returns its output."""
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={nproc}", "-m", *args]
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
-    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            process_group=0, preexec_fn=_die_with_parent)
-    try:
-        out, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.terminate()  # torch.distributed.run stops its ranks
-        try:
-            out, _ = proc.communicate(timeout=60)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            out, _ = proc.communicate()
-        raise AssertionError(f"{args[0]} on {nproc} ranks: no end after "
-                             f"{timeout} s\n{out[-4000:]}")
-    if proc.returncode != 0:
-        raise AssertionError(f"{args[0]} on {nproc} ranks: exit "
-                             f"{proc.returncode}\n{out[-4000:]}")
-    return out
+    the module args[0] (its arguments after it), under _launch. Returns
+    its output."""
+    return _launch([[sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", f"--nproc-per-node={nproc}", "-m",
+                     *args]], f"{args[0]} on {nproc} ranks", timeout)
+
+
+def free_port() -> int:
+    """A TCP port of 127.0.0.1 that is free now."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_nodes(nnodes: int, nproc: int, args: list, timeout: float) -> str:
+    """nnodes torch.distributed.run agents on this host, each a node of
+    nproc ranks of the module args[0] (its arguments after it), meeting
+    through a static rendezvous on 127.0.0.1 (--nnodes, --node-rank,
+    --master-addr, --master-port; the launcher numbers the ranks node by
+    node and tells each rank its node, GROUP_RANK), under _launch. Returns
+    their outputs, node by node."""
+    port = free_port()
+    return _launch([[sys.executable, "-m", "torch.distributed.run",
+                     f"--nnodes={nnodes}", f"--node-rank={i}",
+                     f"--nproc-per-node={nproc}", "--master-addr=127.0.0.1",
+                     f"--master-port={port}", "-m", *args]
+                    for i in range(nnodes)],
+                   f"{args[0]} on {nnodes} nodes x {nproc} ranks", timeout)
+
+
+def node_plans(nnodes: int, nproc: int) -> dict:
+    """rank -> the plan line (dist/ring.NodePlan.line) a Ring of every rank
+    of nnodes x nproc ranks, numbered node by node, must state."""
+    keys = [r // nproc for r in range(nnodes * nproc)]
+    return {r: node_plan(keys, r).line() for r in range(len(keys))}
+
+
+def check_node_launch(out: str, nnodes: int, nproc: int, what: str) -> dict:
+    """From a two-node launch's output: every rank's Ring stated the plan
+    its node and peers call for (node_plans) and no other, and every rank's
+    Rings counted K5 launches at their close (Ring.launches, which only
+    ring_allreduce_cuda adds to, where it launches). Returns {rank: K5
+    launches}."""
+    want = node_plans(nnodes, nproc)
+    plans = set(re.findall(r"ring: rank \d+ D=\d+ node \d+/\d+ "
+                           r"ipc=\[[\d,]*\] host=\[[\d,]*\]", out))
+    if plans != set(want.values()):
+        raise AssertionError(f"{what}: Ring plans {sorted(plans)}, asked "
+                             f"for {sorted(want.values())}")
+    launches = collections.Counter()
+    for rank, n in re.findall(r"ring: rank (\d+) D=\d+ closed after (\d+) "
+                              r"K5 launches", out):
+        launches[int(rank)] += int(n)
+    if sorted(launches) != sorted(want) or min(launches.values()) <= 0:
+        raise AssertionError(f"{what}: K5 launches by rank {dict(launches)}")
+    return dict(launches)
 
 
 def rank_lines(out_dir: pathlib.Path, stem: str, nproc: int) -> list:
     return [json.loads((out_dir / f"{stem}_rank{r}.json").read_text())
             for r in range(nproc)]
+
+
+def ring_nodes_path() -> None:
+    """Phase 23, across nodes: bench/ring.py --check on two nodes of two
+    ranks each (run_nodes), on the groups RING_NODE_GROUPS: ranks 0 and 2,
+    one a node (host memory only), and all four (CUDA IPC within a node,
+    host memory across). Every case, f32 and int64, identical to the plain
+    version and across ranks, 2 launches a call, and each rank's plan the
+    one its nodes call for."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_nodes(2, 2, ["ecc_ldpc_tpu_torch.bench.ring", tmp, "--ranks",
+                         ",".join(RING_NODE_GROUPS), "--check"], 300)
+        lines = rank_lines(pathlib.Path(tmp), "ring", 4)
+    want = {(2, r): p for r, p in node_plans(2, 1).items()}
+    want.update({(4, r): p for r, p in node_plans(2, 2).items()})
+    for line in lines:
+        seen = collections.Counter()
+        for c in line["cases"]:
+            emit("ring_across_nodes", rank=line["rank"], **c)
+            group_rank = int(c["plan"].split()[2])
+            if c["plan"] != want[c["D"], group_rank]:
+                raise AssertionError(f"K5 across nodes: rank {line['rank']} "
+                                     f"planned {c['plan']!r}")
+            if not (c["identical_to_plain"] and c["ranks_identical"]
+                    and c["launches"] == 2):
+                raise AssertionError(f"K5 across nodes differs from its "
+                                     f"plain version: rank {line['rank']}, "
+                                     f"{c}")
+            seen[c["D"], c["dtype"]] += 1
+        groups = [2, 4] if line["rank"] in (0, 2) else [4]
+        if sorted(seen) != sorted((D, t) for D in groups
+                                  for t in ("float32", "int64")):
+            raise AssertionError(f"K5 across nodes: rank {line['rank']} "
+                                 f"ran {dict(seen)}")
+    emit("ring_across_nodes", groups=list(RING_NODE_GROUPS),
+         seconds=time.perf_counter() - t0)
 
 
 def dist_path(dev) -> list:
@@ -2295,6 +2474,7 @@ def dist_path(dev) -> list:
         for c in ring_cases[D]:
             emit("ring_vs_plain", **c)
         emit("ring_vs_plain", D=D, ranks=D, seconds=time.perf_counter() - t0)
+    ring_nodes_path()
 
     # 24. the sharded sweep on each mesh, all in one launch of the largest
     # mesh's ranks (a group of the first B*S for each); counts from each
@@ -2322,6 +2502,9 @@ def dist_path(dev) -> list:
             if b * s > 1 and line["launches"]["ring"] <= 0:
                 raise AssertionError(f"{mesh} rank {line['rank']}: K5 never "
                                      f"launched")
+            one_node = node_plans(1, b * s)
+            if b * s > 1 and line["plan"] != one_node[line["rank"]]:
+                raise AssertionError(f"{mesh}: not one node: {line['plan']}")
         emit("sharded_sweep", mesh=mesh, ranks=b * s,
              frames_per_s=lines[0]["frames_per_s"])
         sharded[mesh] = lines
@@ -2344,14 +2527,14 @@ def dist_path(dev) -> list:
         pr.frames for pr in swept) / sum(pr.wall_s for pr in swept),
         run_sweep=[point_line(pr) for pr in swept])
 
-    # 25. the entry point: the CLI's sweep on a 2x2 mesh of ranks
+    # 25. the entry point: the CLI's sweep on a 2x2 mesh of ranks on two
+    # nodes of two ranks each (K5 through CUDA IPC and host memory)
     with open(GOLDEN) as f:
         golden = [PointResult.from_json(d) for d in json.load(f)]
-    b, s = (int(x) for x in CLI_MESH.split("x"))
     with tempfile.TemporaryDirectory() as tmp:
         out = pathlib.Path(tmp) / "sharded_cli.json"
         t0 = time.perf_counter()
-        run_ranks(b * s, [
+        launch = run_nodes(*CLI_NODES, [
             "ecc_ldpc_tpu_torch.cli", "sweep", "--code", SHARDED_SWEEP["code"],
             "--decoder", SHARDED_SWEEP["decoder"],
             "--ebn0", ",".join(map(str, SHARDED_SWEEP["ebn0_db"])),
@@ -2360,17 +2543,22 @@ def dist_path(dev) -> list:
             "--out", str(out)], 900)
         wall = time.perf_counter() - t0
         cli = [PointResult.from_json(d) for d in json.loads(out.read_text())]
+    cli_launches = check_node_launch(launch, *CLI_NODES, "phase 25")
     overlap = curves_overlap(cli, golden, "fer")
     for pr in cli:
         g = next(q for q in golden if abs(q.ebn0_db - pr.ebn0_db) < 1e-9)
         emit("sharded_cli", mesh=CLI_MESH, decoder=pr.decoder, **point_line(pr),
              golden_fer=g.fer, golden_fer_ci=g.fer_ci)
-    emit("sharded_cli", mesh=CLI_MESH, overlap=overlap, seconds=wall)
+    emit("sharded_cli", mesh=CLI_MESH, nodes=CLI_NODES[0],
+         ranks_a_node=CLI_NODES[1],
+         plans=list(node_plans(*CLI_NODES).values()),
+         ring_launches=cli_launches, overlap=overlap, seconds=wall)
     if not overlap:
         raise AssertionError("the sharded CLI sweep misses the golden curve")
 
     # K5's numbers at the main path's shape: the counters (int64 [2, 4]) on
     # the 2x2 mesh's 4 ranks; its launches are rank 0's in the 2x2 sweep
+    # and in the CLI's two-node sweep
     (main_case,) = [c for c in ring_cases[4]
                     if c["case"] == "counters" and c["dtype"] == "int64"]
     return [{
@@ -2378,7 +2566,7 @@ def dist_path(dev) -> list:
         "route": "cuda",
         "source": "ecc_ldpc_tpu_torch/csrc/ring.cu",
         "replaces": "ecc_ldpc_tpu/dist/ring.py:27",
-        "launches": sharded["2x2"][0]["launches"]["ring"],
+        "launches": sharded["2x2"][0]["launches"]["ring"] + cli_launches[0],
         "max_abs_err": max(c["max_abs_err"] for cs in ring_cases.values()
                            for c in cs),
         "ms": main_case["ms"],

@@ -36,7 +36,7 @@ from ..dist.graph_parallel import (
     make_graph_parallel_decoder,
     make_qc_graph_parallel_decoder,
 )
-from ..dist.mesh import maybe_init_distributed, rank_device
+from ..dist.mesh import build_per_node, maybe_init_distributed, rank_device
 from ..dist.ring import ring_allreduce_cuda
 from .throughput import make_inputs
 
@@ -112,6 +112,7 @@ def main(argv=None) -> int:
     dev = rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+        build_per_node(names=("flooding", "flooding_qc"))  # the references
     rank, world = dist.get_rank(), dist.get_world_size()
     ranks = ([int(d) for d in args[args.index("--ranks") + 1].split(",")]
              if "--ranks" in args else [world])

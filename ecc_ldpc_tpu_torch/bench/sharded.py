@@ -14,11 +14,11 @@ OUT_DIR/sharded_BxS_rank{r}.json (sharded_BxS_modem_rank{r}.json with
 `modem`): every point's counters
 after SHARDED_SWEEP's steps (run after a one-step warm-up sweep), the
 launches of K1a (the layered min-sum kernel) and of K5 (the ring) in that
-run, the sweep's frames per second (all points' frames over the summed
-step times, PointResult.wall_s), and the per-frame generator's ms for this
-rank's frames of one point (CUDA events around frame_bits and
-frame_normals after a warm-up, one rank at a time). Ranks beyond the
-host's cards share a card by time-slicing.
+run, the plan of that run's Ring (Ring.last_plan.line()), the sweep's frames per
+second (all points' frames over the summed step times, PointResult.wall_s),
+and the per-frame generator's ms for this rank's frames of one point (CUDA
+events around frame_bits and frame_normals after a warm-up, one rank at a
+time). Ranks beyond the host's cards share a card by time-slicing.
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ from ..codes.registry import get_code
 from ..decode.layered_qc import layered_decode_cuda
 from ..dist.mesh import Mesh, maybe_init_distributed, rank_device
 from ..dist.montecarlo import frame_bits, frame_normals
-from ..dist.ring import ring_allreduce_cuda
+from ..dist.ring import Ring, ring_allreduce_cuda
 from ..sim import StoppingRule, SweepSpec, run_sweep_sharded
 from .throughput import SHARDED_MODEM_SWEEP, SHARDED_SWEEP
 
@@ -77,14 +77,16 @@ def run_mesh(mesh_str: str, mesh: Mesh, cfg: dict, out_dir: pathlib.Path,
     run_sweep_sharded(sharded_spec(1, cfg), mesh)  # warm-up: the kernels
     layered_decode_cuda.launches = 0
     ring_allreduce_cuda.launches = 0
+    Ring.last_plan = None
     results = run_sweep_sharded(spec, mesh)
     launches = {"layered_qc": layered_decode_cuda.launches,
                 "ring": ring_allreduce_cuda.launches}
     frames = sum(pr.frames for pr in results)
     code = get_code(spec.code)
+    plan = Ring.last_plan.line() if mesh.size > 1 else None
     line = {
         "mesh": mesh_str, "channel": spec.channel, "rank": mesh.rank,
-        "device": str(mesh.device),
+        "plan": plan, "device": str(mesh.device),
         "card": torch.cuda.get_device_name(mesh.device), "steps": steps,
         "counters": [dict(ebn0_db=pr.ebn0_db, frames=pr.frames,
                           bit_errors=pr.bit_errors,

@@ -14,11 +14,20 @@ the integers the reference's psum over 'batch' and all_gather over 'snr'
 give, so no sub-group is needed. The process group is gloo: NCCL refuses
 two ranks on one card, which is what a mesh larger than 1x1 is on a
 one-card host.
+
+The ranks may sit on several nodes (the reference's DCN hosts). A rank's
+node is what its launcher says: torch.distributed.run gives each agent a
+node rank (GROUP_RANK), so two agents started on one host are two nodes;
+with no launcher (a manual maybe_init_distributed(coordinator, ...)) it is
+the host. K5 reaches the ranks of its own node through CUDA IPC and the
+others through host memory (dist/ring.py), and each node's leader, its
+lowest rank, builds the kernels for the node (build_per_node).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 from typing import Optional
 
 import torch
@@ -54,6 +63,42 @@ def rank_device(device="cuda") -> torch.device:
                                    if dist.is_initialized() else 0))
         dev = torch.device("cuda", local % torch.cuda.device_count())
     return dev
+
+
+def node_key() -> str:
+    """This rank's node: "host#GROUP_RANK" where torch.distributed.run set
+    GROUP_RANK (its agent's node rank), else the hostname alone."""
+    group_rank = os.environ.get("GROUP_RANK")
+    host = socket.gethostname()
+    return host if group_rank is None else f"{host}#{group_rank}"
+
+
+def node_leaders(keys: list) -> list:
+    """For each rank of `keys` (one node key a rank, in rank order), the
+    lowest rank with the same key: its node's leader."""
+    first = {}
+    return [first.setdefault(k, r) for r, k in enumerate(keys)]
+
+
+def gather_node_keys(group=None) -> list:
+    """Every rank's node_key() in rank order (collective over `group`)."""
+    keys = [None] * dist.get_world_size(group)
+    dist.all_gather_object(keys, node_key(), group=group)
+    return keys
+
+
+def build_per_node(group=None, names=None) -> None:
+    """Build the kernel libraries (`names`, default all) once a node before
+    a collective: each node's leader builds while its node's other ranks
+    wait at the barrier that follows, so that no rank builds inside a
+    collective and one nvcc runs per source and node (collective over
+    `group`)."""
+    from .. import _build
+
+    rank = dist.get_rank(group)
+    if node_leaders(gather_node_keys(group))[rank] == rank:
+        _build.build_all(tuple(_build.LIBRARIES if names is None else names))
+    dist.barrier(group=group)
 
 
 @dataclasses.dataclass(frozen=True)

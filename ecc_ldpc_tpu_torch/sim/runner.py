@@ -317,9 +317,10 @@ def sharded_step(spec: SweepSpec, mesh):
     decoder, a grid or batch that does not divide over the mesh raise
     ValueError; every channel build_channel builds runs (its per-frame
     draws: dist/montecarlo.py), and an uncoded bpsk/N code too. On a card
-    with several ranks, rank 0 builds the kernels before the others load
-    them, so that one nvcc runs per source, not one per rank."""
-    from .. import _build
+    with several ranks, each node's leader builds the kernels before the
+    others load them, so that one nvcc runs per source and node, not one
+    per rank (dist.mesh.build_per_node)."""
+    from ..dist.mesh import build_per_node
     from ..dist.montecarlo import COUNTERS, make_sharded_step
     from ..dist.ring import Ring
 
@@ -337,9 +338,7 @@ def sharded_step(spec: SweepSpec, mesh):
         raise ValueError(f"batch {spec.batch} does not divide over "
                          f"{mesh.batch}")
     if mesh.device.type == "cuda" and mesh.group is not None:
-        if mesh.rank == 0:
-            _build.build_all()
-        torch.distributed.barrier(group=mesh.group)
+        build_per_node(mesh.group)
     pipeline = Pipeline.build(spec, mesh.device)
     nbytes = len(spec.ebn0_db) * len(COUNTERS) * 8
     with Ring(mesh.group, mesh.device, nbytes) as ring:

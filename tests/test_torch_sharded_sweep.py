@@ -1,6 +1,6 @@
 """The port's sharded sweep (sim/runner.run_sweep_sharded) on a real gloo
-group of 4 ranks (a 2x2 mesh, on the CPU) against the same sweeps on one
-rank: identical counters on mackay1008, on 8023an (the xor graph, which
+group of 4 ranks (a 2x2 mesh on two nodes of two ranks, on the CPU)
+against the same sweeps on one rank: identical counters on mackay1008, on 8023an (the xor graph, which
 the JAX package never ran sharded) and on ccsds/1024/12 (punctured
 columns), resume, the reference's raises; its FER against the JAX
 package's sharded sweep on a 2x2 virtual mesh; and the CLI's --mesh under
@@ -23,6 +23,7 @@ from ecc_ldpc_tpu_torch.dist.mesh import (
     make_mesh,
     maybe_init_distributed,
 )
+from ecc_ldpc_tpu_torch.dist.ring import Ring
 from ecc_ldpc_tpu_torch.sim import (
     PointResult,
     StoppingRule,
@@ -64,11 +65,14 @@ def _counted(results) -> list:
 
 def _sweep_worker(rank, world, store, out_dir):
     torch.set_num_threads(1)
+    # two nodes of two ranks, as two torch.distributed.run agents say
+    os.environ["GROUP_RANK"] = str(rank // 2)
     maybe_init_distributed(f"file://{store}", world, rank)
     mesh = make_mesh(MeshSpec(batch=2, snr=2), device="cpu")
     assert (mesh.rank, mesh.group is not None) == (rank, True)
     out = {name: [pr.to_json() for pr in run_sweep_sharded(spec, mesh)]
            for name, spec in SWEEPS.items()}
+    out["plan"] = Ring.last_plan.line()  # the last sweep's Ring's
     # resume: one step, then the whole sweep from the state rank 0 wrote
     state = str(pathlib.Path(out_dir) / "resume_state.json")
     first = dataclasses.replace(SWEEPS["mackay"],
@@ -87,15 +91,16 @@ def ranks(tmp_path_factory):
     spawn_ranks(_sweep_worker, WORLD, out)
     lines = [json.loads((out / f"rank{r}.json").read_text())
              for r in range(WORLD)]
+    plans = [line.pop("plan") for line in lines]
     return {name: [[PointResult.from_json(d) for d in line[name]]
-                   for line in lines] for name in lines[0]}, out
+                   for line in lines] for name in lines[0]}, out, plans
 
 
 @pytest.mark.parametrize("name", ["mackay", "8023an", "ccsds"])
 def test_2x2_counters_equal_one_rank(ranks, name):
     """Every rank of the 2x2 mesh returns the counters one rank computes
     alone (the same frames, the same noise), and the sweep saw errors."""
-    got, _ = ranks
+    got, *_ = ranks
     want = run_sweep_sharded(SWEEPS[name], Mesh(1, 1, device=CPU))
     spec = SWEEPS[name]
     for r in range(WORLD):
@@ -105,8 +110,21 @@ def test_2x2_counters_equal_one_rank(ranks, name):
     assert want[0].iters_sum > 0
 
 
+def test_2x2_mesh_on_two_nodes(ranks):
+    """The 2x2 mesh above ran on two nodes of two ranks (GROUP_RANK = rank
+    // 2), and the sweep's Ring on each rank planned for that: its node
+    peer through CUDA IPC, the other node through host memory. On the CPU
+    only the plan is checked; the sums take the plain version (the
+    counters are one rank's, test above)."""
+    *_, plans = ranks
+    assert plans == ["ring: rank 0 D=4 node 0/2 ipc=[0,1] host=[2,3]",
+                     "ring: rank 1 D=4 node 0/2 ipc=[0,1] host=[2,3]",
+                     "ring: rank 2 D=4 node 1/2 ipc=[2,3] host=[0,1]",
+                     "ring: rank 3 D=4 node 1/2 ipc=[2,3] host=[0,1]"]
+
+
 def test_resume_continues_the_same_frames(ranks):
-    got, out = ranks
+    got, out, _ = ranks
     fresh = _counted(got["mackay"][0])
     for r in range(WORLD):
         assert [pr.steps for pr in got["resume_first"][r]] == [1, 1]
@@ -158,7 +176,7 @@ def test_fer_overlaps_the_jax_sharded_sweep(ranks):
         stopping=JaxStoppingRule(min_frame_errors=10 ** 9,
                                  max_frames=spec.stopping.max_frames)), mesh)
     theirs = [PointResult.from_json(p.to_json()) for p in theirs]
-    got, _ = ranks
+    got, *_ = ranks
     ours = got["vs_jax"][0]
     assert [p.frames for p in ours] == [p.frames for p in theirs] == [1024] * 2
     for p in ours + theirs:
