@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases (one JSON line each; any failure raises and exits non-zero):
   1. device  — the card's name and nvidia-smi's name and power limit.
-  2. build   — nvcc builds every kernel of the path into build/kernels/.
+  2. build   — nvcc builds every kernel of the path into build/kernels/,
+     one process a library, all started together.
   3. kernel vs plain — the CUDA layered kernel against its plain PyTorch
      version on the same LLRs on the card: bits, ok, iterations and the
      final posteriors must be identical (fixed and track mode, rate 1/2,
@@ -158,7 +159,10 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      rank's slot, ordered on the device by interprocess events, then the
      sum) on D = 2 and D = 4 ranks (4 processes under
      torch.distributed.run, gloo between them, a group of the first D for
-     each D) of the one card, through bench/ring.py: f32 and int64 at the
+     each D) of the one card, through bench/ring.py (the first job of one
+     launch of four ranks, bench/ranks.py, whose later jobs are the
+     sharded sweeps of 24 and 34 and the graph-parallel tiers of 49, so
+     the ranks start once): f32 and int64 at the
      sweep counters' shape [2, 4], at a ragged 1001 elements and at 16 MiB
      per rank; K5's sum identical to the plain version's on every rank and
      the ranks identical to each other, 2 launches a call; K5, the plain
@@ -170,8 +174,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      memory across): the same identities, f32 and int64, 2 launches a
      call, and each rank's Ring plan the nodes and peers asked for.
   24. the sharded sweep at full width — bench/sharded.py on meshes 1x1,
-     2x1 and 2x2 (one launch of 4 ranks, a group of the first B*S for
-     each mesh, one after another): dvbs2/64800/12,
+     2x1 and 2x2 (in phase 23's launch of 4 ranks, a group of the first
+     B*S for each mesh, one after another): dvbs2/64800/12,
      layered/norm:0.8125/25, 1.0 and 1.1 dB, 4096 frames a point per step,
      2 steps; the integer counters identical on every rank and mesh, K1a
      and K5 launched on every rank of 2x1 and 2x2, each Ring's plan one
@@ -245,8 +249,8 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      each overlapping the JAX package's CPU sweep of 65536 frames there
      (ecc_ldpc_tpu_torch/data/dvbs2_16200_12_bpsk08_jax_cpu.json).
   34. the sharded modem sweep — bench.SHARDED_MODEM_SWEEP (apsk16:r56:il)
-     on meshes 1x1 and 2x1 through bench/sharded.py (one launch of 2
-     ranks on one node) and through the CLI on 2x1 with --channel on two
+     on meshes 1x1 and 2x1 through bench/sharded.py (in phase 23's
+     launch, one node) and through the CLI on 2x1 with --channel on two
      nodes of one rank each (K5 through host memory only): identical
      counters, K5 launched on every rank of 2x1, each CLI rank's plan its
      own node.
@@ -335,17 +339,35 @@ Phases (one JSON line each; any failure raises and exits non-zero):
   48. /xla-mm — mackay1008 on the expanded graph, minsum and spa, equal
      to K2 in f32.
   49. graph-parallel — bench/graph_parallel.py on 2 and 4 ranks of the
-     card: the QC tier on dvbs2/64800/12 (32 frames, 1.2 dB) bits, ok and
+     card (in phase 23's launch): the QC tier on dvbs2/64800/12 (32 frames, 1.2 dB) bits, ok and
      iterations identical to K3 on one rank; the check-sharded tier on
      mackay1008 (256 frames, 2.5 dB) agreeing on ok frames; ms a decode
      and K5 calls a decode.
+  50. experiment kernels vs plain — every variant of the experiments'
+     kernels (ecc_ldpc_tpu_torch/experiments) against its plain version
+     on the card, at the plans phase 51 runs: E5-E7 (csrc/micro_ops.cu:
+     every dtype, every op) at [368, 128] and [368, 16896], outputs 0
+     ulps apart; E1's seven variants (runtime tables), E2's seven and E3
+     (static libraries) on dvbs2/64800/12 (272 frames, one a tile, on 132
+     blocks: each block takes tiles in turn; 3 sweeps), bits identical
+     and posteriors 0 ulps apart, E3 equal to E1 full; E4's three
+     variants on mackay1008 (2045 frames: 8 a tile, 256 tiles on 132
+     blocks, the last of 5; and 13 frames, one a block; 5 iterations),
+     bits, ok and iterations identical and posteriors 0 ulps apart.
+  51. the experiments at full width — each of the six scripts' main()
+     at its own configuration (E1 at B = 128 and 4096, E2 at 4096, E3 at
+     both, beside K1a's bf16 library; E4 at B = 2048 beside K2; E5-E7 at
+     [368, 128] and [368, 16896]), one JSON line a variant; E3's bits
+     equal E1 full's at both batches; and E6's library call (one
+     torch.roll by the chain's shift).
 Then the kernels line (the launches of phases 28-29, 31-42 and 47-49
 added to the kernels that decode them, the families' errors to theirs,
 an entry with "width": 64 for each 64-wide instance timed in 27, one with
 "width": "wide" for each wide instance timed in 30, one with its
-"precision" for each (kernel, precision) timed in 36 and 46, and one for
-each new classic instance timed in 43-44), nvidia-smi's line, and the
-result line last.
+"precision" for each (kernel, precision) timed in 36 and 46, one for
+each new classic instance timed in 43-44, and one for each experiment
+kernel, E1-E7, with its launches in 51 and its comparisons in 50),
+nvidia-smi's line, and the result line last.
 
 The script leaves no process behind, whether it ends, fails or is sent
 SIGTERM: it reaps every process it starts, however deep (the ranks that
@@ -443,6 +465,13 @@ from ecc_ldpc_tpu_torch.decode.layered_qc import (
 from ecc_ldpc_tpu_torch.decode.quant import describe
 from ecc_ldpc_tpu_torch.dist.ring import node_plan
 from ecc_ldpc_tpu_torch.encode.structured import build_encoder
+from ecc_ldpc_tpu_torch.experiments import ablate, micro, smallcode_opt2
+from ecc_ldpc_tpu_torch.experiments import common as exp_common
+from ecc_ldpc_tpu_torch.experiments.variants import (
+    E2_VARIANTS,
+    E3_FLAGS,
+    ROLL,
+)
 from ecc_ldpc_tpu_torch.graph.qc import compile_qc_graph
 from ecc_ldpc_tpu_torch.sim import (
     PointResult,
@@ -614,6 +643,25 @@ XOR_SWEEPS = {
 XOR_SWEEP_FRAMES = 8192
 XOR_FER_MAX = 0.01
 RING_RANKS = (2, 4)
+# 49. graph-parallel decoding (bench/graph_parallel.py) on D ranks of the
+# card
+GRAPH_PARALLEL_RANKS = (2, 4)
+# 34. the sharded modem sweep's meshes on one node
+MODEM_MESHES = ("1x1", "2x1")
+# the one-node rank programs of phases 23, 24, 34 and 49, one launch of
+# four ranks (rank_jobs, bench/ranks.py): name -> (the job's module and
+# arguments, "{out}" the lines' directory; its share of the launch's time
+# limit in seconds)
+RANK_JOBS_WORLD = 4
+RANK_JOBS = {
+    "ring": (("bench.ring", "{out}", "--ranks",
+              ",".join(map(str, RING_RANKS))), 300),
+    "sharded": (("bench.sharded", ",".join(SHARDED_MESHES), "{out}"), 900),
+    "modem": (("bench.sharded", ",".join(MODEM_MESHES), "{out}", "modem"),
+              600),
+    "graph_parallel": (("bench.graph_parallel", "{out}", "--ranks",
+                        ",".join(map(str, GRAPH_PARALLEL_RANKS))), 600),
+}
 # the integer counters a sharded sweep must reproduce on every mesh
 SHARDED_COUNTERS = ("frames", "bit_errors", "frame_errors", "iters_sum",
                     "bit_errors_sq")
@@ -2229,26 +2277,23 @@ def modem_sweeps_path(dev) -> dict:
     return launches
 
 
-def modem_dist_path() -> int:
+def modem_dist_path(rank_out: pathlib.Path) -> int:
     """Phase 34: the sharded sweep over apsk16:r56:il
     (bench.SHARDED_MODEM_SWEEP) on meshes 1x1 and 2x1 through
-    bench/sharded.py (one node), and through the CLI on 2x1 with --channel
-    on two nodes of one rank each (run_nodes: K5 through host memory
-    only): the same counters everywhere, K5 launched on every rank of 2x1,
-    each CLI rank's plan its own node. Returns rank 0's launches of K1a and
-    K5 there."""
+    bench/sharded.py (one node; rank_jobs' lines in rank_out), and through
+    the CLI on 2x1 with --channel on two nodes of one rank each
+    (run_nodes: K5 through host memory only): the same counters
+    everywhere, K5 launched on every rank of 2x1, each CLI rank's plan its
+    own node. Returns rank 0's launches of K1a and K5 there."""
     from ecc_ldpc_tpu_torch.bench.throughput import SHARDED_MODEM_SWEEP as M
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     counters = {}
     with tempfile.TemporaryDirectory() as tmp:
-        run_ranks(2, ["ecc_ldpc_tpu_torch.bench.sharded", "1x1,2x1", tmp,
-                      "modem"], 600)
-        for mesh in ("1x1", "2x1"):
+        for mesh in MODEM_MESHES:
             b, s = (int(x) for x in mesh.split("x"))
-            lines = rank_lines(pathlib.Path(tmp), f"sharded_{mesh}_modem",
-                               b * s)
+            lines = rank_lines(rank_out, f"sharded_{mesh}_modem", b * s)
             for line in lines:
                 emit("modem_sharded", **line)
                 if line["counters"] != lines[0]["counters"]:
@@ -2397,6 +2442,24 @@ def check_node_launch(out: str, nnodes: int, nproc: int, what: str) -> dict:
     return dict(launches)
 
 
+def rank_jobs(out: pathlib.Path) -> None:
+    """The one-node rank programs of phases 23 (bench/ring.py), 24 and 34
+    (bench/sharded.py) and 49 (bench/graph_parallel.py), RANK_JOBS, in one
+    torch.distributed.run launch of RANK_JOBS_WORLD ranks
+    (bench/ranks.py: one after another in the same processes and group,
+    so the ranks start once), each rank writing its lines into `out`,
+    where those phases read them."""
+    torch.cuda.empty_cache()  # the ranks need the card's memory
+    t0 = time.perf_counter()
+    args = []
+    for job, _ in RANK_JOBS.values():
+        args += ["--", *(a.format(out=out) for a in job)]
+    run_ranks(RANK_JOBS_WORLD, ["ecc_ldpc_tpu_torch.bench.ranks", *args[1:]],
+              sum(limit for _, limit in RANK_JOBS.values()))
+    emit("rank_jobs", jobs=list(RANK_JOBS), ranks=RANK_JOBS_WORLD,
+         seconds=time.perf_counter() - t0)
+
+
 def rank_lines(out_dir: pathlib.Path, stem: str, nproc: int) -> list:
     return [json.loads((out_dir / f"{stem}_rank{r}.json").read_text())
             for r in range(nproc)]
@@ -2439,25 +2502,22 @@ def ring_nodes_path() -> None:
          seconds=time.perf_counter() - t0)
 
 
-def dist_path(dev) -> list:
+def dist_path(dev, rank_out: pathlib.Path) -> list:
     """Phases 23-25: K5 on several ranks of the one card against its plain
-    version, the sharded sweep at full width on three meshes, and the CLI
-    under torch.distributed.run; returns K5's entry of the kernels line."""
+    version, the sharded sweep at full width on three meshes (both from
+    rank_jobs' lines in rank_out), and the CLI under
+    torch.distributed.run; returns K5's entry of the kernels line."""
     torch.cuda.empty_cache()  # the ranks need the card's memory
     mode = subprocess.run(
         ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
         capture_output=True, text=True)
     emit("ring_device", compute_mode=(mode.stdout or mode.stderr).strip())
 
-    # 23. K5 against its plain version on D ranks of the card: one launch
-    # of max(RING_RANKS) processes, a group of the first D for each D
+    # 23. K5 against its plain version on D ranks of the card (rank_jobs:
+    # 4 processes, a group of the first D for each D)
     ring_cases = {}
-    W = max(RING_RANKS)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        run_ranks(W, ["ecc_ldpc_tpu_torch.bench.ring", tmp, "--ranks",
-                      ",".join(map(str, RING_RANKS))], 300)
-        lines = rank_lines(pathlib.Path(tmp), "ring", W)
+    lines = rank_lines(rank_out, "ring", RANK_JOBS_WORLD)
     for line in lines:
         for c in line["cases"]:
             if not (c["identical_to_plain"] and c["ranks_identical"]):
@@ -2476,20 +2536,14 @@ def dist_path(dev) -> list:
         emit("ring_vs_plain", D=D, ranks=D, seconds=time.perf_counter() - t0)
     ring_nodes_path()
 
-    # 24. the sharded sweep on each mesh, all in one launch of the largest
-    # mesh's ranks (a group of the first B*S for each); counts from each
-    # rank's own run
+    # 24. the sharded sweep on each mesh, in rank_jobs' launch (a group of
+    # the first B*S ranks for each); counts from each rank's own run
     sharded = {}
     sizes = {m: math.prod(int(x) for x in m.split("x"))
              for m in SHARDED_MESHES}
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        run_ranks(max(sizes.values()), ["ecc_ldpc_tpu_torch.bench.sharded",
-                                        ",".join(SHARDED_MESHES), tmp], 900)
-        every = {m: rank_lines(pathlib.Path(tmp), f"sharded_{m}", D)
-                 for m, D in sizes.items()}
-    emit("sharded_sweep", meshes=list(SHARDED_MESHES),
-         seconds=time.perf_counter() - t0)
+    every = {m: rank_lines(rank_out, f"sharded_{m}", D)
+             for m, D in sizes.items()}
+    emit("sharded_sweep", meshes=list(SHARDED_MESHES))
     for mesh, lines in every.items():
         b, s = (int(x) for x in mesh.split("x"))
         for line in lines:
@@ -3324,9 +3378,6 @@ PALLAS_GOLDEN_FRAMES = 32768
 XLA_MM_SPECS = ("minsum/norm:0.8125/25", "spa/25")
 XLA_MM_B = 2048
 XLA_MM_EBN0 = 2.0
-# 49. graph-parallel decoding (bench/graph_parallel.py) on D ranks of the
-# card
-GRAPH_PARALLEL_RANKS = (2, 4)
 
 
 def _timed_decode(graph, spec: str, B: int, ebn0: float, dev, wrapper,
@@ -3621,22 +3672,15 @@ def xla_mm_path(dev) -> dict:
     return added
 
 
-def graph_parallel_path() -> dict:
+def graph_parallel_path(rank_out: pathlib.Path) -> dict:
     """Phase 49: both graph-parallel tiers (dist/graph_parallel.py) on D =
-    2 and 4 ranks of the card (bench/graph_parallel.py under
-    torch.distributed.run, 4 processes, a group of the first D for each
-    D): the QC tier on dvbs2/64800/12 bit-identical
-    to K3 on one rank, the generic tier on mackay1008 agreeing with the
-    single-rank flooding decoder on ok frames. Returns K5's launches on
-    rank 0 in the tiers' decodes."""
-    torch.cuda.empty_cache()  # the ranks need the card's memory
-    ring, W = 0, max(GRAPH_PARALLEL_RANKS)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = pathlib.Path(tmp)
-        run_ranks(W, ["ecc_ldpc_tpu_torch.bench.graph_parallel", str(out),
-                      "--ranks", ",".join(map(str, GRAPH_PARALLEL_RANKS))],
-                  600)
-        lines = rank_lines(out, "graph_parallel", W)
+    2 and 4 ranks of the card (bench/graph_parallel.py in rank_jobs'
+    launch, a group of the first D for each D; its lines in rank_out):
+    the QC tier on dvbs2/64800/12 bit-identical to K3 on one rank, the
+    generic tier on mackay1008 agreeing with the single-rank flooding
+    decoder on ok frames. Returns K5's launches on rank 0 in the tiers'
+    decodes."""
+    lines = rank_lines(rank_out, "graph_parallel", RANK_JOBS_WORLD)
     for line in lines:
         emit("graph_parallel", **line)
         for tier in line["tiers"]:
@@ -3651,6 +3695,278 @@ def graph_parallel_path() -> dict:
     if ring <= 0:
         raise AssertionError("K5 never ran on the graph-parallel path")
     return {"ring": ring}
+
+
+# phases 50-51: the experiments' kernels (E1-E7, ecc_ldpc_tpu_torch/experiments)
+# frames and sweeps of an E1-E3 comparison: 272 tiles of one frame on 132
+# blocks, so each block takes two or three tiles in turn and reuses its
+# state slab, spill and prefetch buffers, as the main path's 4096 do
+EXP_LAYERED = (272, 3)
+# E4's frames and iterations: 2045 frames run F = 8, 256 tiles on 132
+# blocks, the last of 5 frames (the main path's 2048 run F = 8, 256 full
+# tiles); 13 frames run one a block
+EXP_FLOODING = ((2045, 5), (13, 5))
+EXP_MICRO = (8, 2)        # inner and reps of an E5-E7 comparison
+EXP_SOURCES = {
+    "ablate_layered": ("ablate_layered.cu", "experiments/ablate_layered.py:116"),
+    "ablate_layered2": ("ablate_layered.cu",
+                        "experiments/ablate_layered2.py:113"),
+    "static_unroll": ("ablate_layered.cu", "experiments/static_unroll.py:108"),
+    "dcmajor": ("dcmajor.cu", "experiments/smallcode_opt2.py:183"),
+    "micro_ops:ew": ("micro_ops.cu", "experiments/micro_vpu.py:73"),
+    "micro_ops:roll": ("micro_ops.cu", "experiments/micro_vpu.py:92"),
+    "micro_ops:op": ("micro_ops.cu", "experiments/micro_vpu2.py:66"),
+}
+EXP_MAINS = ("micro_vpu", "micro_vpu2", "ablate_layered", "ablate_layered2",
+             "static_unroll", "smallcode_opt2")
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units in the last place between two f32
+    tensors (0: the same bits)."""
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    oa = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ob = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((oa - ob).abs().max().item()) if a.numel() else 0
+
+
+def _micro_x(dtype: str, cols: int, dev, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    if dtype.startswith("int"):
+        lim = 100 if dtype == "int8" else 1000
+        x = rng.integers(-lim, lim, (micro.Z, cols))
+    else:
+        x = 3 * rng.standard_normal((micro.Z, cols))
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def experiments_kernels_path(dev) -> dict:
+    """Phase 50: every variant of E1-E7 against its plain version on the
+    card, on the same inputs, at the plans phase 51 runs: E5-E7 at both
+    of its shapes, [368, 128] and [368, 16896], with EXP_MICRO steps,
+    outputs 0 ulps apart; E1 and E2's variants and E3 on dvbs2/64800/12
+    (EXP_LAYERED: more tiles than blocks), bits identical and final
+    posteriors 0 ulps apart, and E3's bits and posteriors equal to E1
+    full's (E3 is E1 full without the cap, which these magnitudes never
+    reach); E4's three variants on mackay1008 (EXP_FLOODING: F = 8 with a
+    ragged last tile and more tiles than blocks, and one frame a block),
+    bits, ok and iterations identical and final posteriors 0 ulps apart
+    (each variable's sum in ascending edge order, as the plain version
+    adds). The counts are the wrappers' own and are not the main path's.
+    Returns {kernels-line name: {"ulps", "max_abs_err", "plain_ms", "ms",
+    "shape"}}: the largest ulps and error over every case, the times and
+    shape of its first (the plain version's time beside the kernel's)."""
+    t0 = time.perf_counter()
+    out = {}
+
+    def note(name, kern_ms, plain_ms, ulps, err, shape):
+        o = out.setdefault(name, dict(ulps=0, max_abs_err=0.0,
+                                      plain_ms=plain_ms, ms=kern_ms,
+                                      shape=shape))
+        o["ulps"] = max(o["ulps"], ulps)
+        o["max_abs_err"] = max(o["max_abs_err"], err)
+
+    inner, reps = EXP_MICRO
+    cases = 0
+    for cols in (micro.L, micro.FULL_L):
+        for kind, dtypes, fn, plain in (
+                ("ew", micro.EW_DTYPES, micro.ew_cuda, micro.ew_plain),
+                ("roll", micro.ROLL_DTYPES, micro.roll_cuda,
+                 micro.roll_plain)):
+            for dtype in dtypes:
+                x = _micro_x(dtype, cols, dev, 5)
+                fn(x, dtype, inner, reps)  # warm
+                got, ms = timed(fn, x, dtype, inner, reps)
+                ref, pms = timed(plain, x, dtype, inner, reps)
+                u = _ulps(got, ref)
+                note(f"micro_ops:{kind}", ms, pms, u,
+                     (got - ref).abs().max().item(),
+                     [micro.Z, cols, inner * reps])
+                cases += 1
+                if u:
+                    raise AssertionError(
+                        f"E5/E6 {kind} {dtype} [{micro.Z}, {cols}]: {u} ulps")
+        for name in micro.OPS:
+            for dtype in micro.OP_DTYPES:
+                a, b = micro.op_inputs(dtype, micro.Z, cols, dev, seed=6)
+                micro.op_cuda(a, b, name, inner, reps)  # warm
+                got, ms = timed(micro.op_cuda, a, b, name, inner, reps)
+                ref, pms = timed(micro.op_plain, a, b, name, inner, reps)
+                u = _ulps(got, ref)
+                note("micro_ops:op", ms, pms, u,
+                     float(torch.nan_to_num((got - ref).abs()).max().item()),
+                     [micro.Z, cols, inner * reps])
+                cases += 1
+                if u:
+                    raise AssertionError(
+                        f"E7 {name} {dtype} [{micro.Z}, {cols}]: {u} ulps")
+    emit("experiments_micro", seconds=time.perf_counter() - t0, cases=cases,
+         **{k: v for k, v in out.items()})
+
+    t1 = time.perf_counter()
+    graph = ablate.static_graph()
+    B, iters = EXP_LAYERED
+    llr3 = ablate.inputs3(graph, B, dev, seed=4, mean=0.5)
+    llr = {r: ablate.to_var(graph, llr3, r) for r in (True, False)}
+    cases = [("ablate_layered", v, fl, False)
+             for v, fl in ablate.E1_VARIANTS.items()]
+    cases += [("ablate_layered2", v, fl, True)
+              for v, fl in E2_VARIANTS.items()]
+    cases.append(("static_unroll", "full", E3_FLAGS, True))
+    kept = {}
+    for name, v, fl, static in cases:
+        x = llr[bool(fl & ROLL)]
+        ablate.ablate_cuda(graph, x, fl, iters, static=static)  # warm
+        (bits, post), ms = timed(ablate.ablate_cuda, graph, x, fl, iters,
+                                 static=static, with_posteriors=True)
+        (rbits, rpost), pms = timed(ablate.ablate_plain, graph, x, fl,
+                                    iters)
+        same = torch.equal(bits, rbits)
+        u = _ulps(post, rpost)
+        emit("experiments_layered", kernel=name, variant=v, flags=fl,
+             frames=B, iters=iters, bits_equal=same, post_ulps=u, ms=ms,
+             plain_ms=pms, ones=int(bits.sum().item()),
+             plan=ablate.ablate_cuda.last_plan[0].as_dict(),
+             blocks=ablate.ablate_cuda.last_plan[1])
+        note(name, ms, pms, u, (post - rpost).abs().max().item(),
+             [B, graph.n, iters])
+        if not same or u:
+            raise AssertionError(f"{name} {v}: bits equal {same}, {u} ulps")
+        kept[name, v] = bits, post
+    e1, e3 = kept["ablate_layered", "full"], kept["static_unroll", "full"]
+    if not (torch.equal(e1[0], e3[0]) and same_floats(e1[1], e3[1])):
+        raise AssertionError("E3 differs from E1 full")
+
+    t2 = time.perf_counter()
+    for B, iters in EXP_FLOODING:
+        x = make_inputs("mackay1008", "minsum/norm:0.8125/5", B, 2.0, dev,
+                        seed=8)
+        fgraph = x.graph
+        for v in smallcode_opt2.VARIANTS:
+            smallcode_opt2.dcmajor_cuda(fgraph, x.llr, v, iters)  # warm
+            (res, post), ms = timed(smallcode_opt2.dcmajor_cuda, fgraph,
+                                    x.llr, v, iters, with_posteriors=True)
+            (ref, rpost), pms = timed(smallcode_opt2.dcmajor_plain, fgraph,
+                                      x.llr, v, iters)
+            same = (torch.equal(res.bits, ref.bits)
+                    and torch.equal(res.ok, ref.ok)
+                    and torch.equal(res.iterations, ref.iterations))
+            u = _ulps(post, rpost)
+            plan = smallcode_opt2.dcmajor_cuda.last_plan
+            emit("experiments_flooding", variant=v, frames=B, iters=iters,
+                 same=same, post_ulps=u, ok=int(res.ok.sum().item()), ms=ms,
+                 plain_ms=pms, plan=plan,
+                 last_tile_frames=B - (plan["tiles"] - 1) * plan["frames"])
+            note("dcmajor", ms, pms, u, (post - rpost).abs().max().item(),
+                 [B, fgraph.n, iters])
+            if not same or u:
+                raise AssertionError(f"E4 {v} at {B} frames: bits, ok and "
+                                     f"iterations equal {same}, {u} ulps")
+    emit("experiments_kernels", seconds=time.perf_counter() - t0,
+         layered_s=t2 - t1, flooding_s=time.perf_counter() - t2)
+    return out
+
+
+def _json_lines(text: str) -> list:
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith("{"):
+            out.append(json.loads(ln))
+    return out
+
+
+def experiments_mains_path(dev) -> tuple:
+    """Phase 51: each experiment's main at its script's own configuration
+    (the E1-E3 scripts on dvbs2/64800/12, E1 at B = 128 and 4096, E2 at
+    4096, E3 at both; E4 on mackay1008 at B = 2048; E5-E7 at [368, 128] and
+    [368, 16896]), its output printed as it ran, the kernels' counts zeroed
+    before and read after. Also E6's library call: one torch.roll by the
+    chain's shift. Returns ({script: [its JSON lines]}, {kernels-line
+    name: launches}, library ms of E6)."""
+    import importlib
+
+    ablate.ablate_cuda.launches_by_library.clear()
+    smallcode_opt2.dcmajor_cuda.launches = 0
+    micro.ew_cuda.launches = micro.roll_cuda.launches = 0
+    micro.op_cuda.launches = 0
+    lines = {}
+    for name in EXP_MAINS:
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        mod = importlib.import_module(f"ecc_ldpc_tpu_torch.experiments.{name}")
+        with contextlib.redirect_stdout(buf):
+            rc = mod.main([])
+        print(buf.getvalue(), end="", flush=True)
+        lines[name] = _json_lines(buf.getvalue())
+        emit("experiments_main", script=name, rc=rc,
+             seconds=time.perf_counter() - t0, lines=len(lines[name]))
+        if rc != 0:
+            raise AssertionError(f"{name}.main() returned {rc}")
+    by_lib = ablate.ablate_cuda.launches_by_library
+    launches = {
+        "ablate_layered": by_lib["ablate_layered"],
+        "ablate_layered2": sum(by_lib[ablate.library_of(fl, True)]
+                               for fl in E2_VARIANTS.values()),
+        "static_unroll": by_lib[ablate.library_of(E3_FLAGS, True)],
+        "dcmajor": smallcode_opt2.dcmajor_cuda.launches,
+        "micro_ops:ew": micro.ew_cuda.launches,
+        "micro_ops:roll": micro.roll_cuda.launches,
+        "micro_ops:op": micro.op_cuda.launches,
+    }
+    same = [ln for ln in lines["static_unroll"] if "bits_equal_e1_full" in ln]
+    if len(same) != 2 or not all(ln["bits_equal_e1_full"] for ln in same):
+        raise AssertionError("E3's bits differ from E1 full's at full width")
+    x = torch.ones((micro.Z, micro.L), device=dev)
+    shift = micro.roll_total() % micro.Z
+    lib_ms = exp_common.seconds(lambda: torch.roll(x, shift, 0), dev) * 1e3
+    emit("experiments_mains", launches=launches, roll_library_ms=lib_ms)
+    return lines, launches, lib_ms
+
+
+def _pick(lines: list, **kw) -> dict:
+    for ln in lines:
+        if all(ln.get(k) == v for k, v in kw.items()):
+            return ln
+    raise AssertionError(f"no line with {kw}")
+
+
+def experiments_entries(parity: dict, lines: dict, launches: dict,
+                        roll_ms: float) -> list:
+    """The kernels-line entries of E1-E7: ms of each kernel's first variant
+    at its script's configuration (E1, E3: full at B = 128; E2: full at
+    4096; E4: full at 2048; E5, E6: f32, E7: add f32, at [368, 128]), its
+    bound from the same line, launches of phase 51, the comparisons of
+    phase 50 (the plain version's ms there, at `plain_shape`: frames, n
+    and sweeps for E1-E4, rows, columns and steps for E5-E7)."""
+    picks = {
+        "ablate_layered": _pick(lines["ablate_layered"], variant="full",
+                                regime="latency"),
+        "ablate_layered2": _pick(lines["ablate_layered2"], variant="full"),
+        "static_unroll": _pick(lines["static_unroll"], variant="static",
+                               regime="latency"),
+        "dcmajor": _pick(lines["smallcode_opt2"], variant="dcmajor/full/bf16"),
+        "micro_ops:ew": _pick(lines["micro_vpu"], kind="ew", dtype="float32",
+                              shape_name="tpu"),
+        "micro_ops:roll": _pick(lines["micro_vpu"], kind="roll",
+                                dtype="float32", shape_name="tpu"),
+        "micro_ops:op": _pick(lines["micro_vpu2"], op="add", dtype="float32",
+                              shape_name="tpu"),
+    }
+    out = []
+    for name, ln in picks.items():
+        src, replaces = EXP_SOURCES[name]
+        p = parity[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"ecc_ldpc_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": p["max_abs_err"],
+            "ms": ln["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
+            "library_ms": roll_ms if name == "micro_ops:roll" else None,
+            "plain_shape": p["shape"], "ms_at_plain_shape": p["ms"],
+        })
+    return out
 
 
 def main() -> int:
@@ -4060,7 +4376,11 @@ def main() -> int:
 
     kernels_ccsds = ccsds_path(dev, spec12, k3, flood_err, k3_lines)
     kernels_xor = xor_path(dev, k3_lines)
-    kernels_dist = dist_path(dev)
+    # phases 23, 24, 34 and 49 read the lines of one launch of ranks
+    rank_dir = tempfile.TemporaryDirectory()
+    rank_out = pathlib.Path(rank_dir.name)
+    rank_jobs(rank_out)
+    kernels_dist = dist_path(dev, rank_out)
 
     hl = results["headline"]
     kernels = [{
@@ -4143,7 +4463,7 @@ def main() -> int:
     channels_path(dev)
     for k, v in modem_sweeps_path(dev).items():
         added[k] = added.get(k, 0) + v
-    for k, v in modem_dist_path().items():
+    for k, v in modem_dist_path(rank_out).items():
         key = "layered_qc" if k == "layered_qc" else "ring"
         added[key] = added.get(key, 0) + v
     # phases 35-38: the precision cases (comparisons, not counted), each
@@ -4181,11 +4501,15 @@ def main() -> int:
     added = pallas_goldens_path()
     for k, v in xla_mm_path(dev).items():
         added[k] = added.get(k, 0) + v
-    for k, v in graph_parallel_path().items():
+    for k, v in graph_parallel_path(rank_out).items():
         added[k] = added.get(k, 0) + v
+    rank_dir.cleanup()
     for k in kernels:
         if "precision" not in k or k["name"].endswith(k["precision"]):
             k["launches"] += added.get(k["name"], 0)
+    # phases 50-51: the experiments' kernels, entries of their own
+    exp_parity = experiments_kernels_path(dev)
+    kernels += experiments_entries(exp_parity, *experiments_mains_path(dev))
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,7 +14,10 @@ permutations and bf16 matmul inputs; csrc/cluster_tile.cuh,
 csrc/flooding_qc.cu, csrc/flooding.cu). Apart, the f32 kernels keep their
 own code and register allocation, and the libraries build side by side;
 the precision builds of layered_exact and layered_classic, the longest,
-come in two halves (circulant, and _xor), one nvcc each.
+come in two halves (circulant, and _xor), one nvcc each. The experiments'
+ablate_layered source builds its dynamic instances once and each static
+sweep (-DABLATE_STATIC_FLAGS) as a library of its own, so the unrolled
+sweeps build side by side.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("layered_qc", "layered_exact", "layered_classic", "flooding",
-                  "flooding_qc", "ring")
+                  "flooding_qc", "ring", "micro_ops", "ablate_layered",
+                  "dcmajor")
 # library -> (its source, its own nvcc flags): every source, and the
 # precision build of each layered one
 LIBRARIES = {name: (name, ()) for name in KERNEL_SOURCES}
@@ -49,6 +53,13 @@ LIBRARIES["layered_classic_prec"] = ("layered_classic",
 LIBRARIES["layered_classic_prec_xor"] = ("layered_classic",
                                          ("-DLAYERED_PREC=1",
                                           "-DLAYERED_PERM=2"))
+# the experiments' static sweeps (E2's seven variants and E3), one library
+# an instance, named by its flag set: the kernel's template parameter,
+# whose bits experiments/variants.py names
+ABLATE_STATIC_FLAGS = (47, 46, 45, 43, 39, 15, 0, 63)
+LIBRARIES.update({f"ablate_static_{fl}": ("ablate_layered",
+                                          (f"-DABLATE_STATIC_FLAGS={fl}",))
+                  for fl in ABLATE_STATIC_FLAGS})
 
 
 def nvcc_path() -> str:

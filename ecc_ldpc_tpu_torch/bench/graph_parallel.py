@@ -108,7 +108,7 @@ def main(argv=None) -> int:
     out_dir = pathlib.Path(args[0])
     device = args[args.index("--device") + 1] if "--device" in args \
         else "cuda"
-    maybe_init_distributed()
+    joined = maybe_init_distributed()
     dev = rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -125,7 +125,8 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"graph_parallel_rank{rank}.json").write_text(json.dumps(line))
     print(json.dumps(line), flush=True)
-    dist.destroy_process_group()
+    if joined:  # else the launch's runner (bench/ranks.py) made the group
+        dist.destroy_process_group()
     return 0
 
 

@@ -163,7 +163,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench.ring needs a CUDA card")
     out_dir = pathlib.Path(args[0])
-    maybe_init_distributed()
+    joined = maybe_init_distributed()
     dev = rank_device("cuda")
     torch.cuda.set_device(dev)
     rank, world = dist.get_rank(), dist.get_world_size()
@@ -181,7 +181,8 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"ring_rank{rank}.json").write_text(json.dumps(line))
     print(json.dumps(line), flush=True)
-    dist.destroy_process_group()
+    if joined:  # else the launch's runner (bench/ranks.py) made the group
+        dist.destroy_process_group()
     return 0
 
 

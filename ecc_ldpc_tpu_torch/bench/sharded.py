@@ -113,8 +113,9 @@ def main(argv=None) -> int:
     modem = args[2:] == ["modem"]
     cfg = SHARDED_MODEM_SWEEP if modem else SHARDED_SWEEP
     joined = maybe_init_distributed()
-    rank = torch.distributed.get_rank() if joined else 0
-    world = torch.distributed.get_world_size() if joined else 1
+    ranked = torch.distributed.is_initialized()  # here or by bench/ranks.py
+    rank = torch.distributed.get_rank() if ranked else 0
+    world = torch.distributed.get_world_size() if ranked else 1
     dev = rank_device("cuda")
     torch.cuda.set_device(dev)
     for mesh_str in meshes:
@@ -125,7 +126,7 @@ def main(argv=None) -> int:
         # the mesh's own group, a group of one for 1x1 too (None would be
         # every launched rank); every rank takes part in making it
         group = None
-        if joined:
+        if ranked:
             group = torch.distributed.new_group(list(range(b * s)))
         if rank < b * s:
             run_mesh(mesh_str, Mesh(batch=b, snr=s, rank=rank, device=dev,
