@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases (one JSON line each; any failure raises and exits non-zero):
   1. device  — the card's name and nvidia-smi's name and power limit.
   2. build   — nvcc builds every kernel of the path into build/kernels/,
-     one process a library, all started together.
+     one process a library, all started together; then the ablation
+     libraries' SASS instruction counts (cuobjdump -sass), spill and nvcc
+     seconds, each static library within 8000 instructions and the spill
+     of the sweep unrolled layer by layer.
   3. kernel vs plain — the CUDA layered kernel against its plain PyTorch
      version on the same LLRs on the card: bits, ok, iterations and the
      final posteriors must be identical (fixed and track mode, rate 1/2,
@@ -347,10 +350,13 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      kernels (ecc_ldpc_tpu_torch/experiments) against its plain version
      on the card, at the plans phase 51 runs: E5-E7 (csrc/micro_ops.cu:
      every dtype, every op) at [368, 128] and [368, 16896], outputs 0
-     ulps apart; E1's seven variants (runtime tables), E2's seven and E3
-     (static libraries) on dvbs2/64800/12 (272 frames, one a tile, on 132
-     blocks: each block takes tiles in turn; 3 sweeps), bits identical
-     and posteriors 0 ulps apart, E3 equal to E1 full; E4's three
+     ulps apart; E6 also at [33, 128] and with shifts of 33-40 rows (the
+     shared-memory route), each with its plan printed, and its whole
+     chain at both shapes equal to one torch.roll; E1's seven variants
+     (runtime tables), E2's seven and E3 (static libraries) on
+     dvbs2/64800/12 (272 frames, one a tile, on 132 blocks: each block
+     takes tiles in turn; 3 sweeps), bits identical and posteriors 0
+     ulps apart, E3 equal to E1 full; E4's three
      variants on mackay1008 (2045 frames: 8 a tile, 256 tiles on 132
      blocks, the last of 5; and 13 frames, one a block; 5 iterations),
      bits, ok and iterations identical and posteriors 0 ulps apart.
@@ -359,7 +365,7 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      both, beside K1a's bf16 library; E4 at B = 2048 beside K2; E5-E7 at
      [368, 128] and [368, 16896]), one JSON line a variant; E3's bits
      equal E1 full's at both batches; and E6's library call (one
-     torch.roll by the chain's shift).
+     torch.roll by the chain's shift) at both shapes.
 Then the kernels line (the launches of phases 28-29, 31-42 and 47-49
 added to the kernels that decode them, the families' errors to theirs,
 an entry with "width": 64 for each 64-wide instance timed in 27, one with
@@ -379,6 +385,7 @@ stops its ranks.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import io
@@ -3707,6 +3714,16 @@ EXP_LAYERED = (272, 3)
 # tiles); 13 frames run one a block
 EXP_FLOODING = ((2045, 5), (13, 5))
 EXP_MICRO = (8, 2)        # inner and reps of an E5-E7 comparison
+# E6's further cases (rows, columns, shifts): a Z that is no multiple of
+# 32, and a shift of 32 rows or more (the warp's shared memory route)
+EXP_ROLL_CASES = ((33, micro.L, micro.SHIFTS),
+                  (micro.Z, micro.L, tuple(range(33, 41))))
+# the static libraries' limits: SASS instructions (a body of about one
+# layer's step, against some 37k for the sweep unrolled layer by layer),
+# and the spill stores and loads (bytes) of that unrolled sweep's build
+STATIC_SASS_MOST = 8000
+STATIC_SPILL_MOST = {47: (20, 20), 46: (12, 24), 45: (36, 36), 43: (0, 0),
+                     39: (12, 12), 15: (304, 304), 0: (0, 0), 63: (68, 80)}
 EXP_SOURCES = {
     "ablate_layered": ("ablate_layered.cu", "experiments/ablate_layered.py:116"),
     "ablate_layered2": ("ablate_layered.cu",
@@ -3731,14 +3748,76 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((oa - ob).abs().max().item()) if a.numel() else 0
 
 
-def _micro_x(dtype: str, cols: int, dev, seed: int) -> torch.Tensor:
+def _micro_x(dtype: str, cols: int, dev, seed: int,
+             rows: int = micro.Z) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     if dtype.startswith("int"):
         lim = 100 if dtype == "int8" else 1000
-        x = rng.integers(-lim, lim, (micro.Z, cols))
+        x = rng.integers(-lim, lim, (rows, cols))
     else:
-        x = 3 * rng.standard_normal((micro.Z, cols))
+        x = 3 * rng.standard_normal((rows, cols))
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def ptxas_spill(report: str) -> tuple:
+    """(spill stores, spill loads), the most of any kernel in a ptxas -v
+    report, in bytes."""
+    found = [tuple(map(int, m)) for m in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
+    return tuple(max(v) for v in zip(*found)) if found else (0, 0)
+
+
+def experiments_build(built: dict) -> dict:
+    """The ablation libraries' bodies after the build: each one's SASS
+    instructions (cuobjdump -sass; E1's seven instances, each static
+    library's one kernel), spill stores and loads, and nvcc seconds (0.0
+    where it was built before). Every static library within
+    STATIC_SASS_MOST instructions and STATIC_SPILL_MOST. Returns {library:
+    its SASS instructions, the largest of its kernels}."""
+    names = ["ablate_layered"] + [ablate.library_of(fl, True)
+                                  for fl in _build.ABLATE_STATIC_FLAGS]
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        sass = dict(zip(names, pool.map(_build.sass_counts, names)))
+    out = {}
+    for name, counts in sass.items():
+        spill = ptxas_spill(built[name]["ptxas"])
+        out[name] = max(counts.values())
+        emit("experiments_build", library=name, sass=sorted(counts.values()),
+             spill_stores_loads=spill, seconds=built[name]["seconds"])
+        if name == "ablate_layered":
+            continue
+        fl = int(name.rsplit("_", 1)[1])
+        most = STATIC_SPILL_MOST[fl]
+        if out[name] > STATIC_SASS_MOST or spill[0] > most[0] \
+                or spill[1] > most[1]:
+            raise AssertionError(
+                f"{name}: {out[name]} SASS instructions (at most "
+                f"{STATIC_SASS_MOST}), spill {spill} (at most {most})")
+    return out
+
+
+def roll_case(x: torch.Tensor, dtype: str, shifts, note) -> None:
+    """E6 on x against roll_plain at EXP_MICRO steps, 0 ulps, its plan
+    printed; then, for the main path's shapes, the whole chain against
+    one torch.roll by its shift (the chain is that rotation)."""
+    inner, reps = EXP_MICRO
+    micro.roll_cuda(x, dtype, inner, reps, shifts)  # warm
+    got, ms = timed(micro.roll_cuda, x, dtype, inner, reps, shifts)
+    ref, pms = timed(micro.roll_plain, x, dtype, inner, reps, shifts)
+    u = _ulps(got, ref)
+    shape = [*x.shape, inner * reps]
+    note("micro_ops:roll", ms, pms, u, (got - ref).abs().max().item(), shape)
+    emit("experiments_roll", dtype=dtype, shape=shape, shift0=shifts[0],
+         ulps=u, ms=ms, plain_ms=pms, plan=micro.roll_cuda.last_plan)
+    if u:
+        raise AssertionError(f"E6 {dtype} {shape}: {u} ulps")
+    if shifts == micro.SHIFTS and x.shape[0] == micro.Z:
+        whole = micro.roll_cuda(x, dtype)
+        one = torch.roll(x.to(micro.TORCH_DTYPES[dtype]),
+                         micro.roll_total() % micro.Z, 0).float()
+        if not same_floats(whole, one):
+            raise AssertionError(f"E6 {dtype} {shape}: the whole chain is "
+                                 f"not one torch.roll by its shift")
 
 
 def experiments_kernels_path(dev) -> dict:
@@ -3770,23 +3849,22 @@ def experiments_kernels_path(dev) -> dict:
     inner, reps = EXP_MICRO
     cases = 0
     for cols in (micro.L, micro.FULL_L):
-        for kind, dtypes, fn, plain in (
-                ("ew", micro.EW_DTYPES, micro.ew_cuda, micro.ew_plain),
-                ("roll", micro.ROLL_DTYPES, micro.roll_cuda,
-                 micro.roll_plain)):
-            for dtype in dtypes:
-                x = _micro_x(dtype, cols, dev, 5)
-                fn(x, dtype, inner, reps)  # warm
-                got, ms = timed(fn, x, dtype, inner, reps)
-                ref, pms = timed(plain, x, dtype, inner, reps)
-                u = _ulps(got, ref)
-                note(f"micro_ops:{kind}", ms, pms, u,
-                     (got - ref).abs().max().item(),
-                     [micro.Z, cols, inner * reps])
-                cases += 1
-                if u:
-                    raise AssertionError(
-                        f"E5/E6 {kind} {dtype} [{micro.Z}, {cols}]: {u} ulps")
+        for dtype in micro.EW_DTYPES:
+            x = _micro_x(dtype, cols, dev, 5)
+            micro.ew_cuda(x, dtype, inner, reps)  # warm
+            got, ms = timed(micro.ew_cuda, x, dtype, inner, reps)
+            ref, pms = timed(micro.ew_plain, x, dtype, inner, reps)
+            u = _ulps(got, ref)
+            note("micro_ops:ew", ms, pms, u, (got - ref).abs().max().item(),
+                 [micro.Z, cols, inner * reps])
+            cases += 1
+            if u:
+                raise AssertionError(
+                    f"E5 {dtype} [{micro.Z}, {cols}]: {u} ulps")
+        for dtype in micro.ROLL_DTYPES:
+            roll_case(_micro_x(dtype, cols, dev, 5), dtype, micro.SHIFTS,
+                      note)
+            cases += 1
         for name in micro.OPS:
             for dtype in micro.OP_DTYPES:
                 a, b = micro.op_inputs(dtype, micro.Z, cols, dev, seed=6)
@@ -3801,6 +3879,11 @@ def experiments_kernels_path(dev) -> dict:
                 if u:
                     raise AssertionError(
                         f"E7 {name} {dtype} [{micro.Z}, {cols}]: {u} ulps")
+    for rows, cols, shifts in EXP_ROLL_CASES:
+        for dtype in micro.ROLL_DTYPES:
+            roll_case(_micro_x(dtype, cols, dev, 7, rows), dtype, shifts,
+                      note)
+            cases += 1
     emit("experiments_micro", seconds=time.perf_counter() - t0, cases=cases,
          **{k: v for k, v in out.items()})
 
@@ -3881,9 +3964,9 @@ def experiments_mains_path(dev) -> tuple:
     (the E1-E3 scripts on dvbs2/64800/12, E1 at B = 128 and 4096, E2 at
     4096, E3 at both; E4 on mackay1008 at B = 2048; E5-E7 at [368, 128] and
     [368, 16896]), its output printed as it ran, the kernels' counts zeroed
-    before and read after. Also E6's library call: one torch.roll by the
-    chain's shift. Returns ({script: [its JSON lines]}, {kernels-line
-    name: launches}, library ms of E6)."""
+    before and read after. Also E6's library call at both shapes: one
+    torch.roll by the chain's shift. Returns ({script: [its JSON lines]},
+    {kernels-line name: launches}, {columns: library ms of E6})."""
     import importlib
 
     ablate.ablate_cuda.launches_by_library.clear()
@@ -3917,10 +4000,14 @@ def experiments_mains_path(dev) -> tuple:
     same = [ln for ln in lines["static_unroll"] if "bits_equal_e1_full" in ln]
     if len(same) != 2 or not all(ln["bits_equal_e1_full"] for ln in same):
         raise AssertionError("E3's bits differ from E1 full's at full width")
-    x = torch.ones((micro.Z, micro.L), device=dev)
     shift = micro.roll_total() % micro.Z
-    lib_ms = exp_common.seconds(lambda: torch.roll(x, shift, 0), dev) * 1e3
-    emit("experiments_mains", launches=launches, roll_library_ms=lib_ms)
+    lib_ms = {}
+    for cols in (micro.L, micro.FULL_L):
+        x = torch.ones((micro.Z, cols), device=dev)
+        lib_ms[cols] = exp_common.seconds(
+            lambda: torch.roll(x, shift, 0), dev) * 1e3
+    emit("experiments_mains", launches=launches,
+         roll_library_ms={str(k): v for k, v in lib_ms.items()})
     return lines, launches, lib_ms
 
 
@@ -3931,14 +4018,16 @@ def _pick(lines: list, **kw) -> dict:
     raise AssertionError(f"no line with {kw}")
 
 
-def experiments_entries(parity: dict, lines: dict, launches: dict,
-                        roll_ms: float) -> list:
+def experiments_entries(parity: dict, sass: dict, lines: dict,
+                        launches: dict, roll_ms: dict) -> list:
     """The kernels-line entries of E1-E7: ms of each kernel's first variant
     at its script's configuration (E1, E3: full at B = 128; E2: full at
     4096; E4: full at 2048; E5, E6: f32, E7: add f32, at [368, 128]), its
     bound from the same line, launches of phase 51, the comparisons of
     phase 50 (the plain version's ms there, at `plain_shape`: frames, n
-    and sweeps for E1-E4, rows, columns and steps for E5-E7)."""
+    and sweeps for E1-E4, rows, columns and steps for E5-E7); E1-E3's
+    SASS instructions; E6's step bound, plan, and its time, step bound and
+    library time at [368, 16896] beside them."""
     picks = {
         "ablate_layered": _pick(lines["ablate_layered"], variant="full",
                                 regime="latency"),
@@ -3963,9 +4052,24 @@ def experiments_entries(parity: dict, lines: dict, launches: dict,
             "launches": launches[name], "max_abs_err": p["max_abs_err"],
             "ms": ln["ms"], "plain_ms": p["plain_ms"],
             "bound_ms": ln["bound_ms"], "bound_by": ln["bound_by"],
-            "library_ms": roll_ms if name == "micro_ops:roll" else None,
+            "library_ms": (roll_ms[micro.L] if name == "micro_ops:roll"
+                           else None),
             "plain_shape": p["shape"], "ms_at_plain_shape": p["ms"],
         })
+    by_library = {"ablate_layered": "ablate_layered",
+                  "ablate_layered2": ablate.library_of(E2_VARIANTS["full"],
+                                                       True),
+                  "static_unroll": ablate.library_of(E3_FLAGS, True)}
+    for e in out:
+        if e["name"] in by_library:
+            e["sass"] = sass[by_library[e["name"]]]
+        if e["name"] == "micro_ops:roll":
+            full = _pick(lines["micro_vpu"], kind="roll", dtype="float32",
+                         shape_name="full")
+            e.update(step_bound_ms=picks[e["name"]]["step_bound_ms"],
+                     plan=picks[e["name"]]["plan"], full_ms=full["ms"],
+                     full_step_bound_ms=full["step_bound_ms"],
+                     full_library_ms=roll_ms[micro.FULL_L])
     return out
 
 
@@ -3986,6 +4090,7 @@ def main() -> int:
          kernels={k: [ln.strip() for ln in v["ptxas"].splitlines()
                       if "registers" in ln or "spill" in ln]
                   for k, v in built.items()})
+    exp_sass = experiments_build(built)
 
     dev = torch.device("cuda", 0)
     max_err = 0.0
@@ -4509,7 +4614,8 @@ def main() -> int:
             k["launches"] += added.get(k["name"], 0)
     # phases 50-51: the experiments' kernels, entries of their own
     exp_parity = experiments_kernels_path(dev)
-    kernels += experiments_entries(exp_parity, *experiments_mains_path(dev))
+    kernels += experiments_entries(exp_parity, exp_sass,
+                                   *experiments_mains_path(dev))
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path never launched")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,6 +26,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -74,6 +75,33 @@ def nvcc_path() -> str:
     return found
 
 
+def cuobjdump_path() -> str:
+    """The CUDA toolkit's cuobjdump, beside nvcc."""
+    return str(pathlib.Path(nvcc_path()).with_name("cuobjdump"))
+
+
+_SASS_FUNCTION = re.compile(r"\s*Function : (\S+)")
+_SASS_INSTRUCTION = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]+);")
+
+
+def sass_counts(name: str) -> dict:
+    """{kernel function: SASS instructions} of a built library, from
+    `cuobjdump -sass`, the NOPs that pad each function left out."""
+    out = subprocess.run([cuobjdump_path(), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        m = _SASS_FUNCTION.match(ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+            continue
+        m = _SASS_INSTRUCTION.match(ln)
+        if fn and m and "NOP" not in m.group(1).split():
+            counts[fn] += 1
+    return counts
+
+
 def _flags(name: str) -> tuple:
     return NVCC_FLAGS + LIBRARIES[name][1]
 
@@ -89,8 +117,9 @@ def library_path(name: str) -> pathlib.Path:
 def build_all(names=tuple(LIBRARIES)) -> dict:
     """Build every named library that is not built yet, one nvcc process
     per library, all started together. Returns {name: {"seconds",
-    "ptxas"}} (seconds 0.0 and the stored ptxas report for a library
-    already built)."""
+    "ptxas"}}: the seconds until its nvcc ended (0.0 for a library already
+    built) and its ptxas report (the stored one for a library already
+    built)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, out = {}, {}
     t0 = time.perf_counter()
@@ -102,20 +131,26 @@ def build_all(names=tuple(LIBRARIES)) -> dict:
                          "ptxas": log.read_text() if log.exists() else ""}
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        report = lib.with_name(f"{lib.name}.{os.getpid()}.log.tmp")
         cmd = [nvcc_path(), *_flags(name), "-o", str(tmp),
                str(CSRC / f"{LIBRARIES[name][0]}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib)
+        with open(report, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, lib, report)
     failed = []
-    for name, (proc, tmp, lib) in procs.items():
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{report}")
-            continue
-        lib.with_suffix(".log").write_text(report)
-        os.replace(tmp, lib)
-        out[name] = {"seconds": time.perf_counter() - t0, "ptxas": report}
+    while procs:
+        for name in [n for n, v in procs.items() if v[0].poll() is not None]:
+            proc, tmp, lib, report = procs.pop(name)
+            seconds = time.perf_counter() - t0
+            text = report.read_text()
+            report.unlink()
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exit {proc.returncode}\n{text}")
+                continue
+            lib.with_suffix(".log").write_text(text)
+            os.replace(tmp, lib)
+            out[name] = {"seconds": seconds, "ptxas": text}
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out

@@ -45,12 +45,22 @@
 //
 // Row form: runtime tables (E1; the slot's column base and row offset in
 // shared memory, read per slot, as K1a reads them), or, built with
-// ABLATE_STATIC_FLAGS, compile-time tables: the sweep of
-// dvbs2/64800/12 unrolled layer by layer from the generated
-// csrc/ablate_static_dvbs2_64800_12.cuh, so each slot's column home and
-// shift, and each layer's state slab, are immediates, a zero shift costs
-// nothing, and an on-chip column is a shared-memory address. Each static instance is a library of
-// its own (ecc_ldpc_tpu_torch/_build.py), so they build in parallel.
+// ABLATE_STATIC_FLAGS, compile-time tables made from the rows of
+// dvbs2/64800/12 in the generated csrc/ablate_static_dvbs2_64800_12.cuh,
+// with the code's shapes (Z, the layer count, the state stride, one frame
+// a tile) as constants. Each row has a shape: its degree, which of its
+// slots' columns are in the L2 scratch, which shifts are 0. The sweep is a
+// rolled loop over the layers that runs, for each, the body compiled for
+// its row's shape (10 shapes on this code), the slots unrolled in it, so
+// that a slot is a shared-memory or an L2 access as the shape says and a
+// zero shift costs nothing; each slot's column offset and shift come from
+// a __constant__ table built at compile time, read a layer ahead into
+// registers. The body stays in the SM's instruction caches: about 4.7k
+// instructions for full, where the sweep unrolled layer by layer, every
+// home and shift an immediate, was some 37k and ran 2.1x slower on an
+// H100. Each
+// static instance is a library of its own (ecc_ldpc_tpu_torch/_build.py),
+// so they build in parallel.
 //
 // What bounds them: as K1a (csrc/layered_qc.cu), the operations (12 a
 // full edge visit; bench/throughput.decode_bound) on paper, and the
@@ -313,43 +323,142 @@ Kern pick(int dcb_max, int flags) {
 
 #else  // the static row form: one instance, ABLATE_STATIC_FLAGS
 
-// Layer L of degree D, its slots' (home, shift) pairs HS in slot order,
-// for the tile's one frame (F = 1) at Z = kStaticZ
-template <int FL, int L, int D, int... HS>
-__device__ __forceinline__ void static_row(float* post, float* spill,
-                                           uint32_t* buf, uint32_t* state,
-                                           int iters, float alpha, int t,
-                                           int i0) {
+// The header's rows at compile time, as it lists them: layer, degree, and
+// the slots' (home, shift) pairs in slot order, zeros past the degree
+struct HeaderRow {
+  int L, d;
+  int hs[2 * kStaticDeg];
+};
+#define ABLATE_HROW(L, D, ...) {L, D, {__VA_ARGS__}},
+constexpr HeaderRow kHeader[kStaticMb] = {ABLATE_STATIC_ROWS(ABLATE_HROW)};
+#undef ABLATE_HROW
+static_assert(kStaticDeg <= 8, "a shape holds 8 slots' bits");
+
+// A row's shape, which its body is compiled for: the degree (bits 0-3),
+// the slots whose column is in the L2 scratch (bits 4-11) and the slots of
+// shift 0 (bits 12-19)
+__host__ __device__ constexpr unsigned shape_of(int L) {
+  unsigned key = (unsigned)kHeader[L].d;
+  for (int j = 0; j < kHeader[L].d; ++j) {
+    if (kHeader[L].hs[2 * j] < 0) key |= 1u << (4 + j);
+    if (kHeader[L].hs[2 * j + 1] == 0) key |= 1u << (12 + j);
+  }
+  return key;
+}
+
+// The code's distinct shapes, in sweep order of first use
+struct Shapes {
+  int n;
+  unsigned key[kStaticMb];
+};
+__host__ __device__ constexpr Shapes static_shapes() {
+  Shapes s{0, {}};
+  for (int L = 0; L < kStaticMb; ++L) {
+    const unsigned key = shape_of(L);
+    bool seen = false;
+    for (int i = 0; i < s.n; ++i) seen = seen || s.key[i] == key;
+    if (!seen) s.key[s.n++] = key;
+  }
+  return s;
+}
+__host__ __device__ constexpr unsigned shape_key(int i) {
+  return static_shapes().key[i];
+}
+constexpr int kShapes = static_shapes().n;
+
+// The rows as the kernel reads them, from the constant bank: each layer's
+// shape (an index into static_shapes), and each slot's column (its first
+// row's byte offset in the on-chip posteriors or in the L2 scratch) and
+// shift
+struct StaticRow {
+  int shape;
+  int off[kStaticDeg];
+  int shift[kStaticDeg];
+};
+struct StaticRows {
+  StaticRow r[kStaticMb];
+};
+__host__ __device__ constexpr StaticRows static_rows() {
+  const Shapes s = static_shapes();
+  StaticRows t{};
+  for (int L = 0; L < kStaticMb; ++L) {
+    for (int i = 0; i < s.n; ++i)
+      if (s.key[i] == shape_of(L)) t.r[L].shape = i;
+    for (int j = 0; j < kHeader[L].d; ++j) {
+      const int home = kHeader[L].hs[2 * j];
+      t.r[L].off[j] = (home >= 0 ? home : -1 - home) * kStaticZ * 4;
+      t.r[L].shift[j] = kHeader[L].hs[2 * j + 1];
+    }
+  }
+  return t;
+}
+__constant__ StaticRows kRows = static_rows();
+
+__host__ __device__ constexpr bool rows_in_sweep_order() {
+  for (int L = 0; L < kStaticMb; ++L)
+    if (kHeader[L].L != L) return false;
+  return true;
+}
+static_assert(rows_in_sweep_order(), "the header's rows are layers 0, 1, ...");
+
+// Layer L of sweep t, of shape KEY, for the tile's one frame (F = 1) at
+// Z = kStaticZ: whether each slot's column is on chip or in the L2
+// scratch, and whether its shift is 0, are compile-time; its offset and
+// shift come from its row of kRows (in registers)
+template <int FL, unsigned KEY>
+__device__ __forceinline__ void static_layer(const StaticRow& row,
+                                             float* post, float* spill,
+                                             uint32_t* buf, uint32_t* state,
+                                             int iters, float alpha, int t,
+                                             int L) {
   constexpr bool ROLL = FL & kRoll, SUB = FL & kSub;
   constexpr int Z = kStaticZ, MB = kStaticMb, stride = kStaticStride;
-  constexpr int hs[2 * D] = {HS...};
+  constexpr int D = KEY & 15;
   const int g = t * MB + L;
   if constexpr (SUB) prefetch(state, buf, stride, MB, iters, g);
   const uint32_t* old = buf + (g % 2) * stride;
   uint32_t* out = state + (size_t)L * stride;
-  for (int i = i0; i < Z; i += blockDim.x) {
+  for (int i = threadIdx.x; i < Z; i += blockDim.x) {
     float* p[D];
     float r[D];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      const int h = hs[2 * j], s = hs[2 * j + 1];
       int zz = i;
-      if (ROLL && s != 0) {
-        zz += s;
+      if (ROLL && !((KEY >> (12 + j)) & 1)) {
+        zz += row.shift[j];
         if (zz >= Z) zz -= Z;
       }
-      p[j] = (h >= 0 ? post + h * Z : spill + (-1 - h) * Z) + zz;
+      p[j] = reinterpret_cast<float*>(
+          reinterpret_cast<char*>(((KEY >> (4 + j)) & 1 ? spill : post) + zz) +
+          row.off[j]);
       r[j] = *p[j];
     }
     check<D, FL>(r, D, old + i, t == 0, out + i, Z, alpha);
 #pragma unroll
     for (int j = 0; j < D; ++j) *p[j] = r[j];
   }
-  ct::cp_async_wait_all();
-  __syncthreads();
 }
 
-// The whole sweep is one body: every layer's static_row inlined in turn
+// static_layer of the row's shape: one body for each shape the code has
+template <int FL, int I = 0>
+__device__ __forceinline__ void static_step(const StaticRow& row,
+                                            float* post, float* spill,
+                                            uint32_t* buf, uint32_t* state,
+                                            int iters, float alpha, int t,
+                                            int L) {
+  if constexpr (I < kShapes) {
+    if (row.shape == I) {
+      static_layer<FL, shape_key(I)>(row, post, spill, buf, state, iters,
+                                     alpha, t, L);
+      return;
+    }
+    static_step<FL, I + 1>(row, post, spill, buf, state, iters, alpha, t,
+                           L);
+  }
+}
+
+// The sweep is a rolled loop over the layers, the slots unrolled to the
+// row's degree
 template <int FL>
 __global__ void __launch_bounds__(512, 1) ablate_static_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -360,6 +469,7 @@ __global__ void __launch_bounds__(512, 1) ablate_static_kernel(Args a) {
   uint32_t* state = a.state + (size_t)blockIdx.x * kStaticMb * kStaticStride;
   float* spill =
       a.spill + (size_t)blockIdx.x * (kStaticNb - kStaticChip) * kStaticZ;
+  asm("" : "+l"(spill));  // kept in registers, not recomputed a slot
   const int iters = a.iters;
   const float alpha = a.alpha;
   for (int i = threadIdx.x; i < kStaticNb; i += blockDim.x)
@@ -370,17 +480,17 @@ __global__ void __launch_bounds__(512, 1) ablate_static_kernel(Args a) {
     __syncthreads();
 #pragma unroll 1
     for (int t = 0; t < iters; ++t) {
-      // the thread's first check, opaque to the compiler a sweep at a
-      // time, so that it does not hoist the sweep's 631 slot addresses
-      // out of the iteration loop (they would not fit the registers); the
-      // state slabs' offsets are immediates (kStaticStride)
-      int i0 = threadIdx.x;
-      asm("" : "+r"(i0));
-#define ABLATE_ROW(L, D, ...) \
-  static_row<FL, L, D, __VA_ARGS__>(post, spill, buf, state, iters, alpha, \
-                                    t, i0);
-      ABLATE_STATIC_ROWS(ABLATE_ROW)
-#undef ABLATE_ROW
+      // each layer's row is read a layer ahead, so that its loads wait
+      // behind the layer before and not after its barrier
+      StaticRow next = kRows.r[0];
+#pragma unroll 1
+      for (int L = 0; L < kStaticMb; ++L) {
+        const StaticRow row = next;
+        next = kRows.r[L + 1 < kStaticMb ? L + 1 : 0];
+        static_step<FL>(row, post, spill, buf, state, iters, alpha, t, L);
+        ct::cp_async_wait_all();
+        __syncthreads();
+      }
     }
     store_tile(a, post, spill, home, tile, 1);
     __syncthreads();

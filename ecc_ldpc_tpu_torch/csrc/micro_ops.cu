@@ -32,19 +32,32 @@
 // b) is min(x, b), and an int32 add chain is x + n * b in closed form):
 // every step is issued, as on the TPU. It emits no instruction.
 //
-// The roll moves words through shared memory: a block holds a [Z, W]
-// slice of the array (W = 32 words a row; the rotation is along Z, so
-// packing lanes along L costs nothing) in two buffers, and each step reads
-// row (z - s) mod Z of one and writes row z of the other, one barrier a
-// step. Warp shuffles move words only between the 32 lanes of a warp, and
-// a rotation by s of Z = 368 rows crosses the 12 warps of the block.
+// The roll gives each warp strips of whole word-columns: the rotation is
+// along Z, so a strip of one 32-bit word-column across all Z rows never
+// needs a word from outside its warp (packing lanes along L costs nothing),
+// and no step has a block-wide barrier. In registers (Z <= 384 and every
+// shift below 32 rows mod Z): lane l holds rows l + 32 k, k < K = ceil(Z /
+// 32), of each of its warp's S strips. For a shift s, slot k of lane l
+// takes __shfl_sync(slot k, (l - s) & 31) where l >= s, and the previous
+// slot's shuffle where l < s; slot 0's lanes l < s wrap to rows Z - s + l,
+// which one more shuffle brings from lane (l - s + Z) & 31, whose sent word
+// is its last slot's where that slot holds its row (lane < Z - 32 (K - 1))
+// and the slot before's otherwise. So a step is K + 1 shuffles and K
+// selects a strip. Otherwise (a longer Z, a longer shift) a warp owns one
+// strip in two buffers of its own shared memory, a load and a store a word
+// a step behind a __syncwarp(). experiments/micro.roll_plan picks the route,
+// S and the grid (one wave where the registers allow), roll_source is the
+// register route's source map in Python. Every step is issued: `keep` after
+// each, so nvcc cannot fold the chain into one rotation.
 //
 // What bounds them: the issue of the ops (ew, op: one slot an op a word,
 // four warp instructions a clock an SM; experiments/micro.ops_seconds) or
-// the shared-memory traffic and the barrier of every step (roll: a 4-byte
-// load and store a word a step). The arrays are a few MB at most; the
-// kernels touch HBM once. The roll's least time is that of one rotation
-// through HBM, since the chain is one rotation by the shifts' sum.
+// the exchange of every step (roll: each word crosses lanes once a step,
+// and an SM shuffles 32 words a clock; experiments/micro.roll_step_seconds).
+// The arrays are a few MB at most; the kernels touch HBM once. The roll's
+// least time for its output is that of one rotation through HBM, since
+// the chain is one rotation by the shifts' sum (torch.roll computes it so);
+// the kernel issues every step by design and cannot come near it.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -253,54 +266,133 @@ op_kernel(const typename T<DT>::W* a, const typename T<DT>::W* b, float* o,
   D::store(D::add(D::add(D::add(x0, x1), x2), x3), o + w * D::P);
 }
 
-constexpr int kRollWords = 32;  // words of a row a block holds
+// E6's shifts, reduced mod Z, by value
+struct RollShifts {
+  int s[8];
+};
 
-// E6: block (c) rotates the words [c * W, c * W + W) of every row
-template <int DT>
-__global__ void __launch_bounds__(512)
-roll_kernel(const float* x, float* o, const int* shifts, int Z, int rw,
-            int inner, int reps) {
-  using D = T<DT>;
-  using W = typename D::W;
-  extern __shared__ __align__(16) unsigned char smem[];
-  W* buf = reinterpret_cast<W*>(smem);  // [2][Z][kRollWords]
-  __shared__ int s[8];
-  const int tid = threadIdx.x, nth = blockDim.x;
-  const int c0 = blockIdx.x * kRollWords;
-  const int cw = min(kRollWords, rw - c0);  // this block's words a row
-  if (tid < 8) s[tid] = shifts[tid];
-  const int items = Z * kRollWords;
-  for (int i = tid; i < items; i += nth) {
-    const int z = i / kRollWords, c = i % kRollWords;
-    if (c < cw) buf[i] = D::load(x + ((size_t)z * rw + c0 + c) * D::P);
+constexpr unsigned kAll = 0xFFFFFFFFu;
+constexpr int kRollSlots = 12;  // slots a lane in registers: Z <= 384
+constexpr int kRollWords = 96;  // words a lane in registers: S * K
+
+// A word of dtype dt read from f32 values (its lanes at x[0], x[1]) as its
+// 32 bits, and written back
+__device__ __forceinline__ uint32_t load_bits(int dt, const float* x) {
+  uint32_t u;
+  if (dt == kBF16) {
+    const __nv_bfloat162 w = T<kBF16>::load(x);
+    memcpy(&u, &w, 4);
+  } else if (dt == kI16) {
+    u = T<kI16>::load(x);
+  } else {
+    u = __float_as_uint(x[0]);
   }
-  __syncthreads();
-  int cur = 0;
-  for (int r = 0; r < reps; ++r) {
-    for (int k = 0; k < inner; ++k) {
-      const int sh = s[k & 7];
-      const W* src = buf + cur * items;
-      W* dst = buf + (cur ^ 1) * items;
-      for (int i = tid; i < items; i += nth) {
-        const int z = i / kRollWords;
-        int zs = z - sh;
-        if (zs < 0) zs += Z;
-        dst[i] = src[i + (zs - z) * kRollWords];
-      }
-      cur ^= 1;
-      __syncthreads();
-    }
-  }
-  const W* fin = buf + cur * items;
-  for (int i = tid; i < items; i += nth) {
-    const int z = i / kRollWords, c = i % kRollWords;
-    if (c < cw) D::store(fin[i], o + ((size_t)z * rw + c0 + c) * D::P);
+  return u;
+}
+
+__device__ __forceinline__ void store_bits(int dt, uint32_t u, float* o) {
+  if (dt == kBF16) {
+    __nv_bfloat162 w;
+    memcpy(&w, &u, 4);
+    T<kBF16>::store(w, o);
+  } else if (dt == kI16) {
+    T<kI16>::store(u, o);
+  } else {
+    o[0] = __uint_as_float(u);
   }
 }
 
+// E6 in registers: warp g owns the word-columns [S g, S g + S) of every
+// row, lane l rows l + 32 k (k < K) of each; every shift below 32
+template <int K, int S>
+__global__ void __launch_bounds__(256, 2)
+roll_reg_kernel(const float* x, float* o, RollShifts shifts, int dt, int Z,
+                int rw, int inner, int reps) {
+  __shared__ int sh[8];
+  if (threadIdx.x < 8) sh[threadIdx.x] = shifts.s[threadIdx.x];
+  __syncthreads();  // once, before the chain
+  const int lane = threadIdx.x & 31;
+  const int c0 = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5) * S;
+  if (c0 >= rw) return;  // the whole warp
+  const int P = dt == kF32 ? 1 : 2;
+  const size_t L = (size_t)rw * P;
+  uint32_t v[S][K];
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int z = 32 * k + lane, c = c0 + j;
+      v[j][k] = z < Z && c < rw ? load_bits(dt, x + z * L + c * P) : 0u;
+    }
+  const bool last = lane < Z - 32 * (K - 1);  // lane's row of slot K - 1
+  for (int n = 0; n < reps; ++n) {
+    for (int i = 0; i < inner; ++i) {
+      const int s = sh[i & 7];
+      const int src = (lane - s) & 31, wsrc = (lane - s + Z) & 31;
+      const bool own = lane >= s;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        // the wrap: rows Z - s + l for slot 0's lanes l < s
+        uint32_t prev = __shfl_sync(
+            kAll, K == 1 || last ? v[j][K - 1] : v[j][K > 1 ? K - 2 : 0],
+            wsrc);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const uint32_t t = __shfl_sync(kAll, v[j][k], src);
+          v[j][k] = own ? t : prev;
+          prev = t;
+          keep(v[j][k]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < S; ++j)
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int z = 32 * k + lane, c = c0 + j;
+      if (z < Z && c < rw) store_bits(dt, v[j][k], o + z * L + c * P);
+    }
+}
+
+// E6 in shared memory: warp g owns word-column g, in two buffers of Z
+// words of its own; any Z that fits, any shift
+__global__ void __launch_bounds__(256)
+roll_smem_kernel(const float* x, float* o, RollShifts shifts, int dt, int Z,
+                 int rw, int inner, int reps) {
+  extern __shared__ uint32_t strip[];  // [warps][2][Z]
+  __shared__ int sh[8];
+  if (threadIdx.x < 8) sh[threadIdx.x] = shifts.s[threadIdx.x];
+  __syncthreads();  // once, before the chain
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int c = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  if (c >= rw) return;  // the whole warp
+  const int P = dt == kF32 ? 1 : 2;
+  const size_t L = (size_t)rw * P;
+  uint32_t* a = strip + (size_t)w * 2 * Z;
+  uint32_t* b = a + Z;
+  for (int z = lane; z < Z; z += 32) a[z] = load_bits(dt, x + z * L + c * P);
+  __syncwarp();
+  for (int n = 0; n < reps; ++n) {
+    for (int i = 0; i < inner; ++i) {
+      const int s = sh[i & 7];
+      for (int z = lane; z < Z; z += 32) {
+        int zs = z - s;
+        if (zs < 0) zs += Z;
+        b[z] = a[zs];
+      }
+      __syncwarp();
+      uint32_t* t = a;
+      a = b;
+      b = t;
+    }
+  }
+  for (int z = lane; z < Z; z += 32) store_bits(dt, a[z], o + z * L + c * P);
+}
+
 using EwKern = void (*)(const float*, float*, long, int, int);
-using RollKern = void (*)(const float*, float*, const int*, int, int, int,
-                          int);
+using RollKern = void (*)(const float*, float*, RollShifts, int, int, int,
+                          int, int);
 
 EwKern pick_ew(int dt) {
   switch (dt) {
@@ -314,13 +406,27 @@ EwKern pick_ew(int dt) {
   return nullptr;
 }
 
-RollKern pick_roll(int dt) {
-  switch (dt) {
-    case kF32: return roll_kernel<kF32>;
-    case kBF16: return roll_kernel<kBF16>;
-    case kI16: return roll_kernel<kI16>;
+template <int K>
+RollKern pick_strips(int strips) {
+  switch (strips) {
+    case 1: return roll_reg_kernel<K, 1>;
+    case 2: return roll_reg_kernel<K, 2>;
+    case 4: return roll_reg_kernel<K, 4>;
+    case 8:
+      if constexpr (8 * K <= kRollWords) return roll_reg_kernel<K, 8>;
   }
   return nullptr;
+}
+
+// the register instance of K slots and S strips a lane
+template <int K = 1>
+RollKern pick_roll(int slots, int strips) {
+  if constexpr (K > kRollSlots) {
+    return nullptr;
+  } else {
+    return slots == K ? pick_strips<K>(strips)
+                      : pick_roll<K + 1>(slots, strips);
+  }
 }
 
 template <int DT>
@@ -365,21 +471,43 @@ int micro_ops_ew(void* x, void* o, long elems, int dtype, int inner,
   return (int)cudaGetLastError();
 }
 
-// E6 on f32 [Z, L] (L a multiple of the dtype's lanes), shifts int32 [8].
-int micro_ops_roll(void* x, void* o, void* shifts, int Z, int L, int dtype,
-                   int inner, int reps, void* stream) {
-  RollKern k = pick_roll(dtype);
-  if (!k || Z < 1 || L < 1 || L % lanes(dtype) || inner < 0 || reps < 0)
+// E6 on f32 [Z, L] (L a multiple of the dtype's lanes), by the plan of
+// experiments/micro.roll_plan: route 0 in registers (S = strips a warp),
+// 1 in shared memory (one strip a warp), `warps` warps a block, `blocks`
+// blocks; shifts int32 [8] on the host, each in [0, Z) (below 32 in
+// registers).
+int micro_ops_roll(void* x, void* o, const int* shifts, int Z, int L,
+                   int dtype, int inner, int reps, int route, int strips,
+                   int warps, int blocks, void* stream) {
+  if ((dtype != kF32 && dtype != kBF16 && dtype != kI16) || Z < 1 || L < 1 ||
+      L % lanes(dtype) || inner < 0 || reps < 0 || warps < 1 || warps > 8 ||
+      blocks < 1)
     return (int)cudaErrorInvalidValue;
   const int rw = L / lanes(dtype);
-  const size_t smem = 2 * (size_t)Z * kRollWords * 4;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  k<<<(rw + kRollWords - 1) / kRollWords, 512, smem,
-      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o),
-      static_cast<const int*>(shifts), Z, rw, inner, reps);
+  RollShifts sh;
+  for (int i = 0; i < 8; ++i) {
+    sh.s[i] = shifts[i];
+    if (sh.s[i] < 0 || sh.s[i] >= Z || (route == 0 && sh.s[i] >= 32))
+      return (int)cudaErrorInvalidValue;
+  }
+  RollKern k = nullptr;
+  size_t smem = 0;
+  if (route == 0) {
+    k = pick_roll((Z + 31) / 32, strips);
+  } else if (route == 1 && strips == 1) {
+    k = roll_smem_kernel;
+    smem = (size_t)warps * 2 * Z * 4;
+    cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // every word-column in one strip of one warp
+  if (!k || (long)blocks * warps * strips < rw ||
+      (long)(blocks - 1) * warps * strips >= rw)
+    return (int)cudaErrorInvalidValue;
+  k<<<blocks, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o), sh, dtype, Z, rw,
+      inner, reps);
   return (int)cudaGetLastError();
 }
 

@@ -19,13 +19,15 @@ TPU scripts' function on [nb, Z, B].
 
 Run `python -m ecc_ldpc_tpu_torch.experiments.ablate --write-header` to
 regenerate csrc/ablate_static_dvbs2_64800_12.cuh, the static sweep's
-tables (tests/test_torch_experiments_layered.py checks that it is current).
+tables (tests/test_torch_experiments_layered.py checks that it is current);
+`static_rows` is the table the kernel builds from it.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
 import functools
+import re
 import sys
 
 import numpy as np
@@ -198,6 +200,29 @@ def static_header(graph: QCGraph, plan) -> str:
         " \\\n".join(rows),
         "",
     ])
+
+
+def static_rows(header: str) -> dict:
+    """The table csrc/ablate_layered.cu's static form builds from the
+    header text at compile time, as its constexpr code does: "shapes", the
+    distinct row shapes in sweep order of first use (degree | the slots in
+    the L2 scratch << 4 | the slots of shift 0 << 12), and "rows", one
+    (layer, shape index, each slot's column byte offset, each slot's shift)
+    a ROW line in the header's order."""
+    z = int(re.search(r"kStaticZ = (\d+);", header).group(1))
+    lines = re.findall(r"ROW\(([-\d, ]+)\)", header)
+    shapes, rows = [], []
+    for ln in lines:
+        layer, d, *hs = map(int, ln.split(","))
+        homes, shifts = hs[0::2], hs[1::2]
+        key = d
+        for j in range(d):
+            key |= (homes[j] < 0) << (4 + j) | (shifts[j] == 0) << (12 + j)
+        if key not in shapes:
+            shapes.append(key)
+        offs = [(h if h >= 0 else -1 - h) * z * 4 for h in homes]
+        rows.append((layer, shapes.index(key), offs, shifts))
+    return {"shapes": shapes, "rows": rows}
 
 
 @functools.cache

@@ -3,13 +3,15 @@ the throughput regime (E2; port of experiments/ablate_layered2.py).
 
 The same sweep as ablate_layered.py with the code's tables compiled in
 (csrc/ablate_layered.cu built with ABLATE_STATIC_FLAGS, one library a
-variant, from csrc/ablate_static_dvbs2_64800_12.cuh): every edge's column
-home and shift an immediate. The posterior takes the unrounded message and
-nothing is capped, as in the TPU script; `nosub` drops the old-message
-subtract (and its prefetch). Timed at the headline's B = 4096, the card's
-counterpart of the TPU script's 8 overlapped one-tile calls, beside K1a
-(bf16 storage) in the same process. The variants decode wrongly on
-purpose; this measures time only.
+variant, from csrc/ablate_static_dvbs2_64800_12.cuh): a body for each row
+shape (which slots are on chip or in the L2 scratch, which shifts are 0),
+each slot's column offset and shift from a table in the binary. The
+posterior takes the unrounded message and nothing is capped, as in the
+TPU script; `nosub` drops the old-message subtract (and its prefetch).
+Timed at the headline's B = 4096, the card's counterpart of the TPU
+script's 8 overlapped one-tile calls, beside K1a (bf16 storage) in the
+same process. The variants decode wrongly on purpose; this measures time
+only.
 
 Run:  python -m ecc_ldpc_tpu_torch.experiments.ablate_layered2 [--device cpu]
 """

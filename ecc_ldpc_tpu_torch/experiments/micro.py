@@ -4,7 +4,9 @@ wrappers and their plain versions.
   ew    experiments/micro_vpu.py::_ew_kernel (E5): x read as f32, cast to
         the dtype, inner * reps steps x <- min(x, |x - 1|) + 1, cast back.
   roll  experiments/micro_vpu.py::_roll_kernel (E6): inner * reps steps
-        x <- roll(x, s[i % 8], axis 0) with s = 1..8.
+        x <- roll(x, s[i % 8], axis 0) with s = 1..8, each warp of the
+        kernel owning strips of whole word-columns (roll_plan; the
+        register route's source map in Python is roll_source).
   op    experiments/micro_vpu2.py::make_kernel (E7): four chains x_i <-
         op(x_i, b), x_i = a + i, summed in the dtype, cast to f32.
 
@@ -16,6 +18,7 @@ PyTorch's elementwise ops do) and integer overflow wraps.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,6 +58,18 @@ OP_INNER, OP_REPS, ILP = 200, 32, 4
 # abs takes one. At 1.98 GHz x 132 SMs.
 H100_SMS, H100_CLOCK = 132, 1.98e9
 ISSUE_LANES = 128
+SHUFFLE_LANES = 32  # words an SM's shuffles deliver a clock
+
+# E6's plan (csrc/micro_ops.cu): the register route holds K = ceil(Z / 32)
+# slots of S strips a lane, S * K <= ROLL_WORDS, K <= ROLL_SLOTS, at most
+# 128 registers a thread (two blocks of ROLL_BLOCK_WARPS warps an SM:
+# ROLL_WAVE_WARPS warps in one wave); the shared route keeps two buffers
+# of Z words a warp.
+ROLL_SLOTS, ROLL_WORDS = 12, 96
+ROLL_STRIPS = (1, 2, 4, 8)
+ROLL_BLOCK_WARPS = 8
+ROLL_WAVE_WARPS = 2 * ROLL_BLOCK_WARPS
+H100_SMEM = 232448  # the shared memory a block can have
 # each step's ops
 EW_STEP = ("add", "abs", "min", "add")  # sub, abs, min, add
 OP_STEP = {"add": ("add",), "min": ("min",), "min_lax": ("min",),
@@ -69,6 +84,14 @@ def ops_seconds(dtype: str, elems: int, steps: int, kinds) -> float:
                 if not (k == "abs" and dtype.startswith(("float", "bfloat"))))
     return (elems / LANES[dtype]) * steps * slots / (
         ISSUE_LANES * H100_SMS * H100_CLOCK)
+
+
+def roll_step_seconds(rows: int, cols: int, dtype: str, steps: int) -> float:
+    """The least seconds an H100 takes to issue `steps` steps of the roll
+    chain on [rows, cols] values of `dtype`: each step moves every 32-bit
+    word once between lanes, and an SM shuffles 32 words a clock."""
+    words = rows * cols // LANES[dtype]
+    return steps * words / (SHUFFLE_LANES * H100_SMS * H100_CLOCK)
 
 
 def bytes_seconds(nbytes: int) -> float:
@@ -135,21 +158,106 @@ def roll_total(inner: int = EW_INNER, reps: int = EW_REPS,
     return reps * sum(int(shifts[i % 8]) for i in range(inner))
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=64)
+def roll_plan(rows: int, cols: int, dtype: str, shifts: tuple = SHIFTS,
+              sms: int = H100_SMS) -> dict:
+    """E6's launch on [rows, cols] of `dtype`: each warp owns `strips`
+    whole word-columns of every row (rw = cols / lanes of them). In
+    registers where Z <= 32 * ROLL_SLOTS and every shift mod Z is below
+    32, with the fewest strips a warp that fit one wave (ROLL_WAVE_WARPS
+    warps an SM), else the most the registers take; otherwise in shared
+    memory, one strip a warp. As few warps a block as reach every SM.
+    Raises where neither route fits: no fallback. Cached (the timed
+    launches would wait for it): the dict is shared, not to be changed."""
+    if len(shifts) != 8:
+        raise ValueError(f"the roll chain takes 8 shifts, got {len(shifts)}")
+    red = tuple(int(s) % rows for s in shifts)
+    rw = cols // LANES[dtype]
+    slots = _ceil(rows, 32)
+    if slots <= ROLL_SLOTS and max(red) < 32:
+        route = "registers"
+        fits = [s for s in ROLL_STRIPS if s * slots <= ROLL_WORDS]
+        strips = next((s for s in fits
+                       if _ceil(rw, s) <= ROLL_WAVE_WARPS * sms), fits[-1])
+        most = ROLL_BLOCK_WARPS
+    else:
+        route, strips = "shared", 1
+        most = min(ROLL_BLOCK_WARPS, H100_SMEM // (8 * rows))
+        if most < 1:
+            raise ValueError(f"roll: {rows} rows do not fit one warp's "
+                             f"shared memory (two buffers of {rows} words)")
+    warps = _ceil(rw, strips)
+    per_block = max(1, min(most, _ceil(warps, sms)))
+    return {"route": route, "slots": slots, "strips": strips,
+            "warps": warps, "warps_per_block": per_block,
+            "blocks": _ceil(warps, per_block), "shifts": red}
+
+
+def roll_cover(plan: dict, rows: int, rw: int):
+    """[rows, rw] int: how many times the plan's launch stores each word
+    (the kernels' indexing: global warp g, strip j, lane l, slot k holds
+    word-column S g + j, row l + 32 k)."""
+    import numpy as np
+
+    count = np.zeros((rows, rw), np.int64)
+    strips = plan["strips"]
+    z = (32 * np.arange(_ceil(rows, 32))[:, None] + np.arange(32)).ravel()
+    z = z[z < rows]
+    for g in range(plan["blocks"] * plan["warps_per_block"]):
+        for j in range(strips):
+            c = g * strips + j
+            if c < rw:
+                count[z, c] += 1
+    return count
+
+
+def roll_source(rows: int, s: int):
+    """[K, 32] int: the row whose word slot k of lane l takes in one step
+    of shift s (0 <= s < 32, s < rows) on the register route, as the
+    kernel's shuffles give it (-1 where slot k of lane l holds no row)."""
+    import numpy as np
+
+    K = _ceil(rows, 32)
+    lane = np.arange(32)
+    src, wsrc = (lane - s) & 31, (lane - s + rows) & 31
+    # the wrap's sender m sends its last slot's row where that slot holds
+    # one (m < rows - 32 (K - 1)), else the slot before's
+    sent = np.where(lane < rows - 32 * (K - 1), K - 1, max(K - 2, 0))
+    prev = 32 * sent[wsrc] + wsrc
+    out = np.empty((K, 32), np.int64)
+    for k in range(K):
+        t = 32 * k + src
+        out[k] = np.where(lane >= s, t, prev)
+        prev = t
+    out[32 * np.arange(K)[:, None] + lane >= rows] = -1
+    return out
+
+
 def roll_cuda(x: torch.Tensor, dtype: str, inner: int = EW_INNER,
               reps: int = EW_REPS, shifts=SHIFTS) -> torch.Tensor:
     _check(x, dtype, "roll_cuda", ROLL_DTYPES)
     if x.device.type != "cuda" or x.dtype != torch.float32:
         raise ValueError(f"roll_cuda needs a CUDA f32 tensor, got {x.device} "
                          f"{x.dtype}; the plain version is roll_plain")
+    Z, cols = x.shape
+    plan = roll_plan(Z, cols, dtype, tuple(shifts),
+                     torch.cuda.get_device_properties(
+                         x.device).multi_processor_count)
     o = torch.empty_like(x)
-    s = torch.as_tensor(list(shifts), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         _launch("micro_ops_roll",
-                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-                x.data_ptr(), o.data_ptr(), s.data_ptr(), x.shape[0],
-                x.shape[1], DTYPES[dtype], inner, reps,
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+                x.data_ptr(), o.data_ptr(),
+                (ctypes.c_int * 8)(*plan["shifts"]), Z, cols, DTYPES[dtype],
+                inner, reps, ("registers", "shared").index(plan["route"]),
+                plan["strips"], plan["warps_per_block"], plan["blocks"],
                 torch.cuda.current_stream(x.device).cuda_stream)
     roll_cuda.launches += 1
+    roll_cuda.last_plan = plan
     return o
 
 
@@ -206,6 +314,7 @@ def op_cuda(a: torch.Tensor, b: torch.Tensor, name: str,
 
 ew_cuda.launches = 0
 roll_cuda.launches = 0
+roll_cuda.last_plan = None
 op_cuda.launches = 0
 
 

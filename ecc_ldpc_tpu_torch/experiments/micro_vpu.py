@@ -2,10 +2,13 @@
 per dtype, on the card (E5, E6; port of experiments/micro_vpu.py).
 
 Question: do packed bf16 and int16 (and int8x4) elementwise ops run at
-twice (four times) the f32 rate on Hopper? Each kernel of csrc/micro_ops.cu
-runs a chain of INNER * REPS dependent steps at the TPU script's shape
-[368, 128] (one TPU core's tile, on the card mostly launch latency) and at
-[368, 16896] (132 such tiles side by side, enough to fill the card).
+twice (four times) the f32 rate on Hopper? And how fast do warps pass
+rows along a chain of rotations (the roll: each warp owns whole
+word-columns, a step is one shuffle a word)? Each kernel of
+csrc/micro_ops.cu runs a chain of INNER * REPS dependent steps at the TPU
+script's shape [368, 128] (one TPU core's tile, on the card mostly launch
+latency) and at [368, 16896] (132 such tiles side by side, enough to fill
+the card).
 
 Run:  python -m ecc_ldpc_tpu_torch.experiments.micro_vpu [--device cpu]
 """
@@ -29,6 +32,8 @@ from .micro import (
     ew,
     ops_seconds,
     roll,
+    roll_cuda,
+    roll_step_seconds,
 )
 
 
@@ -39,6 +44,7 @@ def inputs(cols: int, dev) -> torch.Tensor:
 
 def run(kind: str, dtype: str, x: torch.Tensor, dev, tries: int, inner: int,
         reps: int) -> dict:
+    extra = {}
     if kind == "ew":
         t = common.seconds(lambda: ew(x, dtype, inner, reps), dev, tries)
         ops = 4 * inner * reps
@@ -47,12 +53,16 @@ def run(kind: str, dtype: str, x: torch.Tensor, dev, tries: int, inner: int,
     else:
         t = common.seconds(lambda: roll(x, dtype, inner, reps), dev, tries)
         ops = inner * reps
-        # the chain is one rotation: read once, written once
+        # the chain is one rotation: read once, written once; issued step
+        # by step, each word crosses lanes once a step
         bound, by = bytes_seconds(8 * x.numel()), "bytes"
+        extra = {"step_bound_ms": 1e3 * roll_step_seconds(
+            *x.shape, dtype, inner * reps),
+            "plan": roll_cuda.last_plan if dev.type == "cuda" else None}
     eps = x.numel() * ops / t / 1e9
     return {"kind": kind, "dtype": dtype, "shape": list(x.shape),
             "ms": t * 1e3, "gelem_op_s": eps, "bound_ms": bound * 1e3,
-            "bound_by": by}
+            "bound_by": by, **extra}
 
 
 def main(argv=None) -> int:

@@ -4,12 +4,14 @@
 Hypothesis carried over from the TPU: a sweep whose rows are compile-time
 constants (no table loads, immediate column homes and shifts, zero shifts
 elided, the compiler free to schedule across layers) runs faster than one
-that reads its tables at run time. On the card the unrolled sweep is a
-kernel body of some 90 layers x 7 slots, so the instruction cache may
-decide instead. Timed against K1a (bf16 storage) and E1 full (the same
-arithmetic with runtime tables, plus the cap) in one process, in the
-latency regime (B = 128) and the throughput regime (B = 4096); E3 and E1
-full must give identical bits.
+that reads its tables at run time. On the card the sweep unrolled layer
+by layer (90 layers x 7 slots of immediates) outgrew the instruction
+caches, so the static kernel is a rolled loop over the layers with a body
+for each row shape, its tables built into the binary
+(csrc/ablate_layered.cu). Timed against K1a (bf16 storage) and E1 full
+(the same arithmetic with runtime tables, plus the cap) in one process, in
+the latency regime (B = 128) and the throughput regime (B = 4096); E3 and
+E1 full must give identical bits.
 
 Run:  python -m ecc_ldpc_tpu_torch.experiments.static_unroll [--device cpu]
 """

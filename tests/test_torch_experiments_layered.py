@@ -133,6 +133,28 @@ def test_static_header_is_current():
         assert ablate.ablate_plan(g, B).home == plan.home
 
 
+def test_static_rows_are_the_header_in_sweep_order():
+    """The table the static kernels build from the header (static_rows,
+    the twin of their constexpr code) holds each layer's row of the sweep
+    in sweep order: each slot's column offset and shift, and the shape its
+    body is compiled for."""
+    g = ablate.static_graph()
+    plan = ablate.ablate_plan(g, ablate.THROUGHPUT_B)
+    table = ablate.static_rows(ablate.STATIC_HEADER.read_text())
+    assert [r[0] for r in table["rows"]] == list(range(g.mb))
+    assert len(set(table["shapes"])) == len(table["shapes"])
+    for L, (_, shape, offs, shifts) in enumerate(table["rows"]):
+        key = table["shapes"][shape]
+        edges = g.layer_edges(g.layer_order[L])
+        assert key & 15 == len(edges)
+        for j, (_, c, s) in enumerate(edges):
+            h = plan.home[c]
+            assert offs[j] == (h if h >= 0 else -1 - h) * g.Z * 4
+            assert shifts[j] == s
+            assert (key >> (4 + j)) & 1 == (h < 0)
+            assert (key >> (12 + j)) & 1 == (s == 0)
+
+
 def test_libraries_and_wrapper_rules(z16):
     _, g, _ = z16
     assert set(_build.ABLATE_STATIC_FLAGS) == set(E2_VARIANTS.values()) | {

@@ -163,6 +163,64 @@ def test_inputs_and_bounds():
     assert micro.roll_total() % micro.Z == 16
 
 
+@pytest.mark.parametrize("rows", [368, 367, 33, 32])
+def test_roll_source_is_torch_roll(rows):
+    """The register route's shuffles (roll_source) give every row of a
+    step its row of torch.roll, the wrap included, for shifts 1..8."""
+    slots = -(-rows // 32)
+    z = 32 * np.arange(slots)[:, None] + np.arange(32)
+    held = z < rows
+    for s in range(1, 9):
+        src = micro.roll_source(rows, s)
+        assert src.shape == (slots, 32)
+        ref = torch.roll(torch.arange(rows), s, 0).numpy()
+        np.testing.assert_array_equal(src[held], ref[z[held]])
+        assert (src[~held] == -1).all()
+
+
+@pytest.mark.parametrize("dtype", micro.ROLL_DTYPES)
+@pytest.mark.parametrize("cols", [micro.L, micro.FULL_L])
+def test_roll_plan_covers_every_word_once(cols, dtype):
+    plan = micro.roll_plan(micro.Z, cols, dtype)
+    rw = cols // micro.LANES[dtype]
+    assert plan["route"] == "registers" and plan["slots"] == 12
+    assert plan["strips"] * plan["slots"] <= micro.ROLL_WORDS
+    np.testing.assert_array_equal(micro.roll_cover(plan, micro.Z, rw), 1)
+    # one wave, and at [368, 128] one warp (a strip) a block on rw SMs
+    warps = plan["blocks"] * plan["warps_per_block"]
+    assert warps <= micro.ROLL_WAVE_WARPS * micro.H100_SMS
+    if cols == micro.L:
+        assert plan["blocks"] == rw and plan["strips"] == 1
+
+
+def test_roll_plan_routes():
+    # a shift of 32 rows or more (mod Z), or more than 384 rows: one strip
+    # a warp in its shared memory
+    plan = micro.roll_plan(368, 128, "float32", tuple(range(33, 41)))
+    assert plan["route"] == "shared" and plan["strips"] == 1
+    np.testing.assert_array_equal(micro.roll_cover(plan, 368, 128), 1)
+    plan = micro.roll_plan(600, 256, "bfloat16")
+    assert plan["route"] == "shared" and plan["slots"] == 19
+    np.testing.assert_array_equal(micro.roll_cover(plan, 600, 128), 1)
+    # the shifts are taken mod Z: 33 rows keep 33..40 in registers
+    plan = micro.roll_plan(33, 128, "float32", tuple(range(33, 41)))
+    assert plan["route"] == "registers" and plan["shifts"] == tuple(range(8))
+    with pytest.raises(ValueError, match="shared memory"):
+        micro.roll_plan(40000, 128, "float32")
+    with pytest.raises(ValueError, match="8 shifts"):
+        micro.roll_plan(368, 128, "float32", (1, 2))
+
+
+def test_roll_step_bound():
+    steps = micro.EW_INNER * micro.EW_REPS
+    f32 = micro.roll_step_seconds(micro.Z, micro.L, "float32", steps)
+    assert f32 == pytest.approx(steps * micro.Z * micro.L
+                                / (32 * 132 * 1.98e9))
+    assert 1e3 * f32 == pytest.approx(0.1442, abs=1e-4)
+    assert micro.roll_step_seconds(micro.Z, micro.FULL_L, "bfloat16",
+                                   steps) == pytest.approx(66 * f32)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros((Z, L))
     before = (micro.ew_cuda.launches, micro.roll_cuda.launches,
@@ -217,3 +275,26 @@ def test_build_all_builds_and_reuses(tmp_path, monkeypatch):
     assert again["micro_ops"]["seconds"] == 0.0
     assert "Used 15 registers" in again["micro_ops"]["ptxas"]
     assert not list((tmp_path / "kernels").glob("*.tmp"))
+
+
+def test_sass_counts(tmp_path, monkeypatch):
+    """sass_counts with a stand-in cuobjdump: each function's instructions,
+    its NOP padding left out."""
+    from ecc_ldpc_tpu_torch import _build
+
+    bin_dir = tmp_path / "cuda" / "bin"
+    bin_dir.mkdir(parents=True)
+    sass = ("\t\tFunction : _Z1fv\n"
+            "        /*0000*/                   MOV R1, c[0x0][0x28] ;"
+            "  /* 0x000fe40000000f00 */\n"
+            "        /*0010*/              @P0 EXIT ;\n"
+            "        /*0020*/                   BRA 0x20;\n"
+            "        /*0030*/                   NOP;\n"
+            "\t\tFunction : _Z1gv\n"
+            "        /*0000*/                   EXIT ;\n")
+    for tool, text in (("nvcc", ""), ("cuobjdump", sass)):
+        (bin_dir / tool).write_text(f"#!/bin/sh\ncat <<'EOF'\n{text}EOF\n")
+        (bin_dir / tool).chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    assert _build.sass_counts("micro_ops") == {"_Z1fv": 3, "_Z1gv": 1}
