@@ -355,14 +355,20 @@ Phases (one JSON line each; any failure raises and exits non-zero):
      chain at both shapes equal to one torch.roll; E1's seven variants
      (runtime tables), E2's seven and E3 (static libraries) on
      dvbs2/64800/12 (272 frames, one a tile, on 132 blocks: each block
-     takes tiles in turn; 3 sweeps), bits identical and posteriors 0
-     ulps apart, E3 equal to E1 full; E4's three
-     variants on mackay1008 (2045 frames: 8 a tile, 256 tiles on 132
-     blocks, the last of 5; and 13 frames, one a block; 5 iterations),
-     bits, ok and iterations identical and posteriors 0 ulps apart.
+     takes tiles in turn; 3 sweeps), and E1's also on 80211n/648/12 (500
+     and 4090 frames: 4 and 32 a tile, one and two checks a thread, a
+     ragged tile), bits identical and posteriors 0 ulps apart, E3 equal
+     to E1 full; E1's table's slot kinds printed (early, forwarded,
+     late, the layers with a late slot); E4's three variants on
+     mackay1008 (2045 frames: 8 a tile, 256 tiles on 132 blocks, the
+     last of 5; and 13 frames, one a block; its tables in shared memory)
+     and on nr5g/bg1/32 (140 frames, one a tile; its tables through the
+     read-only path), 5 iterations, bits, ok and iterations identical and
+     posteriors 0 ulps apart.
   51. the experiments at full width — each of the six scripts' main()
-     at its own configuration (E1 at B = 128 and 4096, E2 at 4096, E3 at
-     both, beside K1a's bf16 library; E4 at B = 2048 beside K2; E5-E7 at
+     at its own configuration (E1 at B = 128 and 4096 with its µs a
+     layer step, E2 at 4096, E3 at both, beside K1a's bf16 library; E4 at
+     B = 2048 beside K2 f32 and /pallas, its plan printed; E5-E7 at
      [368, 128] and [368, 16896]), one JSON line a variant; E3's bits
      equal E1 full's at both batches; and E6's library call (one
      torch.roll by the chain's shift) at both shapes.
@@ -3709,10 +3715,18 @@ def graph_parallel_path(rank_out: pathlib.Path) -> dict:
 # blocks, so each block takes two or three tiles in turn and reuses its
 # state slab, spill and prefetch buffers, as the main path's 4096 do
 EXP_LAYERED = (272, 3)
-# E4's frames and iterations: 2045 frames run F = 8, 256 tiles on 132
-# blocks, the last of 5 frames (the main path's 2048 run F = 8, 256 full
-# tiles); 13 frames run one a block
-EXP_FLOODING = ((2045, 5), (13, 5))
+# E1 on 80211n/648/12 (Z = 27, rows of 7 and 8): 500 frames run 4 a tile,
+# one check a thread; 4090 run 32 a tile, two checks a thread, the last
+# tile of 26 frames
+EXP_E1_SMALL = (("80211n/648/12", 500, 3), ("80211n/648/12", 4090, 3))
+# E4's code, frames and iterations, and the tables' form its plan takes:
+# on mackay1008 2045 frames run F = 8, 256 tiles on 132 blocks, the last
+# of 5 frames (the main path's 2048 run F = 8, 256 full tiles), 13 frames
+# one a block, the tables in shared memory; on nr5g/bg1/32, whose int16
+# tables leave no room for a frame, 140 frames one a tile, 140 tiles on
+# 132 blocks, the tables through the read-only path
+EXP_FLOODING = (("mackay1008", 2045, 5, "smem"), ("mackay1008", 13, 5, "smem"),
+                ("nr5g/bg1/32", 140, 5, "ldg"))
 EXP_MICRO = (8, 2)        # inner and reps of an E5-E7 comparison
 # E6's further cases (rows, columns, shifts): a Z that is no multiple of
 # 32, and a shift of 32 rows or more (the warp's shared memory route)
@@ -3722,6 +3736,10 @@ EXP_ROLL_CASES = ((33, micro.L, micro.SHIFTS),
 # layer's step, against some 37k for the sweep unrolled layer by layer),
 # and the spill stores and loads (bytes) of that unrolled sweep's build
 STATIC_SASS_MOST = 8000
+# E1's build before its pipelined step (its seven instances' SASS,
+# registers and spill bytes on the card)
+E1_BEFORE = {"sass": [1276, 1438, 1468, 1503, 1532, 1562, 1562],
+             "registers": [78, 78, 96, 96, 96, 96, 96], "spill": (0, 0)}
 STATIC_SPILL_MOST = {47: (20, 20), 46: (12, 24), 45: (36, 36), 43: (0, 0),
                      39: (12, 12), 15: (304, 304), 0: (0, 0), 63: (68, 80)}
 EXP_SOURCES = {
@@ -3767,13 +3785,20 @@ def ptxas_spill(report: str) -> tuple:
     return tuple(max(v) for v in zip(*found)) if found else (0, 0)
 
 
+def ptxas_registers(report: str) -> list:
+    """Each kernel's registers in a ptxas -v report, sorted."""
+    return sorted(int(m) for m in re.findall(r"Used (\d+) registers", report))
+
+
 def experiments_build(built: dict) -> dict:
     """The ablation libraries' bodies after the build: each one's SASS
-    instructions (cuobjdump -sass; E1's seven instances, each static
-    library's one kernel), spill stores and loads, and nvcc seconds (0.0
-    where it was built before). Every static library within
-    STATIC_SASS_MOST instructions and STATIC_SPILL_MOST. Returns {library:
-    its SASS instructions, the largest of its kernels}."""
+    instructions (cuobjdump -sass; E1's fourteen instances, one and two
+    items a thread, each static library's one kernel), registers, spill
+    stores and loads, and nvcc seconds (0.0 where it was built before);
+    E1's beside E1_BEFORE, and E4's (dcmajor) registers and spill. Every
+    static library within STATIC_SASS_MOST instructions and
+    STATIC_SPILL_MOST, E1 within E1_BEFORE's spill. Returns {library: its
+    SASS instructions, the largest of its kernels}."""
     names = ["ablate_layered"] + [ablate.library_of(fl, True)
                                   for fl in _build.ABLATE_STATIC_FLAGS]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
@@ -3783,8 +3808,13 @@ def experiments_build(built: dict) -> dict:
         spill = ptxas_spill(built[name]["ptxas"])
         out[name] = max(counts.values())
         emit("experiments_build", library=name, sass=sorted(counts.values()),
-             spill_stores_loads=spill, seconds=built[name]["seconds"])
+             registers=ptxas_registers(built[name]["ptxas"]),
+             spill_stores_loads=spill, seconds=built[name]["seconds"],
+             **({"before": E1_BEFORE} if name == "ablate_layered" else {}))
         if name == "ablate_layered":
+            if any(a > b for a, b in zip(spill, E1_BEFORE["spill"])):
+                raise AssertionError(f"E1 spills {spill}, above "
+                                     f"{E1_BEFORE['spill']}")
             continue
         fl = int(name.rsplit("_", 1)[1])
         most = STATIC_SPILL_MOST[fl]
@@ -3793,6 +3823,10 @@ def experiments_build(built: dict) -> dict:
             raise AssertionError(
                 f"{name}: {out[name]} SASS instructions (at most "
                 f"{STATIC_SASS_MOST}), spill {spill} (at most {most})")
+    emit("experiments_build", library="dcmajor",
+         registers=ptxas_registers(built["dcmajor"]["ptxas"]),
+         spill_stores_loads=ptxas_spill(built["dcmajor"]["ptxas"]),
+         seconds=built["dcmajor"]["seconds"])
     return out
 
 
@@ -3826,13 +3860,17 @@ def experiments_kernels_path(dev) -> dict:
     of its shapes, [368, 128] and [368, 16896], with EXP_MICRO steps,
     outputs 0 ulps apart; E1 and E2's variants and E3 on dvbs2/64800/12
     (EXP_LAYERED: more tiles than blocks), bits identical and final
-    posteriors 0 ulps apart, and E3's bits and posteriors equal to E1
+    posteriors 0 ulps apart (E1 also on a small code, EXP_E1_SMALL: several
+    frames a tile, a ragged one, one and two checks a thread), and E3's
+    bits and posteriors equal to E1
     full's (E3 is E1 full without the cap, which these magnitudes never
-    reach); E4's three variants on mackay1008 (EXP_FLOODING: F = 8 with a
-    ragged last tile and more tiles than blocks, and one frame a block),
-    bits, ok and iterations identical and final posteriors 0 ulps apart
-    (each variable's sum in ascending edge order, as the plain version
-    adds). The counts are the wrappers' own and are not the main path's.
+    reach); E1's slot kinds on that code; E4's three variants
+    (EXP_FLOODING: on mackay1008 F = 8 with a ragged last tile and more
+    tiles than blocks, and one frame a block, its tables in shared memory;
+    on nr5g/bg1/32 its tables through the read-only path), bits, ok and
+    iterations identical and final posteriors 0 ulps apart (each
+    variable's sum in ascending edge order, as the plain version adds).
+    The counts are the wrappers' own and are not the main path's.
     Returns {kernels-line name: {"ulps", "max_abs_err", "plain_ms", "ms",
     "shape"}}: the largest ulps and error over every case, the times and
     shape of its first (the plain version's time beside the kernel's)."""
@@ -3898,6 +3936,14 @@ def experiments_kernels_path(dev) -> dict:
               for v, fl in E2_VARIANTS.items()]
     cases.append(("static_unroll", "full", E3_FLAGS, True))
     kept = {}
+    kinds = [k for row in ablate.slot_kinds(graph) for k in row]
+    emit("experiments_e1_table", code=ablate.STATIC_CODE,
+         early=sum(k[0] == ablate.EARLY for k in kinds),
+         forwarded=sum(k[0] == ablate.FORWARDED for k in kinds),
+         late=sum(k[0] == ablate.LATE for k in kinds),
+         late_layers=sum(any(k[0] == ablate.LATE for k in row)
+                         for row in ablate.slot_kinds(graph)),
+         slots=len(kinds))
     for name, v, fl, static in cases:
         x = llr[bool(fl & ROLL)]
         ablate.ablate_cuda(graph, x, fl, iters, static=static)  # warm
@@ -3920,32 +3966,58 @@ def experiments_kernels_path(dev) -> dict:
     e1, e3 = kept["ablate_layered", "full"], kept["static_unroll", "full"]
     if not (torch.equal(e1[0], e3[0]) and same_floats(e1[1], e3[1])):
         raise AssertionError("E3 differs from E1 full")
+    # E1 on a small code: several frames a tile, one and two items a thread
+    for code, B, iters in EXP_E1_SMALL:
+        sgraph = compile_qc_graph(get_code(code))
+        s3 = ablate.inputs3(sgraph, B, dev, seed=6, mean=0.5)
+        for v, fl in ablate.E1_VARIANTS.items():
+            x = ablate.to_var(sgraph, s3, bool(fl & ROLL))
+            bits, post = ablate.ablate_cuda(sgraph, x, fl, iters,
+                                            with_posteriors=True)
+            rbits, rpost = ablate.ablate_plain(sgraph, x, fl, iters)
+            same, u = torch.equal(bits, rbits), _ulps(post, rpost)
+            plan = ablate.ablate_cuda.last_plan[0]
+            emit("experiments_layered", kernel="ablate_layered", code=code,
+                 variant=v, flags=fl, frames=B, iters=iters,
+                 bits_equal=same, post_ulps=u, plan=plan.as_dict(),
+                 items=-(-sgraph.Z * plan.frames // plan.threads))
+            note("ablate_layered", 0.0, 0.0, u,
+                 (post - rpost).abs().max().item(), [B, sgraph.n, iters])
+            if not same or u:
+                raise AssertionError(f"E1 {v} on {code} at {B} frames: bits "
+                                     f"equal {same}, {u} ulps")
 
     t2 = time.perf_counter()
-    for B, iters in EXP_FLOODING:
-        x = make_inputs("mackay1008", "minsum/norm:0.8125/5", B, 2.0, dev,
+    for code, B, iters, form in EXP_FLOODING:
+        # /xla-mm: the expanded graph, which the dc-major kernel takes
+        x = make_inputs(code, "minsum/norm:0.8125/5/xla-mm", B, 2.0, dev,
                         seed=8)
         fgraph = x.graph
         for v in smallcode_opt2.VARIANTS:
+            (ref, rpost), pms = timed(smallcode_opt2.dcmajor_plain, fgraph,
+                                      x.llr, v, iters)
             smallcode_opt2.dcmajor_cuda(fgraph, x.llr, v, iters)  # warm
             (res, post), ms = timed(smallcode_opt2.dcmajor_cuda, fgraph,
                                     x.llr, v, iters, with_posteriors=True)
-            (ref, rpost), pms = timed(smallcode_opt2.dcmajor_plain, fgraph,
-                                      x.llr, v, iters)
             same = (torch.equal(res.bits, ref.bits)
                     and torch.equal(res.ok, ref.ok)
                     and torch.equal(res.iterations, ref.iterations))
             u = _ulps(post, rpost)
             plan = smallcode_opt2.dcmajor_cuda.last_plan
-            emit("experiments_flooding", variant=v, frames=B, iters=iters,
-                 same=same, post_ulps=u, ok=int(res.ok.sum().item()), ms=ms,
-                 plain_ms=pms, plan=plan,
-                 last_tile_frames=B - (plan["tiles"] - 1) * plan["frames"])
+            emit("experiments_flooding", code=code, variant=v, frames=B,
+                 iters=iters, same=same, post_ulps=u,
+                 ok=int(res.ok.sum().item()), ms=ms, plain_ms=pms,
+                 plan=plan, last_tile_frames=B - (plan["tiles"] - 1)
+                 * plan["frames"])
             note("dcmajor", ms, pms, u, (post - rpost).abs().max().item(),
                  [B, fgraph.n, iters])
+            if plan["tables"] != form:
+                raise AssertionError(f"E4 on {code} at {B} frames: tables "
+                                     f"{plan['tables']}, not {form}")
             if not same or u:
-                raise AssertionError(f"E4 {v} at {B} frames: bits, ok and "
-                                     f"iterations equal {same}, {u} ulps")
+                raise AssertionError(
+                    f"E4 {v} on {code} at {B} frames: bits, ok and "
+                    f"iterations equal {same}, {u} ulps")
     emit("experiments_kernels", seconds=time.perf_counter() - t0,
          layered_s=t2 - t1, flooding_s=time.perf_counter() - t2)
     return out
@@ -4026,7 +4098,8 @@ def experiments_entries(parity: dict, sass: dict, lines: dict,
     bound from the same line, launches of phase 51, the comparisons of
     phase 50 (the plain version's ms there, at `plain_shape`: frames, n
     and sweeps for E1-E4, rows, columns and steps for E5-E7); E1-E3's
-    SASS instructions; E6's step bound, plan, and its time, step bound and
+    SASS instructions; E1's µs a layer step at B = 128, its ms and µs at
+    4096; E4's plan; E6's step bound, plan, and its time, step bound and
     library time at [368, 16896] beside them."""
     picks = {
         "ablate_layered": _pick(lines["ablate_layered"], variant="full",
@@ -4060,9 +4133,19 @@ def experiments_entries(parity: dict, sass: dict, lines: dict,
                   "ablate_layered2": ablate.library_of(E2_VARIANTS["full"],
                                                        True),
                   "static_unroll": ablate.library_of(E3_FLAGS, True)}
+    e1_full = {r: _pick(lines["ablate_layered"], variant="full", regime=r)
+               for r in ("latency", "throughput")}
     for e in out:
         if e["name"] in by_library:
             e["sass"] = sass[by_library[e["name"]]]
+        if e["name"] == "ablate_layered":
+            e.update(us_per_step=e1_full["latency"]["us_per_step"],
+                     throughput_ms=e1_full["throughput"]["ms"],
+                     throughput_us_per_step=e1_full["throughput"][
+                         "us_per_step"])
+        if e["name"] == "dcmajor":
+            e["plan"] = next(ln["plan"] for ln in lines["smallcode_opt2"]
+                             if "plan" in ln)
         if e["name"] == "micro_ops:roll":
             full = _pick(lines["micro_vpu"], kind="roll", dtype="float32",
                          shape_name="full")

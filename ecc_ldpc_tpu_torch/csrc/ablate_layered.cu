@@ -43,8 +43,7 @@
 //   kCap    the magnitude cap min(m, 1e12) (E1 only)
 // E1's variants keep kSub and kCap, E2's and E3's drop kCap.
 //
-// Row form: runtime tables (E1; the slot's column base and row offset in
-// shared memory, read per slot, as K1a reads them), or, built with
+// Row form: runtime tables (E1), or, built with
 // ABLATE_STATIC_FLAGS, compile-time tables made from the rows of
 // dvbs2/64800/12 in the generated csrc/ablate_static_dvbs2_64800_12.cuh,
 // with the code's shapes (Z, the layer count, the state stride, one frame
@@ -62,10 +61,22 @@
 // static instance is a library of its own (ecc_ldpc_tpu_torch/_build.py),
 // so they build in parallel.
 //
+// E1's runtime table (experiments/ablate.e1_table) is one word a slot and
+// each row's kinds as masks, read from shared memory a step ahead, and it
+// pipelines the layer step across its barrier: a slot whose block-column
+// the layer before does not touch ("early"; 521 of dvbs2/64800/12's 631)
+// or one with the layer before's block-column and shift ("forwarded", 87:
+// the dual-diagonal parity, a row the same thread has just stored) is
+// loaded before the layer before's barrier, and only the rest ("late",
+// 23, in 21 of the 90 layers) after it. A slot's space is in its word, so
+// an on-chip slot is a shared-memory load from a 32-bit offset.
+//
 // What bounds them: as K1a (csrc/layered_qc.cu), the operations (12 a
-// full edge visit; bench/throughput.decode_bound) on paper, and the
-// latency of a layer step (loads, the row rule, stores, one barrier) in
-// fact; these variants measure what each part of that step costs.
+// full edge visit; bench/throughput.decode_bound) on paper, and in fact
+// the layer step (loads, the row rule, stores, one barrier). Taking the
+// loads off the step's critical path (E1's pipeline) did not make it
+// faster, so what is left is the instruction stream and its stalls, not
+// split; these variants measure what each part of that step costs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,8 +117,11 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 // One check of degree d (<= DEG): r holds its d posteriors in and its new
 // posteriors out; old its state words in the prefetched slab (all zeros
-// when `zero`), out the same words in HBM, word stride ws.
-template <int DEG, int FL>
+// when `zero`), out the same words in HBM, word stride ws. With PAD the
+// caller has set r[j] = +inf past the degree, so every slot runs the rule
+// without a branch: +inf (less a finite message) moves neither minimum
+// nor the sign product, and the caller drops those slots' posteriors.
+template <int DEG, int FL, bool PAD = false>
 __device__ __forceinline__ void check(float (&r)[DEG], int d,
                                       const uint32_t* old, bool zero,
                                       uint32_t* out, int ws, float alpha) {
@@ -126,7 +140,7 @@ __device__ __forceinline__ void check(float (&r)[DEG], int d,
   // pass 1: extrinsic inputs, running two-min, sign-bit product
 #pragma unroll
   for (int j = 0; j < DEG; ++j) {
-    if (j < d) {
+    if (PAD || j < d) {
       float x = r[j];
       if constexpr (SUB) {
         const float cv = __uint_as_float((j == oldslot ? old2 : old1) |
@@ -151,7 +165,7 @@ __device__ __forceinline__ void check(float (&r)[DEG], int d,
   int slot = -1;
 #pragma unroll
   for (int j = 0; j < DEG; ++j) {
-    if (j < d) {
+    if (PAD || j < d) {
       const float v = VROW ? r[j] : min1;
       bool is_min = false;
       if constexpr (MIN2) {
@@ -224,81 +238,201 @@ __device__ __forceinline__ void store_tile(const Args& a, float* post,
 
 #ifndef ABLATE_STATIC_FLAGS
 
-// E1: runtime row tables, as K1a
-template <int DEG, int FL>
+// E1: runtime row tables, the layer step pipelined across its barrier.
+// Its table (experiments/ablate.e1_table) holds kRowWords words a layer:
+// one a slot (the shift times F, bits 0-10; the block-column's slot,
+// 11-21; the space, 22: the L2 scratch; the kind, 23-24: 1 early, 2
+// forwarded, 3 late; zero past the degree), then the row's degree and its
+// early, forwarded and late slots as masks (bits 0-3, 8-15, 16-23, 24-31:
+// bit j is slot j), and its slots in the L2 scratch as a mask.
+constexpr int kRowWords = 12;  // 8 slots, 2 masks, 2 pad: three uint4
+
+// A predicated load of a slot's posterior (`p` nonzero) through a 32-bit
+// shared-memory address (LDS), with no branch
+__device__ __forceinline__ void lds_if(float& x, uint32_t addr, uint32_t p) {
+  asm volatile(
+      "{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q ld.shared.f32 %0, [%1];\n\t}"
+      : "+f"(x) : "r"(addr), "r"(p) : "memory");
+}
+
+// One layer's row in registers: its two mask words, each item's word
+// offsets in the slots' spaces, and the posteriors read
+template <int DEG, int IT>
+struct Row {
+  uint32_t kinds, spill;
+  int o[IT][DEG];
+  float x[IT][DEG];
+};
+
+// Items 0..IT-1 of a thread are i = tid + it * blockDim.x: check zl = i / F
+// of frame i % F, the same in every layer. A layer step g (layer L of
+// sweep g / mb) holds its row in registers, read during step g - 1 with
+// its slots' posteriors, and then:
+//   starts the copy of the next step's check-state slab (cp.async into
+//   the other of two buffers);
+//   reloads its late slots, whose block-columns the layer before wrote at
+//   another shift (the first step of a tile has read every slot after the
+//   tile's barrier);
+//   reads the next row from shared memory and works out its offsets;
+//   runs the row rule and stores every slot;
+//   loads every slot of the next row: an early slot's block-column is not
+//   this layer's, a forwarded slot's row is the one this thread has just
+//   stored, and a late slot's value is replaced after the barrier;
+//   waits for the slab and takes the one barrier.
+// So no table entry and no early or forwarded slot is read after the
+// barrier: only the late slots (23 of dvbs2/64800/12's 631, in 21 of its
+// 90 layers), and the check state from the slab copied before it. Every
+// predicate, select or branch a slot takes is issued by every warp in
+// every step, so the step carries none it can drop: the slots past the
+// degree run the rule as +inf (check's PAD), the next row's loads are not
+// predicated, and a row with a slot in the L2 scratch takes generic
+// accesses, the others shared-memory ones, one uniform branch a row. Two
+// steps a turn alternate the two rows' registers.
+template <int DEG, int FL, int IT>
 __global__ void __launch_bounds__(512, 1) ablate_kernel(Args a) {
   constexpr bool ROLL = FL & kRoll, SUB = FL & kSub;
+  static_assert(DEG == 8, "a row holds 8 slot words");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int F = a.F, mb = a.mb, BE = a.BE, RF = a.Z * F;
+  const int F = a.F, mb = a.mb, RF = a.Z * F, stride = a.stride;
   float* post = reinterpret_cast<float*>(smem);  // [nchip * Z * F]
-  uint32_t* buf = reinterpret_cast<uint32_t*>(post + ((a.nchip * RF + 3) & ~3));
-  float** sbase = reinterpret_cast<float**>(buf + 2 * a.stride);  // [BE]
-  int* soff = reinterpret_cast<int*>(sbase + BE);                  // [BE]
-  int* lptr = soff + BE;                                           // [mb + 1]
-  int* home = lptr + mb + 1;                                       // [nb]
+  uint32_t* buf = reinterpret_cast<uint32_t*>(
+      post + ((a.nchip * RF + 3) & ~3));                   // [2][stride]
+  uint32_t* rows = buf + 2 * stride;                       // [mb][kRowWords]
+  int* home = reinterpret_cast<int*>(rows + mb * kRowWords);  // [nb]
+  const uint32_t post_s = ct::smem_u32(post);
   const int tid = threadIdx.x, nth = blockDim.x;
-  uint32_t* state = a.state + (size_t)blockIdx.x * mb * a.stride;
+  uint32_t* state = a.state + (size_t)blockIdx.x * mb * stride;
   float* spill = a.spill + (size_t)blockIdx.x * (a.nb - a.nchip) * RF;
-  for (int i = tid; i <= mb; i += nth) lptr[i] = a.tab[i];
+  for (int i = tid; i < mb * kRowWords; i += nth)
+    rows[i] = static_cast<uint32_t>(a.tab[i]);
   for (int i = tid; i < a.nb; i += nth) home[i] = a.home[i];
-  __syncthreads();
-  for (int i = tid; i < BE; i += nth) {
-    const int h = home[a.tab[mb + 1 + i]];
-    sbase[i] = h >= 0 ? post + h * RF : spill + (-1 - h) * RF;
-    soff[i] = a.tab[mb + 1 + BE + i] * F;
+  const int G = a.iters * mb;
+  int item[IT], frame[IT], at[IT];  // at: the item, 0 where it is idle
+  bool act[IT];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    item[it] = tid + it * nth;
+    frame[it] = item[it] % F;
   }
-  __syncthreads();
-  // item i is check zl = i / F of frame f = i % F (K1a's split)
-  const float inv_f = 1.f / F;
-  auto split = [&](int i) {
-    int zl = __float2int_rz((i + 0.5f) * inv_f);
-    int f = i - zl * F;
-    if (f < 0) f += F;
-    else if (f >= F) f -= F;
-    return f;
-  };
-  auto edge = [&](int s, int i) -> float* {
-    int o = i;
-    if constexpr (ROLL) {
-      o += soff[s];
-      if (o >= RF) o -= RF;
+  // row L's masks and offsets into r
+  auto read_row = [&](Row<DEG, IT>& r, int L) {
+    const uint4* src = reinterpret_cast<const uint4*>(rows + L * kRowWords);
+    const uint4 q0 = src[0], q1 = src[1], q2 = src[2];
+    const uint32_t w[DEG] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    r.kinds = q2.x;
+    r.spill = q2.y;
+#pragma unroll
+    for (int j = 0; j < DEG; ++j) {
+#pragma unroll
+      for (int it = 0; it < IT; ++it) {
+        int o = at[it];
+        if constexpr (ROLL) {
+          o += (int)(w[j] & 0x7FF);
+          o = o >= RF ? o - RF : o;
+        }
+        r.o[it][j] = (int)((w[j] >> 11) & 0x7FF) * RF + o;
+      }
     }
-    return sbase[s] + o;
+  };
+  // every slot's posterior, or (`late`) the late slots'
+  auto load = [&](Row<DEG, IT>& r, bool late) {
+    if (r.spill) {
+#pragma unroll
+      for (int j = 0; j < DEG; ++j)
+#pragma unroll
+        for (int it = 0; it < IT; ++it)
+          if (!late || (r.kinds >> (24 + j)) & 1)
+            r.x[it][j] =
+                *((r.spill & (1u << j) ? spill : post) + r.o[it][j]);
+    } else if (late) {
+#pragma unroll
+      for (int j = 0; j < DEG; ++j)
+#pragma unroll
+        for (int it = 0; it < IT; ++it)
+          lds_if(r.x[it][j], post_s + 4u * r.o[it][j],
+                 r.kinds & (1u << (24 + j)));
+    } else {
+#pragma unroll
+      for (int j = 0; j < DEG; ++j)
+#pragma unroll
+        for (int it = 0; it < IT; ++it) r.x[it][j] = post[r.o[it][j]];
+    }
+  };
+  // the check-state slab of step g into buffer g % 2 (none in iteration 0)
+  auto prefetch_state = [&](int g, int L) {
+    if (SUB && g >= mb && g < G) {
+      const uint32_t* src = state + (size_t)L * stride;
+      const uint32_t dst = ct::smem_u32(buf) + 4u * (g & 1) * stride;
+      for (int w = 4 * tid; w < stride; w += 4 * nth)
+        ct::cp_async16(dst + 4u * w, src + w);
+    }
+  };
+  auto step = [&](int g, int L, Row<DEG, IT>& cur, Row<DEG, IT>& nxt) {
+    const int Ln = L + 1 == mb ? 0 : L + 1;
+    const bool more = g + 1 < G;
+    const int d = (int)(cur.kinds & 15);
+    prefetch_state(g + 1, Ln);
+    if (g > 0 && cur.kinds >> 24) load(cur, true);
+    if (more) read_row(nxt, Ln);
+    const uint32_t* old = buf + (g & 1) * stride;
+    uint32_t* out = state + (size_t)L * stride;
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+#pragma unroll
+      for (int j = 0; j < DEG; ++j)
+        cur.x[it][j] = j < d ? cur.x[it][j] : INFINITY;
+      if (act[it])
+        check<DEG, FL, true>(cur.x[it], d, old + item[it], g < mb,
+                             out + item[it], RF, a.alpha);
+    }
+    if (cur.spill) {
+#pragma unroll
+      for (int j = 0; j < DEG; ++j)
+#pragma unroll
+        for (int it = 0; it < IT; ++it)
+          if (act[it] && j < d)
+            *((cur.spill & (1u << j) ? spill : post) + cur.o[it][j]) =
+                cur.x[it][j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < DEG; ++j)
+#pragma unroll
+        for (int it = 0; it < IT; ++it)
+          if (act[it] && j < d) post[cur.o[it][j]] = cur.x[it][j];
+    }
+    if (more) load(nxt, false);
+    ct::cp_async_wait_all();
+    __syncthreads();
   };
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
     const int b0 = tile * F, nf = min(F, a.B - b0);
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      act[it] = item[it] < RF && frame[it] < nf;
+      at[it] = act[it] ? item[it] : 0;
+    }
+    __syncthreads();  // the tables (first tile), the last tile's stores
     load_tile(a, post, spill, home, b0, nf);
     __syncthreads();
+    Row<DEG, IT> r0, r1;
+    if (G > 0) {
+      read_row(r0, 0);
+      load(r0, false);  // the first step reads every slot here
+    }
+    // two steps a turn, each row's registers in turn the current and the
+    // next
+    int L = 0;
 #pragma unroll 1
-    for (int t = 0; t < a.iters; ++t) {
-      for (int L = 0; L < mb; ++L) {
-        const int g = t * mb + L;
-        if constexpr (SUB) prefetch(state, buf, a.stride, mb, a.iters, g);
-        const int s0 = lptr[L], d = lptr[L + 1] - s0;
-        const uint32_t* old = buf + (g % 2) * a.stride;
-        uint32_t* out = state + (size_t)L * a.stride;
-        for (int i = tid; i < RF; i += nth) {
-          if (split(i) >= nf) continue;
-          float* p[DEG];
-          float r[DEG];
-#pragma unroll
-          for (int j = 0; j < DEG; ++j) {
-            if (j < d) {
-              p[j] = edge(s0 + j, i);
-              r[j] = *p[j];
-            }
-          }
-          check<DEG, FL>(r, d, old + i, t == 0, out + i, RF, a.alpha);
-#pragma unroll
-          for (int j = 0; j < DEG; ++j)
-            if (j < d) *p[j] = r[j];
-        }
-        ct::cp_async_wait_all();
-        __syncthreads();
+    for (int g = 0; g < G; g += 2) {
+      step(g, L, r0, r1);
+      L = L + 1 == mb ? 0 : L + 1;
+      if (g + 1 < G) {
+        step(g + 1, L, r1, r0);
+        L = L + 1 == mb ? 0 : L + 1;
       }
     }
     store_tile(a, post, spill, home, b0, nf);
-    __syncthreads();
   }
 }
 
@@ -307,18 +441,22 @@ __global__ void __launch_bounds__(512, 1) ablate_kernel(Args a) {
 
 using Kern = void (*)(Args);
 
-template <int DEG>
+template <int DEG, int IT>
 Kern pick_flags(int flags) {
 #define ABLATE_CASE(FL) \
-  if (flags == FL) return ablate_kernel<DEG, FL>;
+  if (flags == FL) return ablate_kernel<DEG, FL, IT>;
   ABLATE_E1_FLAGS(ABLATE_CASE)
 #undef ABLATE_CASE
   return nullptr;
 }
 
-// rows of up to 8 slots (dvbs2/64800/12 has 7)
-Kern pick(int dcb_max, int flags) {
-  return dcb_max <= 8 ? pick_flags<8>(flags) : nullptr;
+// rows of up to 8 slots (dvbs2/64800/12 has 7 and 8), one or two items a
+// thread
+Kern pick(int dcb_max, int flags, int items) {
+  if (dcb_max > 8) return nullptr;
+  if (items == 1) return pick_flags<8, 1>(flags);
+  if (items == 2) return pick_flags<8, 2>(flags);
+  return nullptr;
 }
 
 #else  // the static row form: one instance, ABLATE_STATIC_FLAGS
@@ -514,8 +652,10 @@ extern "C" {
 // Decodes llr [B, n] with the variant `flags` by the cluster-of-one tile
 // plan (F, tiles, stride, nchip, threads, smem; experiments/ablate.py
 // ablate_plan) on `blocks` persistent blocks; state holds blocks * mb *
-// stride words, spill blocks * (nb - nchip) * Z * F floats. A static
-// library takes only its own flags and its code's shapes (F = 1). post
+// stride words, spill blocks * (nb - nchip) * Z * F floats. The dynamic
+// library takes E1's row table in `tab` (experiments/ablate.e1_table, mb
+// * 8 words) and one or two items a thread; a static library takes only
+// its own flags and its code's shapes (F = 1), and reads no table. post
 // may be null. Returns a cudaError_t (0 on a successful launch).
 int ablate_layered_decode(void* llr, void* bits, void* post, void* state,
                           void* spill, void* home, void* tab, int Z, int mb,
@@ -523,15 +663,23 @@ int ablate_layered_decode(void* llr, void* bits, void* post, void* state,
                           int flags, int F, int tiles, int stride, int nchip,
                           int threads, int smem, int blocks, float alpha,
                           void* stream) {
-  Kern kern = pick(dcb_max, flags);
-  if (!kern || B < 1 || iters < 0 || mb < 2 || F < 1 || F > 64 ||
-      tiles * F < B || stride % 4 || threads < 32 || threads > 512 ||
-      blocks < 1 || nchip < 0 || nchip > nb)
+  if (B < 1 || iters < 0 || mb < 2 || F < 1 || F > 64 || tiles * F < B ||
+      stride % 4 || threads < 32 || threads > 512 || blocks < 1 ||
+      nchip < 0 || nchip > nb)
     return (int)cudaErrorInvalidValue;
 #ifdef ABLATE_STATIC_FLAGS
-  if (Z != kStaticZ || mb != kStaticMb || nb != kStaticNb ||
+  Kern kern = pick(dcb_max, flags);
+  if (!kern || Z != kStaticZ || mb != kStaticMb || nb != kStaticNb ||
       BE != kStaticBE || nchip != kStaticChip || F != 1 ||
       stride != kStaticStride)
+    return (int)cudaErrorInvalidValue;
+#else
+  const int items = (Z * F + threads - 1) / threads;
+  Kern kern = pick(dcb_max, flags, items);
+  const long need = 4l * ((nchip * Z * F + 3) & ~3) + 8l * stride +
+                    4l * mb * kRowWords + 4l * nb;
+  if (!kern || Z * F > 2048 || nb > 2048 || stride < 3 * Z * F ||
+      smem < need)
     return (int)cudaErrorInvalidValue;
 #endif
   Args a;

@@ -17,6 +17,12 @@ state). `to_var` and `from_var` map the two (with the roll ablated no
 rotation ever happens and the two are one layout), and `decode3` is the
 TPU scripts' function on [nb, Z, B].
 
+E1's kernel reads one word a slot from `e1_table`, which sorts every slot
+by `slot_kinds` (early: read during the layer before; forwarded: that
+layer's result in the same thread; late: read after its barrier);
+`ablate_scheduled` runs the plain arithmetic in that schedule on the
+host, so a CPU test shows the schedule legal where no card is.
+
 Run `python -m ecc_ldpc_tpu_torch.experiments.ablate --write-header` to
 regenerate csrc/ablate_static_dvbs2_64800_12.cuh, the static sweep's
 tables (tests/test_torch_experiments_layered.py checks that it is current);
@@ -65,6 +71,10 @@ STATIC_CODE = "dvbs2/64800/12"
 STATIC_HEADER = _build.CSRC / "ablate_static_dvbs2_64800_12.cuh"
 _MAG_CAP = 1e12
 _SIGN = -(1 << 31)
+# E1's slots (slot_kinds, e1_table): rows of up to E1_DEG slots, each of
+# one kind (0 in the table past a row's degree); E1_ROW table words a row
+E1_DEG, E1_ROW = 8, 12
+EARLY, FORWARDED, LATE = 1, 2, 3
 
 
 def check_graph(graph: QCGraph) -> None:
@@ -112,52 +122,152 @@ def from_var(graph: QCGraph, x: torch.Tensor, roll: bool) -> torch.Tensor:
     return torch.gather(x3, 1, idx[:, :, None].expand(nb, Z, B)).contiguous()
 
 
+def _layers(graph: QCGraph, flags: int, device) -> list:
+    """Per layer in sweep order, per slot: (block-edge, the [Z] variables
+    its checks read)."""
+    z = torch.arange(graph.Z, device=device)
+    return [[(e, c * graph.Z + ((z + s) % graph.Z if flags & ROLL else z))
+             for e, c, s in graph.layer_edges(i)]
+            for i in graph.layer_order]
+
+
+def _row_rule(xs: list, olds: list, flags: int, alpha: float) -> tuple:
+    """One layer's checks in the TPU kernels' operation order: xs the
+    posteriors its slots read, olds their messages [B, Z]; returns (the
+    slots' new posteriors, their new bf16 messages)."""
+    dev = xs[0].device
+    cap = torch.tensor(_MAG_CAP, dtype=torch.float32, device=dev)
+    mask = torch.tensor(_SIGN, dtype=torch.int32, device=dev)
+    min1 = min2 = torch.full_like(xs[0], float("inf"))
+    sg = torch.zeros(xs[0].shape, dtype=torch.int32, device=dev)
+    vals = []
+    for x, old in zip(xs, olds):
+        if flags & SUB:
+            x = x - old
+        vals.append(x)
+        a = x.abs()
+        if flags & MIN2:
+            min2 = torch.minimum(min2, torch.maximum(min1, a))
+        min1 = torch.minimum(min1, a)
+        if flags & SIGN:
+            sg = sg ^ x.view(torch.int32)
+    mag1 = alpha * (torch.minimum(min1, cap) if flags & CAP else min1)
+    mag2 = (alpha * (torch.minimum(min2, cap) if flags & CAP else min2)
+            if flags & MIN2 else mag1)
+    posts, msgs = [], []
+    for x in vals:
+        v = x if flags & VROW else min1
+        mag = (torch.where(v.abs() == min1, mag2, mag1)
+               if flags & MIN2 else mag1)
+        if flags & SIGN:
+            flip = (sg ^ v.view(torch.int32)) & mask
+            cnew = (mag.view(torch.int32) | flip).view(torch.float32)
+        else:
+            cnew = mag
+        cb = round_bf16(cnew)
+        posts.append(v + (cb if flags & CASTQ else cnew))
+        msgs.append(cb)
+    return posts, msgs
+
+
 def ablate_plain(graph: QCGraph, llr: torch.Tensor, flags: int,
                  iters: int = ITERS, alpha: float = ALPHA):
     """(bits uint8 [B, n], posteriors f32 [B, n]) of the variant `flags`
     on llr f32 [B, n], in the TPU kernels' operation order."""
     check_graph(graph)
-    dev, (B, n), Z = llr.device, llr.shape, graph.Z
-    z = torch.arange(Z, device=dev)
-    layers = [[(e, c * Z + ((z + s) % Z if flags & ROLL else z))
-               for e, c, s in graph.layer_edges(i)]
-              for i in graph.layer_order]
+    layers = _layers(graph, flags, llr.device)
     total = llr.clone()
-    C = torch.zeros((graph.num_block_edges, B, Z), device=dev)
-    inf = torch.full((B, Z), float("inf"), device=dev)
-    cap = torch.tensor(_MAG_CAP, dtype=torch.float32, device=dev)
-    mask = torch.tensor(_SIGN, dtype=torch.int32, device=dev)
+    C = torch.zeros((graph.num_block_edges, llr.shape[0], graph.Z),
+                    device=llr.device)
     for _ in range(iters):
         for edges in layers:
-            min1, min2 = inf, inf
-            sg = torch.zeros((B, Z), dtype=torch.int32, device=dev)
-            vals = []
-            for e, idx in edges:
-                x = total[:, idx]
-                if flags & SUB:
-                    x = x - C[e]
-                vals.append(x)
-                a = x.abs()
-                if flags & MIN2:
-                    min2 = torch.minimum(min2, torch.maximum(min1, a))
-                min1 = torch.minimum(min1, a)
-                if flags & SIGN:
-                    sg = sg ^ x.view(torch.int32)
-            mag1 = alpha * (torch.minimum(min1, cap) if flags & CAP else min1)
-            mag2 = (alpha * (torch.minimum(min2, cap) if flags & CAP else min2)
-                    if flags & MIN2 else mag1)
-            for (e, idx), x in zip(edges, vals):
-                v = x if flags & VROW else min1
-                mag = (torch.where(v.abs() == min1, mag2, mag1)
-                       if flags & MIN2 else mag1)
-                if flags & SIGN:
-                    flip = (sg ^ v.view(torch.int32)) & mask
-                    cnew = (mag.view(torch.int32) | flip).view(torch.float32)
-                else:
-                    cnew = mag
-                cb = round_bf16(cnew)
-                total[:, idx] = v + (cb if flags & CASTQ else cnew)
+            posts, msgs = _row_rule([total[:, idx] for _, idx in edges],
+                                    [C[e] for e, _ in edges], flags, alpha)
+            for (e, idx), p, cb in zip(edges, posts, msgs):
+                total[:, idx] = p
                 C[e] = cb
+    return (total < 0).to(torch.uint8), total
+
+
+def slot_kinds(graph: QCGraph) -> list:
+    """Per layer in sweep order, per slot: (kind, source), the sweep taken
+    as cyclic (layer mb - 1 before layer 0 of the next sweep). EARLY: the
+    layer before does not touch the slot's block-column, so its posterior
+    can be read during that layer; FORWARDED from slot `source` of the
+    layer before, which has the same block-column and shift, so the thread
+    that wrote that row holds it; LATE: read after the layer before's
+    barrier."""
+    rows = [[(c, s) for _, c, s in graph.layer_edges(i)]
+            for i in graph.layer_order]
+    out = []
+    for L, row in enumerate(rows):
+        prev = {c: (k, s) for k, (c, s) in enumerate(rows[L - 1])}
+        out.append([(EARLY, 0) if c not in prev else
+                    (FORWARDED, prev[c][0]) if prev[c][1] == s else
+                    (LATE, 0) for c, s in row])
+    return out
+
+
+def e1_table(graph: QCGraph, home, frames: int) -> np.ndarray:
+    """E1's row table, int32 [mb * E1_ROW] (csrc/ablate_layered.cu): for
+    layer L in sweep order, E1_ROW words from L * E1_ROW. Words 0..7 are
+    its slots (zero past the degree), one word a slot: the shift times
+    `frames` (bits 0-10), the block-column's slot on chip or in the L2
+    scratch (11-21), the space (22: the L2 scratch, home < 0) and the kind
+    of slot_kinds (23-24). Word 8 is the degree (bits 0-3) and the early,
+    forwarded and late slots as masks (8-15, 16-23, 24-31; bit j is slot
+    j), word 9 the slots in the L2 scratch as a mask."""
+    rf = graph.Z * frames
+    if graph.dcb_max > E1_DEG or rf > 2048 or graph.nb > 2048:
+        raise ValueError(f"{graph.name}: rows of {graph.dcb_max} slots, "
+                         f"{rf} rows a block-column, {graph.nb} columns; "
+                         f"E1's table takes {E1_DEG}, 2048 and 2048")
+    words = np.zeros((graph.mb, E1_ROW), np.int64)
+    shift = {EARLY: 8, FORWARDED: 16, LATE: 24}
+    for L, (i, kinds) in enumerate(zip(graph.layer_order,
+                                       slot_kinds(graph))):
+        edges = graph.layer_edges(i)
+        words[L, E1_DEG] = len(edges)
+        for j, ((_, c, s), (kind, _)) in enumerate(zip(edges, kinds)):
+            h = home[c]
+            words[L, j] = (s * frames | (h if h >= 0 else -1 - h) << 11
+                           | (h < 0) << 22 | kind << 23)
+            words[L, E1_DEG] |= 1 << (shift[kind] + j)
+            words[L, E1_DEG + 1] |= (h < 0) << j
+    return words.astype(np.uint32).view(np.int32).reshape(-1)
+
+
+def ablate_scheduled(graph: QCGraph, llr: torch.Tensor, flags: int,
+                     iters: int = ITERS, alpha: float = ALPHA):
+    """ablate_plain's result in E1's schedule (slot_kinds): in each layer
+    step an EARLY slot takes the posterior read during the step before,
+    ahead of that step's writes, a FORWARDED slot the step before's new
+    value of its source slot, a LATE slot the posterior after the step
+    before's writes; the first step reads every slot late. Equal to
+    ablate_plain bit for bit where the schedule is legal."""
+    check_graph(graph)
+    kinds = slot_kinds(graph)
+    layers = _layers(graph, flags, llr.device)
+    total = llr.clone()
+    C = torch.zeros((graph.num_block_edges, llr.shape[0], graph.Z),
+                    device=llr.device)
+    steps = iters * graph.mb
+    early, prev = {}, []
+    for g in range(steps):
+        L = g % graph.mb
+        edges = layers[L]
+        xs = []
+        for j, ((_, idx), (kind, k)) in enumerate(zip(edges, kinds[L])):
+            kind = LATE if g == 0 else kind
+            xs.append(early[j] if kind == EARLY else
+                      prev[k] if kind == FORWARDED else total[:, idx])
+        nxt = (L + 1) % graph.mb
+        early = {j: total[:, idx] for j, (_, idx) in enumerate(layers[nxt])
+                 if kinds[nxt][j][0] == EARLY}
+        prev, msgs = _row_rule(xs, [C[e] for e, _ in edges], flags, alpha)
+        for (e, idx), p, cb in zip(edges, prev, msgs):
+            C[e] = cb
+            total[:, idx] = p
     return (total < 0).to(torch.uint8), total
 
 
@@ -264,13 +374,23 @@ def library_of(flags: int, static: bool) -> str:
     return f"ablate_static_{flags}"
 
 
+def e1_smem(graph: QCGraph, plan) -> int:
+    """E1's dynamic shared bytes: the on-chip posteriors, the two check-
+    state slabs, the row table and the homes (K1a's tables in the plan's
+    bytes stay unused)."""
+    rf = graph.Z * plan.frames
+    return 4 * (-(-plan.chip * rf // 4) * 4 + 2 * plan.stride
+                + graph.mb * E1_ROW + graph.nb)
+
+
 def ablate_cuda(graph: QCGraph, llr: torch.Tensor, flags: int,
                 iters: int = ITERS, alpha: float = ALPHA,
                 static: bool = False, with_posteriors: bool = False):
     """(bits uint8 [B, n], posteriors f32 [B, n] or None) of one launch of
     the variant `flags` on llr f32 [B, n] on the card: E1's dynamic
-    kernel, or with `static` the static sweep (dvbs2/64800/12 only).
-    Raises on anything the kernels do not take; no fallback."""
+    kernel (its table: e1_table), or with `static` the static sweep
+    (dvbs2/64800/12 only). Raises on anything the kernels do not take; no
+    fallback."""
     _check_llr(llr, graph.n, max(iters, 1), "ablate_cuda", "ablate_plain")
     check_graph(graph)
     name = library_of(flags, static)
@@ -280,9 +400,20 @@ def ablate_cuda(graph: QCGraph, llr: torch.Tensor, flags: int,
     plan = ablate_plan(graph, B, _SMS[dev])
     if static:
         _check_static(graph, plan)
-    elif graph.dcb_max > 8:
-        raise ValueError(f"{graph.name}: rows of {graph.dcb_max} slots; the "
-                         f"ablation kernels take 8 at most")
+        smem = plan.smem
+        tab = _device_tables(graph, dev, "kernel", _kernel_table)
+    else:
+        if graph.dcb_max > E1_DEG or -(-graph.Z * plan.frames
+                                       // plan.threads) > 2:
+            raise ValueError(
+                f"{graph.name}: rows of {graph.dcb_max} slots, "
+                f"{graph.Z * plan.frames} checks a tile on {plan.threads} "
+                f"threads; E1's kernel takes {E1_DEG} and two a thread")
+        smem = e1_smem(graph, plan)
+        tab = _device_tables(
+            graph, dev, ("e1", plan.home, plan.frames),
+            lambda g, d: torch.as_tensor(
+                e1_table(g, plan.home, plan.frames), device=d))
     blocks = min(plan.tiles, _SMS[dev])
     words = blocks * graph.mb * plan.stride
     spilled = blocks * plan.spill * graph.Z * plan.frames
@@ -290,7 +421,6 @@ def ablate_cuda(graph: QCGraph, llr: torch.Tensor, flags: int,
     home = _device_tables(graph, dev, ("home", plan.home),
                           lambda g, d: torch.as_tensor(
                               plan.home, dtype=torch.int32, device=d))
-    tab = _device_tables(graph, dev, "kernel", _kernel_table)
     bits = torch.empty((B, graph.n), dtype=torch.uint8, device=dev)
     post = (torch.empty((B, graph.n), dtype=torch.float32, device=dev)
             if with_posteriors else None)
@@ -302,7 +432,7 @@ def ablate_cuda(graph: QCGraph, llr: torch.Tensor, flags: int,
             scratch.data_ptr() + 4 * words, home.data_ptr(), tab.data_ptr(),
             graph.Z, graph.mb, graph.nb, graph.num_block_edges, B, iters,
             graph.dcb_max, flags, plan.frames, plan.tiles, plan.stride,
-            plan.chip, plan.threads, plan.smem, blocks, alpha,
+            plan.chip, plan.threads, smem, blocks, alpha,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         _raise_launch(lib, name, rc)

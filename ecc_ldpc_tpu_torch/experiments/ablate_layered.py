@@ -10,7 +10,8 @@ this measures time only. Timed in the latency regime (one TPU tile, B =
 the static rows of ablate_layered2.py, in the throughput regime (the
 headline's B = 4096), each beside K1a itself (its bf16 precision library,
 decode/layered_qc.layered_decode_cuda with msg_dtype=torch.bfloat16) in
-the same process.
+the same process. Each line also gives the µs a layer step: the time
+over the layer steps one block takes in turn (waves x 25 x 90).
 
 Run:  python -m ecc_ldpc_tpu_torch.experiments.ablate_layered [--device cpu]
 """
@@ -18,6 +19,9 @@ from __future__ import annotations
 
 import sys
 
+import torch
+
+from ..decode.layered_qc import H100_SMS
 from . import common
 from .ablate import (
     ALPHA,
@@ -25,6 +29,7 @@ from .ablate import (
     THROUGHPUT_B,
     TILE,
     ablate,
+    ablate_plan,
     inputs3,
     static_graph,
     to_var,
@@ -35,8 +40,6 @@ from .variants import E1_VARIANTS, ROLL
 def k1a_seconds(graph, llr, dev, tries: int):
     """K1a, fixed 25 iterations with bf16 message storage, on llr [B, n]
     (None on the CPU: K1a is the card's)."""
-    import torch
-
     from ..decode.layered_qc import layered_decode_cuda
 
     if dev.type != "cuda":
@@ -54,23 +57,36 @@ def bound_ms(graph, B: int, iters: int) -> tuple:
     return s * 1e3, by
 
 
+def layer_steps(graph, B: int, iters: int, dev) -> int:
+    """The layer steps one block runs in turn at batch B on the cluster-of-
+    one plan (K1a's at B >= 119): waves of tiles x iters x layers."""
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    plan = ablate_plan(graph, B, sms)
+    return -(-plan.tiles // min(plan.tiles, sms)) * iters * graph.mb
+
+
 def run_variants(name: str, variants: dict, B: int, dev, card, tries: int,
                  iters: int, static: bool, regime: str) -> dict:
     """Times every variant at batch B; prints the TPU script's lines and a
-    JSON line each. Returns {variant: seconds}."""
+    JSON line each, with the µs a layer step (E1's and K1a's the same
+    plan). Returns {variant: seconds}."""
     graph = static_graph()
     k = graph.k
     llr3 = inputs3(graph, B, dev)
     llr = {roll: to_var(graph, llr3, roll) for roll in (True, False)}
     b_ms, by = bound_ms(graph, B, iters)
+    steps = layer_steps(graph, B, iters, dev)
     t_k1a = k1a_seconds(graph, llr[True], dev, tries)
     print(f"[{regime}, B={B}]")
     if t_k1a is not None:
         print(f"{'k1a_bf16':8s} {t_k1a * 1e3:7.2f} ms/decode  "
-              f"{B * k / t_k1a / 1e6:7.1f} Mbit/s")
+              f"{B * k / t_k1a / 1e6:7.1f} Mbit/s  "
+              f"{t_k1a * 1e6 / steps:5.3f} us/step")
         common.record(experiment=name, variant="k1a_bf16", regime=regime,
                       batch=B, ms=t_k1a * 1e3, mbps=B * k / t_k1a / 1e6,
-                      bound_ms=b_ms, bound_by=by, **card)
+                      us_per_step=t_k1a * 1e6 / steps, bound_ms=b_ms,
+                      bound_by=by, **card)
     out, t_full = {}, None
     for v, flags in variants.items():
         x = llr[bool(flags & ROLL)]
@@ -80,9 +96,11 @@ def run_variants(name: str, variants: dict, B: int, dev, card, tries: int,
         if v == "full":
             t_full = t
         print(f"{v:8s} {t * 1e3:7.2f} ms/decode  {B * k / t / 1e6:7.1f} "
-              f"Mbit/s{common.saves(t_full, t)}", flush=True)
+              f"Mbit/s  {t * 1e6 / steps:5.3f} us/step"
+              f"{common.saves(t_full, t)}", flush=True)
         common.record(experiment=name, variant=v, flags=flags, regime=regime,
                       batch=B, ms=t * 1e3, mbps=B * k / t / 1e6,
+                      us_per_step=t * 1e6 / steps,
                       saves_pct=(None if v == "full"
                                  else 100 * (t_full - t) / t_full),
                       vs_k1a=None if t_k1a is None else t / t_k1a,

@@ -15,10 +15,15 @@ slab ([m_pad, Bt]) onto total ([n_pad, Bt]) and so runs only where
 m_pad == n_pad (not on mackay1008); the port adds it to rows i < min(m, n)
 (csrc/dcmajor.cu's header).
 
-The experiment times, at B = 2048 on mackay1008 at 2.0 dB: K2, the
-production flooding kernel (decode/flooding.py) in f32 and with the TPU
-kernel's bf16 matmul inputs (/pallas), then the three dc-major variants,
-and prints Mbit/s, ms and FER as the TPU script did.
+The kernel runs in K2's frame: two phases an iteration (the TPU's V
+phase recomputed in the check phase), two frames an item where the plan's
+F is even, K2's tables (cn and the padded vmat).
+
+The experiment prints the kernel's plan (dcmajor_plan: frames a tile and
+an item, the tables' form), then times, at B = 2048 on mackay1008 at 2.0
+dB: K2, the production flooding kernel (decode/flooding.py) in f32 and
+with the TPU kernel's bf16 matmul inputs (/pallas), then the three
+dc-major variants, and prints Mbit/s, ms and FER as the TPU script did.
 
 Run:  python -m ecc_ldpc_tpu_torch.experiments.smallcode_opt2 [CODE]
       [--device cpu]
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from ..bench.throughput import decode_bound, make_inputs
-from ..decode.layered_qc import _check_llr, _lib, _raise_launch
+from ..decode.layered_qc import H100_SMS, _check_llr, _lib, _raise_launch
 from ..decode.quant import round_bf16
 from ..decode.types import DecodeResult
 from . import common
@@ -52,9 +57,8 @@ _MAX_FRAMES = 64
 def tables(graph) -> dict:
     """The dc-major tables of a CompiledGraph (numpy int32): cn [dc * m],
     the variable of slot j of check i at j * m + i or -1; vmat [n, dv],
-    each variable's edges in ascending e, -1 padded; vptr [n + 1] and
-    vedge [E], the same as CSR. Cached on the graph. Raises on a check
-    that reads a variable twice."""
+    each variable's edges in ascending e, -1 padded. Cached on the graph.
+    Raises on a check that reads a variable twice."""
     key = ("dcmajor", "tables")
     if key in graph.device_cache:
         return graph.device_cache[key]
@@ -75,9 +79,7 @@ def tables(graph) -> dict:
     vmat = np.full((n, dv), -1, np.int32)
     for v, x in enumerate(edges):
         vmat[v, :len(x)] = x
-    vptr = np.cumsum([0] + [len(x) for x in edges]).astype(np.int32)
-    vedge = np.asarray([e for x in edges for e in x], np.int32)
-    out = dict(cn=cn, vmat=vmat, vptr=vptr, vedge=vedge)
+    out = dict(cn=cn, vmat=vmat)
     graph.device_cache[key] = out
     return out
 
@@ -170,20 +172,37 @@ def dcmajor_plain(graph, llr: torch.Tensor, variant: str = "full",
 def dcmajor_plan(graph, batch: int, sms: int) -> dict:
     """F frames a tile (the most that fit a block, then the fewest that
     keep the waves of tiles over `sms` blocks), tiles, blocks, threads,
-    dynamic shared bytes."""
-    per = 4 * (2 * graph.n + graph.dc_max * graph.m)
-    fmax = min(_MAX_FRAMES, _SMEM_ROOM // per)
-    if fmax < 1:
+    tables ("smem": cn and vmat staged once a block into shared memory as
+    int16, where n and dc * m fit int16 and the tables cost the plan no
+    frame a tile; else "ldg": read through the read-only path), lanes
+    (frames a thread's item: 2 where F is even, a check has at most 16
+    slots and the tables are in shared memory, else 1), dynamic shared
+    bytes."""
+    n, m, dc = graph.n, graph.m, graph.dc_max
+    per = 4 * (2 * n + dc * m)
+
+    def frames(room: int) -> int:
+        fmax = min(_MAX_FRAMES, room // per)
+        if fmax < 1:
+            return 0
+        waves = -(-batch // (sms * fmax))
+        return -(-batch // (sms * waves))
+
+    F = frames(_SMEM_ROOM)
+    if F < 1:
         raise ValueError(f"{graph.name}: a frame's state ({per} B) does not "
                          f"fit a block's shared memory")
-    waves = -(-batch // (sms * fmax))
-    F = -(-batch // (sms * waves))
+    dv = max(1, graph.dv_max)  # vmat's width at most
+    tab = -(-2 * (dc * m + n * dv) // 16) * 16
+    smem = max(n, dc * m) <= 32767 and frames(_SMEM_ROOM - tab) == F
     tiles = -(-batch // F)
     return dict(frames=F, tiles=tiles, blocks=min(tiles, sms), threads=512,
-                smem=per * F)
+                lanes=2 if smem and F % 2 == 0 and dc <= 16 else 1,
+                tables="smem" if smem else "ldg",
+                smem=per * F + (tab if smem else 0))
 
 
-_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
+_ARGS = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14 + [ctypes.c_float] * 2
          + [ctypes.c_void_p])
 _SMS = {}
 
@@ -192,8 +211,9 @@ def dcmajor_cuda(graph, llr: torch.Tensor, variant: str = "full",
                  max_iters: int = ITERS, alpha: float = ALPHA,
                  beta: float = BETA, with_posteriors: bool = False):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
-    dc-major kernel on llr f32 [B, n] on the card. Raises on anything the
-    kernel does not take; no fallback."""
+    dc-major kernel on llr f32 [B, n] on the card, its tables as
+    dcmajor_plan says. Raises on anything the kernel does not take; no
+    fallback."""
     _check_llr(llr, graph.n, max(max_iters, 1), "dcmajor_cuda",
                "dcmajor_plain")
     if variant not in VARIANTS:
@@ -216,9 +236,10 @@ def dcmajor_cuda(graph, llr: torch.Tensor, variant: str = "full",
         rc = lib.dcmajor_decode(
             llr.data_ptr(), bits.data_ptr(), ok.data_ptr(), iters.data_ptr(),
             None if post is None else post.data_ptr(), t["cn"].data_ptr(),
-            t["vptr"].data_ptr(), t["vedge"].data_ptr(), graph.n, graph.m,
-            graph.dc_max, B, max_iters, VARIANTS.index(variant),
-            plan["frames"], plan["tiles"], plan["blocks"], plan["threads"],
+            t["vmat"].data_ptr(), graph.n, graph.m, graph.dc_max,
+            t["vmat"].shape[1], B, max_iters, VARIANTS.index(variant),
+            plan["frames"], plan["tiles"], plan["lanes"],
+            int(plan["tables"] == "smem"), plan["blocks"], plan["threads"],
             plan["smem"], alpha, beta,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
@@ -253,6 +274,14 @@ def main(argv=None) -> int:
     spec = f"minsum/norm:{ALPHA}/{args.iters}/noet"
     x = make_inputs(args.code, spec, args.batch, EBN0, dev, seed=0)
     graph = x.graph
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    plan = dcmajor_plan(graph, args.batch, sms)
+    print(f"plan: F={plan['frames']} ({plan['lanes']} an item), "
+          f"{plan['tiles']} tiles on {plan['blocks']} blocks, tables "
+          f"{plan['tables']}", flush=True)
+    common.record(experiment="smallcode_opt2", code=args.code,
+                  batch=args.batch, plan=plan, **card)
     kbits = args.batch * x.spec.k
     bound, by = decode_bound(x.spec.n, x.spec.num_edges, args.batch,
                              args.batch * args.iters, "minsum", x.spec.m,

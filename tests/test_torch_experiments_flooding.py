@@ -76,13 +76,16 @@ def test_tables_and_padding(code):
         for j in range(dc):
             want = cn_vn[i, j] if mask[i, j] else -1
             assert t["cn"][j * m + i] == want
-    # every real edge once, each variable's in ascending order
+    # every real edge once, each variable's in ascending order, the padding
+    # after them
     real = np.flatnonzero(t["cn"] >= 0)
-    assert sorted(t["vedge"].tolist()) == real.tolist()
+    vmat = t["vmat"]
+    assert sorted(vmat[vmat >= 0].tolist()) == real.tolist()
     for v in range(g.n):
-        es = t["vedge"][t["vptr"][v]:t["vptr"][v + 1]]
+        d = int((vmat[v] >= 0).sum())
+        es = vmat[v, :d]
+        assert np.all(vmat[v, d:] == -1)
         assert np.all(np.diff(es) > 0) and np.all(t["cn"][es] == v)
-        assert np.array_equal(t["vmat"][v][t["vmat"][v] >= 0], es)
 
 
 def test_plan_and_wrapper_rules(code):
@@ -96,7 +99,8 @@ def test_plan_and_wrapper_rules(code):
                                   np.ones((504, 6), bool),
                                   np.zeros((1008, 3), np.int32),
                                   np.ones((1008, 3), bool)), 2048, 132)
-    # 20,160 B a frame: 11 fit a block, so 2 waves of tiles of 8
+    # 20,160 B a frame: 11 fit a block (10 beside its 12,096 B of int16
+    # tables), so 2 waves of tiles of 8 either way
     assert (mackay["frames"], mackay["tiles"]) == (8, 256)
     before = sc.dcmajor_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -116,3 +120,47 @@ def test_main_needs_the_card_unless_cpu():
         pytest.skip("this machine has CUDA")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sc.main(["mackay1008", "--batch", "4", "--iters", "2"])
+
+
+def test_plan_lanes_and_table_form(code):
+    """The kernel's frames an item and tables: on mackay1008 (n = 1008,
+    dc * m = 3024) two frames an item at B = 2048 (F = 8) and one at 13
+    frames (F = 1), its tables in shared memory as int16, which cost it no
+    frame a tile. The tables the wrapper hands the kernel are tables()'s
+    cn and vmat, and fit int16 where the plan stages them."""
+    _, _, g, _ = code
+    mackay = compiled_graph_from_numpy(
+        1008, 504, 504, np.zeros((504, 6), np.int32), np.ones((504, 6), bool),
+        np.zeros((1008, 3), np.int32), np.ones((1008, 3), bool))
+    p = sc.dcmajor_plan(mackay, 2048, 132)
+    assert (p["frames"], p["lanes"], p["tables"]) == (8, 2, "smem")
+    assert p["smem"] == 8 * 20_160 + 12_096
+    p = sc.dcmajor_plan(mackay, 13, 132)
+    assert (p["frames"], p["lanes"], p["tables"]) == (1, 1, "smem")
+    t, on = sc.tables(g), sc._tables_on(g, torch.device("cpu"))
+    plan = sc.dcmajor_plan(g, B, 132)
+    assert plan["tables"] == "smem"
+    for k in ("cn", "vmat"):
+        assert on[k].dtype == torch.int32 and on[k].is_contiguous()
+        assert np.array_equal(on[k].numpy(), t[k])
+        assert np.array_equal(t[k].astype(np.int16), t[k])
+    dv = t["vmat"].shape[1]
+    assert plan["smem"] >= (4 * plan["frames"] * (2 * g.n + g.dc_max * g.m)
+                            + 2 * (g.dc_max * g.m + g.n * dv))
+
+
+def test_plan_reads_crowding_tables_through_the_read_only_path():
+    """Where int16 tables in shared memory would cost a tile frames, the
+    plan reads them through the read-only path at one frame an item: on
+    nr5g/bg1/32 (129,280 B a frame; cn and vmat 186,496 B as int16) they
+    leave no room for a frame, and the plan runs one a block, as before
+    the tables moved on chip."""
+    from ecc_ldpc_tpu_torch.codes import get_code
+    from ecc_ldpc_tpu_torch.graph.compile import compile_graph
+
+    g = compile_graph(get_code("nr5g/bg1/32"))
+    assert (g.n, g.m, g.dc_max, g.dv_max) == (2176, 1472, 19, 30)
+    for batch, tiles in ((140, 140), (2048, 2048)):
+        p = sc.dcmajor_plan(g, batch, 132)
+        assert (p["frames"], p["lanes"], p["tables"]) == (1, 1, "ldg")
+        assert (p["tiles"], p["smem"]) == (tiles, 4 * (2 * 2176 + 19 * 1472))

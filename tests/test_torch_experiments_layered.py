@@ -2,7 +2,8 @@
 ecc_ldpc_tpu_torch/experiments/ablate.py) against the TPU script's Pallas
 kernel (experiments/ablate_layered.py) run in interpret mode, on the z16
 surrogate of tests/test_torch_layered_qc.py; and the static sweep's
-generated header, the storage mapping and the wrapper's rules. E2 and E3
+generated header, the storage mapping and the wrapper's rules; E1's
+slot-kind table and its schedule run on the host. E2 and E3
 are tests/test_torch_experiments_layered2.py's, so that the two files'
 JAX builds run on two workers.
 
@@ -33,6 +34,7 @@ from ecc_ldpc_tpu_torch.experiments import (
     ablate_layered2,
     static_unroll,
 )
+from ecc_ldpc_tpu_torch.experiments.ablate import EARLY, FORWARDED, LATE
 from ecc_ldpc_tpu_torch.experiments.variants import (
     E1_VARIANTS,
     E2_VARIANTS,
@@ -194,3 +196,81 @@ def test_main_runs_on_the_cpu(capsys):
     assert ablate_layered2.main(["--device", "cpu", "--iters", "1",
                                  "--batch", "2", "--tries", "1"]) == 0
     assert "saves" in capsys.readouterr().out
+
+
+def test_e1_slot_kinds_on_dvbs2():
+    """E1's table on dvbs2/64800/12 with ablate_plan's homes: 521 early,
+    87 forwarded and 23 late slots, the late ones in 21 of the 90 layers;
+    a forwarded slot's source has its block-column and shift in the layer
+    before, and no early slot's block-column is touched there, across the
+    sweep's wrap too. The packed words hold the same kinds, the homes and
+    the shifts, zeros past a row's degree, and each row's degree, kinds
+    and spilled slots as masks."""
+    g = ablate.static_graph()
+    plan = ablate.ablate_plan(g, ablate.THROUGHPUT_B)
+    kinds = ablate.slot_kinds(g)
+    flat = [k for row in kinds for k in row]
+    assert [sum(k[0] == kind for k in flat)
+            for kind in (EARLY, FORWARDED, LATE)] == [521, 87, 23]
+    assert sum(any(k[0] == LATE for k in row) for row in kinds) == 21
+    rows = [[(c, s) for _, c, s in g.layer_edges(i)] for i in g.layer_order]
+    for L, row in enumerate(kinds):
+        prev = rows[L - 1]
+        for j, (kind, k) in enumerate(row):
+            c, s = rows[L][j]
+            if kind == FORWARDED:
+                assert prev[k] == (c, s)
+            elif kind == EARLY:
+                assert c not in {pc for pc, _ in prev}
+            else:
+                assert c in {pc for pc, _ in prev} and (c, s) not in prev
+    table = ablate.e1_table(g, plan.home, plan.frames).view(np.uint32)
+    table = table.reshape(g.mb, ablate.E1_ROW).astype(np.int64)
+    bit = {EARLY: 8, FORWARDED: 16, LATE: 24}
+    for L, row in enumerate(kinds):
+        masks = len(row)
+        spilled = 0
+        for j, (kind, _) in enumerate(row):
+            c, s = rows[L][j]
+            h, w = plan.home[c], int(table[L, j])
+            assert w & 0x7FF == s * plan.frames
+            assert (w >> 11) & 0x7FF == (h if h >= 0 else -1 - h)
+            assert (w >> 22) & 1 == (h < 0)
+            assert w >> 23 == kind
+            masks |= 1 << (bit[kind] + j)
+            spilled |= (h < 0) << j
+        assert not table[L, len(row):ablate.E1_DEG].any()
+        assert list(table[L, ablate.E1_DEG:]) == [masks, spilled, 0, 0]
+
+
+@pytest.mark.parametrize("variant", list(E1_VARIANTS))
+def test_e1_schedule_matches_plain(z16, variant):
+    """ablate_scheduled (E1's reads in its table's order: early slots
+    before the layer before's writes, forwarded ones from its results,
+    late ones after) equals ablate_plain bit for bit, on the z16 graph (3
+    sweeps) and on one frame of dvbs2/64800/12 (one sweep)."""
+    _, g, llr3 = z16
+    fl = E1_VARIANTS[variant]
+    x = ablate.to_var(g, torch.from_numpy(llr3), bool(fl & ROLL))
+    big = ablate.static_graph()
+    rng = np.random.default_rng(5)
+    y = torch.from_numpy((rng.standard_normal((1, big.n)) + 0.5).astype(
+        np.float32))
+    for graph, llr, iters in ((g, x, ITERS), (big, y, 1)):
+        bits, post = ablate.ablate_plain(graph, llr, fl, iters)
+        sbits, spost = ablate.ablate_scheduled(graph, llr, fl, iters)
+        assert torch.equal(bits, sbits)
+        assert torch.equal(post.view(torch.int32), spost.view(torch.int32))
+
+
+def test_e1_schedule_is_checked(z16, monkeypatch):
+    """The schedule model sees an illegal table: with every slot read
+    early (ahead of the layer before's writes) it departs from the plain
+    decode."""
+    _, g, llr3 = z16
+    x = ablate.to_var(g, torch.from_numpy(llr3), True)
+    bits, post = ablate.ablate_plain(g, x, E1_VARIANTS["full"], ITERS)
+    monkeypatch.setattr(ablate, "slot_kinds", lambda graph: [
+        [(EARLY, 0)] * len(graph.layer_edges(i)) for i in graph.layer_order])
+    _, wrong = ablate.ablate_scheduled(g, x, E1_VARIANTS["full"], ITERS)
+    assert not torch.equal(post, wrong)
