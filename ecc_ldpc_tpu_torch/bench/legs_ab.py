@@ -15,7 +15,7 @@ f32 library from its build's `-Xptxas -v` report, whether every instance
 the other tree has agrees (an instance of a kernel that gained a trailing
 bool template parameter, such as the classic kernel's XOR, against its
 `false` instantiation), and the instances this tree adds. Leg names are
-bench.profile's: the keys of LEGS,
+the keys of bench.throughput's LEGS,
 EXACT_LEGS and FLOODING_LEGS, ccsds_<rule> and 8023an_<mode>, and
 mackay_spa and mackay_minstar (the mackay leg's shape with spa/25/noet and
 minstar/25/noet); a leg that a tree lacks is skipped there.

@@ -64,6 +64,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .cn_ops import CN_KINDS
 from .layered_qc import make_layered_decoder, tpu_precision
 from .quant import BF16, PERM
@@ -261,11 +262,13 @@ def with_retry(primary, fallback):
 
     def decode(llr: torch.Tensor) -> DecodeResult:
         res = primary(llr)
-        bad = np.flatnonzero(~res.ok.cpu().numpy())
-        if len(bad) == 0:
+        with trace.span("retry.ok_read"):
+            ok = res.ok.cpu().numpy()
+        if ok.all():
             return res
-        idx = torch.as_tensor(bad, device=llr.device)
-        retry = fallback(llr.index_select(0, idx))
+        with trace.span("retry.dispatch"):
+            idx = torch.as_tensor(np.flatnonzero(~ok), device=llr.device)
+            retry = fallback(llr.index_select(0, idx))
         iters = res.iterations.index_select(0, idx) + retry.iterations
         return DecodeResult(
             bits=res.bits.index_copy(0, idx, retry.bits),

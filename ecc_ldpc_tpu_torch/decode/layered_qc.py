@@ -61,6 +61,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import resolve_device
 from ..graph.qc import PERMS, QCGraph, var_index
 from .quant import (
@@ -936,23 +937,24 @@ def _launch_minsum(graph: QCGraph, llr: torch.Tensor, alpha, beta,
                    quant=None, perm_dtype=torch.float32):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     layered min-sum kernel on the current stream."""
-    precision = kernel_precision(msg_dtype, quant, perm_dtype)
-    if cn != "minsum":
-        raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
-                         f"spa and minstar are layered_exact_cuda's")
-    _check_cuda_input(graph, llr, max_iters, "layered_decode_cuda")
-    _check_perm(graph, precision, cn)
-    dev, B, Z = llr.device, llr.shape[0], graph.Z
-    ab, a0, b0, fast_mag = _minsum_args(graph, alpha, beta, max_iters,
-                                        early_term, dev)
-    tab = _device_tables(graph, dev, "kernel", _kernel_table)
-    inst = (graph.dcb_max, int(early_term), int(fast_mag),
-            int(graph.perm == "xor"))
-    name = _library("layered_qc", precision)
-    plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
-        name, inst, graph, llr, cn, early_term, with_posteriors)
-    lib = _lib(name, "layered_qc_decode", _QC_ARGS)
-    with torch.cuda.device(dev):
+    with trace.span("decode.prepare"):
+        precision = kernel_precision(msg_dtype, quant, perm_dtype)
+        if cn != "minsum":
+            raise ValueError(f"the min-sum kernel runs minsum, not {cn!r}; "
+                             f"spa and minstar are layered_exact_cuda's")
+        _check_cuda_input(graph, llr, max_iters, "layered_decode_cuda")
+        _check_perm(graph, precision, cn)
+        dev, B, Z = llr.device, llr.shape[0], graph.Z
+        ab, a0, b0, fast_mag = _minsum_args(graph, alpha, beta, max_iters,
+                                            early_term, dev)
+        tab = _device_tables(graph, dev, "kernel", _kernel_table)
+        inst = (graph.dcb_max, int(early_term), int(fast_mag),
+                int(graph.perm == "xor"))
+        name = _library("layered_qc", precision)
+        plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
+            name, inst, graph, llr, cn, early_term, with_posteriors)
+        lib = _lib(name, "layered_qc_decode", _QC_ARGS)
+    with trace.launch(layered_decode_cuda, dev), torch.cuda.device(dev):
         rc = lib.layered_qc_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
             iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(ab),
@@ -1009,6 +1011,10 @@ layered_decode_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 layered_decode_cuda.launches_by_precision = collections.Counter()
 # the last launch's (TilePlan, clusters resident, precision), for printing
 layered_decode_cuda.last_plan = None
+# device time of the launches timed while a profiler window recorded
+# (trace.launch): whole microseconds, and the launches resolved
+layered_decode_cuda.device_us = 0
+layered_decode_cuda.device_timed = 0
 
 
 def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
@@ -1016,21 +1022,23 @@ def _launch_exact(graph: QCGraph, llr: torch.Tensor, max_iters: int,
                   msg_dtype=torch.float32, quant=None):
     """(DecodeResult, posteriors f32 [B, n] or None) of one launch of the
     exact-BP layered kernel on the current stream."""
-    precision = kernel_precision(msg_dtype, quant)
-    if cn not in ("spa", "minstar"):
-        raise ValueError(f"the exact-BP kernel runs spa or minstar, not {cn!r}")
-    _check_cuda_input(graph, llr, max_iters, "layered_exact_cuda")
-    dev, B, Z = llr.device, llr.shape[0], graph.Z
-    tab = _device_tables(graph, dev, "kernel", _kernel_table)
-    inst = (graph.dcb_max, int(cn == "minstar"), int(early_term),
-            int(graph.perm == "xor"))
-    name = _library("layered_exact", precision, graph.perm)
-    plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
-        name, inst, graph, llr, cn, early_term, with_posteriors)
-    wide = wide_scratch(graph.dcb_max, cn,
-                        clusters * plan.cluster * plan.threads, dev)
-    lib = _lib(name, "layered_exact_decode", _EXACT_ARGS)
-    with torch.cuda.device(dev):
+    with trace.span("decode.prepare"):
+        precision = kernel_precision(msg_dtype, quant)
+        if cn not in ("spa", "minstar"):
+            raise ValueError(
+                f"the exact-BP kernel runs spa or minstar, not {cn!r}")
+        _check_cuda_input(graph, llr, max_iters, "layered_exact_cuda")
+        dev, B, Z = llr.device, llr.shape[0], graph.Z
+        tab = _device_tables(graph, dev, "kernel", _kernel_table)
+        inst = (graph.dcb_max, int(cn == "minstar"), int(early_term),
+                int(graph.perm == "xor"))
+        name = _library("layered_exact", precision, graph.perm)
+        plan, clusters, scratch, ptrs, bits, post, ok, iters = _plan_launch(
+            name, inst, graph, llr, cn, early_term, with_posteriors)
+        wide = wide_scratch(graph.dcb_max, cn,
+                            clusters * plan.cluster * plan.threads, dev)
+        lib = _lib(name, "layered_exact_decode", _EXACT_ARGS)
+    with trace.launch(layered_exact_cuda, dev), torch.cuda.device(dev):
         rc = lib.layered_exact_decode(
             llr.data_ptr(), bits.data_ptr(), _ptr(post), ok.data_ptr(),
             iters.data_ptr(), *ptrs, tab.data_ptr(), _ptr(wide),
@@ -1081,6 +1089,8 @@ layered_exact_cuda.launches_by_perm = dict.fromkeys(PERMS, 0)
 layered_exact_cuda.frames_by_perm = dict.fromkeys(PERMS, 0)
 layered_exact_cuda.launches_by_precision = collections.Counter()
 layered_exact_cuda.last_plan = None
+layered_exact_cuda.device_us = 0  # as layered_decode_cuda's
+layered_exact_cuda.device_timed = 0
 
 
 def mask_words(degree: int) -> int:

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import trace
 from ..chan.modem import build_channel
 from ..codes.registry import get_code
 from ..decode.api import choose_graph, get_decoder
@@ -198,11 +199,15 @@ class Pipeline:
         return msg, self.channel.draw(gen, self.batch, self.device)
 
     def llr(self, msg, noise, ebn0_db) -> torch.Tensor:
-        return self.channel(None, self.encode(msg), ebn0_db, noise)
+        with trace.span("encode"):
+            cw = self.encode(msg)
+        with trace.span("channel"):
+            return self.channel(None, cw, ebn0_db, noise)
 
     def counts(self, msg, noise, ebn0_db) -> torch.Tensor:
         msg_hat, iterations = self.decode(self.llr(msg, noise, ebn0_db))
-        return tally_counts(msg, msg_hat, iterations)
+        with trace.span("tally"):
+            return tally_counts(msg, msg_hat, iterations)
 
     def frames(self, gen, ebn0_db) -> tuple:
         msg, noise = self.draw(gen)
